@@ -1,0 +1,256 @@
+"""`PhotonicDriver`: the single observability boundary to a device.
+
+Counterpart of ``repro/hw/driver.py`` (the ops the calibrate → map →
+serve slice uses; batched op lists and their async forms come with the
+driver-plane slice).  On chip only the end-to-end ``UΣV*`` response is
+observable, so the control plane (IC, PM) talks to a device only through
+this ABC:
+
+================  =========================================================
+op                physical meaning
+================  =========================================================
+write_phases      command the MZI rotation phases Φ^U / Φ^V
+write_sigma       command the Σ attenuators
+write_signs       command the ±1 crossing configuration (topological)
+read_phases/...   read back the *commanded* state (controller-known)
+forward           stream probe columns through the realized UΣV* response
+forward_layer     serve-path forward through the assembled P×Q block grid
+readback_bases    reciprocal-probe readout of the realized bases (OSP)
+zo_refine         in-situ job: hardware-restricted ZCD on Φ
+run_ic            in-situ job: Identity Calibration's surrogate search
+advance           let (virtual) time pass
+================  =========================================================
+
+Every op that touches light is metered in :class:`DriverStats` in the
+paper's Appendix-G unit (PTC calls), exactly as the reference charges it.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["DriverStats", "PhotonicDriver", "ZORefineResult", "ICJobResult",
+           "probe_cost", "readback_cost", "readout_blocks",
+           "resolve_block_range", "STAT_CATEGORIES"]
+
+# the PTC meter's categories (DriverStats fields a charge may land in)
+STAT_CATEGORIES = frozenset(["serve", "probe", "readback", "search"])
+
+
+def resolve_block_range(n_blocks: int,
+                        block_range: tuple[int, int] | None
+                        ) -> tuple[int, int]:
+    """Validate a tenant block range against the chip geometry.
+
+    ``None`` means the whole chip ``(0, n_blocks)``; otherwise the range
+    must be a non-empty ``(start, stop)`` inside ``[0, n_blocks]``.
+    """
+    if block_range is None:
+        return 0, n_blocks
+    start, stop = int(block_range[0]), int(block_range[1])
+    if not (0 <= start < stop <= n_blocks):
+        raise ValueError(
+            f"block_range {block_range!r} out of bounds for a chip with "
+            f"{n_blocks} blocks")
+    return start, stop
+
+
+def probe_cost(n_blocks: int, n_cols: int) -> float:
+    """PTC calls for ``n_cols`` probe columns through ``n_blocks`` blocks
+    (Appendix-G: E_fwd = P·Q·n_cols with B = P·Q)."""
+    return float(n_blocks * n_cols)
+
+
+def readback_cost(n_blocks: int, k: int) -> float:
+    """PTC calls for one reciprocal readback of the realized bases:
+    two reciprocal passes of k columns per block (Claim 1)."""
+    return float(2 * n_blocks * k)
+
+
+def readout_blocks(driver: "PhotonicDriver", category: str = "probe",
+                   block_range: tuple[int, int] | None = None
+                   ) -> torch.Tensor:
+    """Exact Ŵ readout, (B, k, k): k unit-vector probe columns per block
+    — observability-legal (forward probes only), costs B·k PTC calls."""
+    eye = torch.eye(driver.k, dtype=torch.float32, device=driver.device)
+    y = driver.forward(eye, category=category, block_range=block_range)
+    return y.transpose(1, 2)
+
+
+@dataclasses.dataclass
+class DriverStats:
+    """PTC-call meter, split by control-plane purpose.
+
+    ``serve``    — traffic through ``forward_layer``
+    ``probe``    — health probes / observability reads (``forward``)
+    ``readback`` — reciprocal basis readbacks (``readback_bases``)
+    ``search``   — in-situ optimization jobs (``zo_refine`` / ``run_ic``)
+    """
+
+    serve: float = 0.0
+    probe: float = 0.0
+    readback: float = 0.0
+    search: float = 0.0
+
+    @property
+    def total(self) -> float:
+        return self.serve + self.probe + self.readback + self.search
+
+    def as_dict(self) -> dict:
+        return dict(serve=self.serve, probe=self.probe,
+                    readback=self.readback, search=self.search,
+                    total=self.total)
+
+    def charge(self, category: str, calls: float) -> None:
+        if category not in STAT_CATEGORIES:
+            raise ValueError(
+                f"unknown PTC-meter category {category!r} "
+                f"(one of {sorted(STAT_CATEGORIES)})")
+        setattr(self, category, getattr(self, category) + float(calls))
+
+
+class ZORefineResult(NamedTuple):
+    """Result of an in-situ ``zo_refine`` job (phases are also written)."""
+
+    phi: torch.Tensor        # refreshed commanded phases, (B, 2T)
+    loss: torch.Tensor       # final per-block objective values, (B,)
+    history: torch.Tensor    # best-loss traces, (B, steps // record_every)
+    steps: int               # ZCD probe steps actually spent per block
+
+
+class ICJobResult(NamedTuple):
+    """Result of an in-situ ``run_ic`` job (phases are also written)."""
+
+    phi: torch.Tensor        # commanded phases after IC, (B, 2T)
+    u: torch.Tensor          # readback of the realized Ĩ_U, (B, k, k)
+    v: torch.Tensor          # readback of the realized Ĩ_V
+    loss: torch.Tensor       # final surrogate loss per block
+    history: torch.Tensor    # best-loss traces across restarts
+
+
+class PhotonicDriver(abc.ABC):
+    """Abstract control-plane handle to one photonic chip.
+
+    A driver owns the commanded state (phases, attenuators, signs), the
+    device's clock, and the PTC-call meter.  Writes, probes and jobs take
+    an optional ``block_range=(start, stop)`` scoping them to one tenant's
+    blocks.
+    """
+
+    # -- geometry (fixed at deployment) -------------------------------------
+
+    @property
+    @abc.abstractmethod
+    def k(self) -> int:
+        """PTC block size."""
+
+    @property
+    @abc.abstractmethod
+    def kind(self) -> str:
+        """Mesh topology (e.g. ``"clements"``)."""
+
+    @property
+    @abc.abstractmethod
+    def n_blocks(self) -> int:
+        """Number of independent k×k blocks on the chip."""
+
+    @property
+    @abc.abstractmethod
+    def layer_shape(self) -> tuple[int, int]:
+        """(M, N) of the logical weight the block grid assembles."""
+
+    @property
+    @abc.abstractmethod
+    def device(self) -> torch.device:
+        """Where the driver's tensors live (probe inputs go there too)."""
+
+    # -- commanded state -----------------------------------------------------
+
+    @abc.abstractmethod
+    def write_phases(self, phi_u: torch.Tensor, phi_v: torch.Tensor, *,
+                     block_range: tuple[int, int] | None = None) -> None:
+        """Command the rotation phases, each (B, T)."""
+
+    @abc.abstractmethod
+    def write_sigma(self, sigma: torch.Tensor, *,
+                    block_range: tuple[int, int] | None = None) -> None:
+        """Command the Σ attenuators, (B, k)."""
+
+    @abc.abstractmethod
+    def write_signs(self, d_u: torch.Tensor, d_v: torch.Tensor, *,
+                    block_range: tuple[int, int] | None = None) -> None:
+        """Command the ±1 crossing configuration, each (B, k)."""
+
+    @abc.abstractmethod
+    def read_phases(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Commanded (Φ^U, Φ^V) — controller-known, free."""
+
+    @abc.abstractmethod
+    def read_sigma(self) -> torch.Tensor:
+        """Commanded Σ — controller-known, free."""
+
+    # -- observability-legal probes (metered) --------------------------------
+
+    @abc.abstractmethod
+    def forward(self, x: torch.Tensor, category: str = "probe", *,
+                block_range: tuple[int, int] | None = None) -> torch.Tensor:
+        """Stream shared probe columns ``x`` (n, k) through every block's
+        realized response; returns (B, n, k).  Costs B·n PTC calls."""
+
+    @abc.abstractmethod
+    def forward_layer(self, x: torch.Tensor, *,
+                      block_range: tuple[int, int] | None = None,
+                      out_dim: int | None = None) -> torch.Tensor:
+        """Serve-path forward (..., N) → (..., M) through the assembled
+        P×Q grid.  Costs B·n_rows PTC calls (metered as ``serve``)."""
+
+    @abc.abstractmethod
+    def readback_bases(self, cols=None, *,
+                       block_range: tuple[int, int] | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Reciprocal-probe readout of the realized bases (U, V*), each
+        (B, k, k), or only the columns ``cols``.  Costs 2·B·k PTC calls
+        (2·B·len(cols) for a partial one)."""
+
+    # -- in-situ jobs (run on the device's local controller; metered) --------
+
+    @abc.abstractmethod
+    def zo_refine(self, w_blocks: torch.Tensor, gen: torch.Generator | None,
+                  cfg, method: str = "zcd", *,
+                  block_range: tuple[int, int] | None = None,
+                  draws: torch.Tensor | None = None) -> ZORefineResult:
+        """Hardware-restricted alternate ZCD on the commanded phases against
+        per-block targets, warm-started from the written state.  Writes
+        the result and returns it.  Costs steps·2·B·k PTC calls."""
+
+    @abc.abstractmethod
+    def run_ic(self, gen: torch.Generator | None, sigs: torch.Tensor, cfg,
+               *, restarts: int = 4, method: str = "zcd",
+               draws: torch.Tensor | None = None) -> ICJobResult:
+        """Identity Calibration: ZO search on the multi-Σ_cal intensity
+        surrogate (Eq. 2) with probe attenuator schedule ``sigs``."""
+
+    # -- time ----------------------------------------------------------------
+
+    @abc.abstractmethod
+    def advance(self, dt: float = 1.0) -> None:
+        """Let ``dt`` ticks of (virtual) time pass."""
+
+    # -- accounting ----------------------------------------------------------
+
+    @property
+    @abc.abstractmethod
+    def stats(self) -> DriverStats:
+        """Cumulative PTC-call meter."""
+
+    @abc.abstractmethod
+    def charge(self, category: str, calls: float) -> None:
+        """Meter probes consumed by controller-side estimators."""
+
+    def reset_stats(self) -> None:
+        s = self.stats
+        s.serve = s.probe = s.readback = s.search = 0.0

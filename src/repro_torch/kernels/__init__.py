@@ -1,0 +1,19 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+============================  ==========================================
+wrapper                       replaces (TPU kernel in ``repro.kernels``)
+============================  ==========================================
+``ptc_block_matmul``          ``ptc_block_matmul.ptc_block_matmul``
+``mesh_apply(_batched)``      ``mesh_apply.mesh_apply_butterfly``
+============================  ==========================================
+
+Each wrapper launches its CUDA kernel (``repro_torch/csrc``) on a CUDA
+tensor and runs its plain PyTorch version (:mod:`.ref`) on a CPU tensor.
+"""
+
+from .build import launch_counts, reset_launch_counts
+from .mesh_apply import mesh_apply, mesh_apply_batched, mesh_apply_plain
+from .ptc_block_matmul import ptc_block_matmul
+
+__all__ = ["launch_counts", "reset_launch_counts", "mesh_apply",
+           "mesh_apply_batched", "mesh_apply_plain", "ptc_block_matmul"]

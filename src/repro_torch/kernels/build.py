@@ -1,0 +1,114 @@
+"""Build and load the hand-written CUDA kernels (``repro_torch/csrc``).
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library under ``build/repro_torch/`` at
+the root of the checkout, at first use; the library is loaded with
+``ctypes``.  Library names carry a hash of the source and the flags, so an
+edited source is never served a stale build.  :func:`build` starts one
+``nvcc`` per source, all at once.
+
+Nothing here runs at import time: a CUDA-less host imports the package and
+uses the plain PyTorch versions.
+
+The launch counters live here too: each kernel wrapper adds one to its
+entry in :data:`launch_counts` where it launches its kernel, and nowhere
+else, so a run can show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
+           "check_status", "launch_counts", "reset_launch_counts"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = {"mesh_apply": "mesh_apply.cu",
+           "ptc_block_matmul": "ptc_block_matmul.cu"}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(names=None, force: bool = False) -> dict:
+    """Compile the named kernels (default: all) in parallel.
+
+    Returns the wall seconds of the whole build and the names it built.  ``ptxas`` reports
+    (registers, shared memory, spills) are kept beside each library as
+    ``<name>.ptxas.log``.  Raises with nvcc's output if any build fails.
+    """
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists() and not force:
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.ptxas.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {"seconds": time.perf_counter() - t0, "built": sorted(procs)}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name``, built if missing."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def check_status(name: str, status: int) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if status != 0:
+        msg = library(name).repro_cuda_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} at launch: {msg}")

@@ -1,0 +1,134 @@
+"""Block-batched MZI mesh application ``y_b = U(Φ_b, D_b) x_b``: the wrapper.
+
+Counterpart of ``repro/kernels/mesh_apply.py`` and the table pass of
+``repro/kernels/ops.py::mesh_apply``.  On a CUDA tensor it launches the
+hand-written kernel in ``csrc/mesh_apply.cu`` (which computes cos/sin
+itself); on a CPU tensor it runs the plain PyTorch version
+(:func:`repro_torch.kernels.ref.mesh_apply_ref`).
+
+``spec`` is a :class:`repro_torch.core.unitary.MeshSpec`; only its numpy
+layer tables are read here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import build
+from .ref import mesh_apply_ref
+
+__all__ = ["mesh_apply", "mesh_apply_batched", "mesh_apply_plain",
+           "layer_tables", "MAX_K"]
+
+NAME = "mesh_apply"
+MAX_K = 32
+_MAX_ROW_TILES = 65535   # grid.y limit; row tiles are 256 rows
+
+
+def _lib():
+    lib = build.library(NAME)
+    fn = lib.mesh_apply_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong] + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=64)
+def layer_tables(k: int, kind: str, device: torch.device):
+    """The spec's layer tables on ``device``: (slot, partner, sign) for the
+    plain version and the kernel's upper-wire slot table."""
+    from ..core.unitary import mesh_spec
+    spec = mesh_spec(k, kind)
+    up = np.where(spec.layer_sign < 0, spec.layer_slot, -1).astype(np.int32)
+    as_t = functools.partial(torch.as_tensor, device=device)
+    return (as_t(spec.layer_slot.astype(np.int64)),
+            as_t(spec.layer_partner.astype(np.int64)),
+            as_t(spec.layer_sign), as_t(up).contiguous())
+
+
+def mesh_apply_plain(spec, phases: torch.Tensor, x: torch.Tensor,
+                     d: torch.Tensor | None = None, *,
+                     transpose_out: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of :func:`mesh_apply_batched`, on any
+    device (the wrapper's path for CPU tensors; the kernel's reference on
+    the card)."""
+    slot, partner, sign, _ = layer_tables(spec.k, spec.kind, x.device)
+    y = mesh_apply_ref(x.expand(phases.shape[0], -1, -1), phases[:, None],
+                       slot, partner, sign, None if d is None else d[:, None])
+    return y.transpose(1, 2).contiguous() if transpose_out else y.contiguous()
+
+
+def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
+                       d: torch.Tensor | None = None, *,
+                       transpose_out: bool = False) -> torch.Tensor:
+    """Apply mesh ``b`` to the rows of ``x[b]`` for every mesh of a batch.
+
+    phases: (B, T) fp32 contiguous; x: (B or 1, R, k) fp32 whose rows are
+    contiguous (a leading 1 shares x across all meshes); d: (B, k) ±1 signs
+    or None.  Returns (B, R, k), or (B, k, R) with ``transpose_out`` (for
+    ``build_unitary``: row j of the applied identity is column j of U).
+    """
+    k, t = spec.k, spec.n_rot
+    if phases.dim() != 2 or phases.shape[1] != t:
+        raise ValueError(f"mesh_apply: phases {tuple(phases.shape)} is not "
+                         f"(B, {t})")
+    b = phases.shape[0]
+    if x.dim() != 3 or x.shape[2] != k or x.shape[0] not in (1, b):
+        raise ValueError(f"mesh_apply: x {tuple(x.shape)} is not "
+                         f"({b} or 1, R, {k})")
+    if d is not None and tuple(d.shape) != (b, k):
+        raise ValueError(f"mesh_apply: d {tuple(d.shape)} is not ({b}, {k})")
+    ins = (phases, x) if d is None else (phases, x, d)
+    if any(a.dtype != torch.float32 for a in ins):
+        raise TypeError("mesh_apply: phases, x and d must be float32")
+    if len({a.device for a in ins}) != 1:
+        raise ValueError("mesh_apply: inputs lie on different devices")
+    if not phases.is_contiguous() or (d is not None and not d.is_contiguous()) \
+            or x.stride(2) != 1 or (x.shape[1] > 1 and x.stride(1) != k):
+        raise ValueError("mesh_apply: phases, d and the rows of x must be "
+                         "contiguous")
+    r = x.shape[1]
+    if x.device.type == "cpu":
+        return mesh_apply_plain(spec, phases, x, d,
+                                transpose_out=transpose_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"mesh_apply: unsupported device {x.device}")
+    if k > MAX_K:
+        raise ValueError(f"mesh_apply: k = {k} > {MAX_K}")
+    out = torch.empty((b, k, r) if transpose_out else (b, r, k),
+                      dtype=x.dtype, device=x.device)
+    if b == 0 or r == 0:
+        return out
+    if -(-r // 256) > _MAX_ROW_TILES:
+        raise ValueError(f"mesh_apply: too many rows per mesh ({r})")
+    up = layer_tables(k, spec.kind, x.device)[3]
+    x_bstride = x.stride(0) if x.shape[0] == b and b > 1 else 0
+    y_rstride, y_wstride = (1, r) if transpose_out else (k, 1)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _lib()(x.data_ptr(), x_bstride, phases.data_ptr(),
+                        0 if d is None else d.data_ptr(), up.data_ptr(),
+                        out.data_ptr(), r * k, y_rstride, y_wstride,
+                        b, r, k, t, up.shape[0], stream)
+    build.check_status(NAME, status)
+    build.launch_counts[NAME] += 1
+    return out
+
+
+def mesh_apply(spec, phases: torch.Tensor, x: torch.Tensor,
+               d: torch.Tensor | None = None) -> torch.Tensor:
+    """U(Φ, D) @ x for one mesh — the reference ``ops.mesh_apply`` signature.
+
+    phases: (T,); x: (B, k); d: (k,) | None  →  (B, k).
+    """
+    return mesh_apply_batched(spec, phases[None], x[None],
+                              None if d is None else d[None])[0]
