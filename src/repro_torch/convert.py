@@ -16,12 +16,13 @@ import torch
 
 from .core.noise import NoiseModel, PhaseNoise
 from .core.ptc import PTCParams
+from .core.subspace import SubspaceMasks
 from .hw.device import DeviceRealization  # repro: noqa[RPL101]
 from .optim.zo import ZOConfig
 
 __all__ = ["tensor", "named_tuple", "phase_noise", "device_realization",
            "ptc_params", "weights", "commanded_state", "noise_model",
-           "zo_config"]
+           "zo_config", "param_tree", "subspace_masks"]
 
 
 def tensor(a, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -81,3 +82,19 @@ def noise_model(obj) -> NoiseModel:
 def zo_config(obj) -> ZOConfig:
     """A ZO budget NamedTuple, field by field."""
     return ZOConfig(**{f: getattr(obj, f) for f in ZOConfig._fields})
+
+
+def param_tree(tree, device="cpu") -> dict:
+    """A nested dict of arrays (a model's parameters, e.g. the reference's
+    ``init_cnn`` output with leaves ``u``, ``s``, ``v``, ``b``) as the same
+    nesting of fp32 tensors."""
+    return {name: param_tree(leaf, device) if isinstance(leaf, dict)
+            else tensor(leaf, device) for name, leaf in tree.items()}
+
+
+def subspace_masks(obj, device="cpu") -> SubspaceMasks | None:
+    """A step's ``(feedback, column)`` masks; ``None`` stays ``None``."""
+    if obj is None:
+        return None
+    return SubspaceMasks(*(None if m is None else tensor(m, device)
+                           for m in (obj.feedback, obj.column)))

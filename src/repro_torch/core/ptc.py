@@ -1,7 +1,7 @@
 """Photonic tensor core (PTC) substrate: blockwise-SVD weight parametrization.
 
 Counterpart of ``repro/core/ptc.py`` (the parts the calibrate → map →
-serve slice uses).  Every ``M×N`` weight is stored as ``P×Q`` blocks of
+serve and subspace-learning slices use).  Every ``M×N`` weight is stored as ``P×Q`` blocks of
 size ``k×k``, each factorized ``W_pq = U_pq Σ_pq V*_pq``.
 
 Conventions: ``W`` is ``(M, N) = (out, in)``; a linear layer computes
@@ -13,13 +13,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels.ptc_block_matmul import ptc_block_matmul
 
 __all__ = ["PTCParams", "pad_to_blocks", "blockize", "unblockize",
-           "svd_factorize", "compose_weight", "ptc_forward_blocked",
+           "svd_factorize", "random_factorize", "identity_factorize",
+           "compose_weight", "block_energy", "ptc_forward_blocked",
            "ptc_forward_fused"]
 
 
@@ -77,9 +80,54 @@ def svd_factorize(w: torch.Tensor, k: int) -> PTCParams:
     return PTCParams(u=u, s=s, v=vh)
 
 
+def random_factorize(gen: torch.Generator, m: int, n: int, k: int,
+                     scale: float | None = None,
+                     dtype=torch.float32) -> PTCParams:
+    """Random-orthogonal bases + scaled singular values (train-from-scratch),
+    on the generator's device.
+
+    ``scale`` defaults to sqrt(2/(M+N)), Glorot-normal-matched: with Haar
+    bases E[W_ij²] = E[s²]/k, so s ~ N(0, k·σ_w²).
+    """
+    device = gen.device
+    p, q = pad_to_blocks(m, k) // k, pad_to_blocks(n, k) // k
+    u = _random_orthogonal_batch(gen, (p, q), k, dtype, device)
+    v = _random_orthogonal_batch(gen, (p, q), k, dtype, device)
+    if scale is None:
+        scale = math.sqrt(2.0 / (m + n))
+    s = scale * math.sqrt(k) * torch.randn((p, q, k), generator=gen,
+                                           device=device)
+    return PTCParams(u=u, s=s.to(dtype), v=v)
+
+
+def identity_factorize(m: int, n: int, k: int, dtype=torch.float32,
+                       device=None) -> PTCParams:
+    """U = V* = I, Σ = 1 — the post-Identity-Calibration circuit state."""
+    p, q = pad_to_blocks(m, k) // k, pad_to_blocks(n, k) // k
+    eye = torch.eye(k, dtype=dtype, device=device).expand(p, q, k, k)
+    return PTCParams(u=eye, s=torch.ones((p, q, k), dtype=dtype,
+                                         device=device), v=eye)
+
+
+def _random_orthogonal_batch(gen: torch.Generator, batch: tuple[int, ...],
+                             k: int, dtype, device) -> torch.Tensor:
+    """Haar-random orthogonal k×k matrices: QR of a Gaussian, with R's
+    diagonal signs moved into Q."""
+    g = torch.randn(batch + (k, k), generator=gen, device=device)
+    qm, rm = torch.linalg.qr(g)
+    qm = qm * torch.sign(torch.diagonal(rm, dim1=-2, dim2=-1))[..., None, :]
+    return qm.to(dtype)
+
+
 def compose_weight(params: PTCParams) -> torch.Tensor:
     """W_pq = U diag(s) V* for every block → (P, Q, k, k)."""
     return (params.u * params.s[..., None, :]) @ params.v
+
+
+def block_energy(params: PTCParams) -> torch.Tensor:
+    """‖W_pq‖_F² = Tr(|Σ_pq|²) — the btopk sampling score (paper §3.4.2),
+    (P, Q) in fp32."""
+    return torch.sum(params.s.float() ** 2, dim=-1)
 
 
 def _pad_cols(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -5,6 +5,8 @@ wrapper                       replaces (TPU kernel in ``repro.kernels``)
 ============================  ==========================================
 ``ptc_block_matmul``          ``ptc_block_matmul.ptc_block_matmul``
 ``mesh_apply(_batched)``      ``mesh_apply.mesh_apply_butterfly``
+``sigma_grad``                ``sigma_grad.sigma_grad``
+``feedback_matmul``           ``feedback_matmul.feedback_matmul``
 ============================  ==========================================
 
 Each wrapper launches its CUDA kernel (``repro_torch/csrc``) on a CUDA
@@ -12,8 +14,11 @@ tensor and runs its plain PyTorch version (:mod:`.ref`) on a CPU tensor.
 """
 
 from .build import launch_counts, reset_launch_counts
+from .feedback_matmul import feedback_matmul
 from .mesh_apply import mesh_apply, mesh_apply_batched, mesh_apply_plain
 from .ptc_block_matmul import ptc_block_matmul
+from .sigma_grad import sigma_grad
 
 __all__ = ["launch_counts", "reset_launch_counts", "mesh_apply",
-           "mesh_apply_batched", "mesh_apply_plain", "ptc_block_matmul"]
+           "mesh_apply_batched", "mesh_apply_plain", "ptc_block_matmul",
+           "sigma_grad", "feedback_matmul"]

@@ -31,7 +31,9 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"mesh_apply": "mesh_apply.cu",
-           "ptc_block_matmul": "ptc_block_matmul.cu"}
+           "ptc_block_matmul": "ptc_block_matmul.cu",
+           "sigma_grad": "sigma_grad.cu",
+           "feedback_matmul": "feedback_matmul.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

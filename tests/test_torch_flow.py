@@ -1,5 +1,6 @@
-"""Port parity for the slice as a whole: calibrate → map → serve at the
-reference quickstart's geometry (18 → 18 → 9 MLP, k = 9), on the CPU.
+"""Port parity for the quickstart flow as a whole: calibrate → map →
+serve → subspace learning at the reference quickstart's geometry
+(18 → 18 → 9 MLP, k = 9), on the CPU.
 
 Both packages get the same data, the same pre-trained weights (trained by
 the reference's AdamW and carried across), the same device realizations
@@ -22,6 +23,12 @@ fp32 rounding and nothing more:
 
 The optimizer is checked on its own: a few AdamW and SGD steps on the same
 gradients agree to 1e-6.
+
+Subspace learning is checked on one step of the reference quickstart's
+stage 3 from the reference's mapped factors, with Σ, the sampled masks
+(drawn by the reference) and the data shared: loss and Σ-gradients to
+1e-5 relative, the AdamW update to 1e-6.  The port's SL stage then runs a
+cut budget of 20 steps on its own mapped chips.
 """
 
 import jax
@@ -32,7 +39,9 @@ import torch
 
 from repro.core.calibration import calibrate_identity as j_calibrate
 from repro.core.mapping import parallel_map as j_parallel_map
+from repro.core import ptc as jptc, subspace as jsub
 from repro.core.noise import NoiseModel as JNoiseModel
+from repro.core.sparsity import SparsityConfig as JSparsityConfig
 from repro.data import synthetic_vision as j_synthetic_vision
 from repro.hw.device import sample_device as j_sample_device
 from repro.optim import optimizers as jopt
@@ -40,7 +49,9 @@ from repro.optim.zo import ZOConfig
 from repro_torch import convert
 from repro_torch.core.calibration import calibrate_identity
 from repro_torch.core.mapping import parallel_map
+from repro_torch import quickstart
 from repro_torch.data.synthetic import synthetic_vision
+from repro_torch.kernels import build
 from repro_torch.optim import optimizers as topt
 
 D_IN, D_H, D_OUT, K = 18, 18, 9, 9
@@ -139,6 +150,8 @@ def flows(pretrained):
     out["acc"] = tuple(float(np.mean(np.argmax(lg, -1) == data["y"]))
                        for lg in (logits_j, logits_t.numpy()))
     out["logits_t"] = logits_t
+    out["params_j"] = [pj.params for pj in pms_j]
+    out["params_t"] = [pt.params for pt in pms_t]
     return out
 
 
@@ -188,3 +201,61 @@ def test_optimizer_steps_match(cfg_name):
         assert abs(float(nt) - float(nj)) <= 1e-5 * float(nj)
     for a, b in zip(pt, pj["w"]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_sl_step_matches_reference(pretrained, flows):
+    data, _ = pretrained
+    xj, yj = jnp.asarray(data["x"]), jnp.asarray(data["y"])
+    pj = [jptc.PTCParams(*(jnp.asarray(a, jnp.float32) for a in p))
+          for p in flows["params_j"]]
+    scfg = JSparsityConfig(alpha_w=0.6, alpha_c=0.6, alpha_d=0.2)
+    key = jax.random.PRNGKey(3)
+    masks = [jsub.sample_masks(jax.random.fold_in(key, i), pj[i],
+                               xj.shape[0], scfg) for i in range(2)]
+
+    def loss(sv):
+        ps = [jptc.PTCParams(pj[i].u, sv["s"][i], pj[i].v) for i in range(2)]
+        h = jax.nn.relu(jsub.ptc_linear(xj, ps[0], masks[0], mode="blocked"))
+        logits = jsub.ptc_linear(h, ps[1], masks[1], mode="blocked")
+        return jnp.mean(jax.nn.logsumexp(logits, -1)
+                        - jnp.take_along_axis(logits, yj[:, None], -1)[:, 0])
+
+    sv = {"s": [p.s for p in pj]}
+    lj, gj = jax.value_and_grad(loss)(sv)
+    newj, _, _ = jopt.apply_updates(sv, gj, jopt.init_opt_state(sv),
+                                    jopt.AdamWConfig(lr=2e-3))
+
+    pt = [convert.ptc_params(p) for p in pj]
+    lt, gt = quickstart.sl_grads(
+        pt, torch.from_numpy(data["x"]),
+        torch.from_numpy(data["y"]).long(), D_H, D_OUT,
+        [convert.subspace_masks(m) for m in masks])
+    assert abs(float(lt) - float(lj)) <= 1e-5 * float(lj)
+    for a, b in zip(gt, gj["s"]):
+        b = np.asarray(b)
+        assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()
+    st = [p.s for p in pt]
+    newt, _, _ = topt.apply_updates(st, gt, topt.init_opt_state(st),
+                                    quickstart.SL_OPT)
+    assert quickstart.SL_OPT == topt.AdamWConfig(lr=2e-3)
+    for a, b in zip(newt, newj["s"]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_sl_stage_runs_on_cpu(pretrained, flows):
+    """The quickstart's stage 3 at a cut budget on the port's own mapped
+    factors: plain versions only, finite, no loss of accuracy."""
+    data, _ = pretrained
+    x, y = torch.from_numpy(data["x"]), torch.from_numpy(data["y"]).long()
+    params = flows["params_t"]
+    before = dict(build.launch_counts)
+    sv, steps, loss = quickstart.subspace_learning(
+        params, x, y, D_H, D_OUT, torch.Generator().manual_seed(3), steps=20)
+    assert build.launch_counts == before
+    assert 10 <= steps <= 20 and np.isfinite(loss)
+    trained = [p._replace(s=s) for p, s in zip(params, sv)]
+    with torch.no_grad():
+        accs = [float((quickstart._ptc_logits(ps, x, D_H, D_OUT).argmax(-1)
+                       == y).float().mean()) for ps in (params, trained)]
+    assert accs[1] >= accs[0] - 0.01, accs
+    assert not any(torch.equal(a, p.s) for a, p in zip(sv, params))

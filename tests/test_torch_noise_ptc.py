@@ -10,6 +10,7 @@ singular-vector pairs.  Forward paths: 1e-4 relative, as the kernel suite.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,3 +128,34 @@ def test_ptc_forwards_match(m, n, rows):
         yt = ft(pt, torch.from_numpy(x), m).numpy()
         assert yt.shape == (2, rows, m)
         assert np.abs(yt - yj).max() / np.abs(yj).max() < 1e-4
+
+
+def test_block_energy_and_identity_factorize_match():
+    s = np.random.default_rng(2).standard_normal((3, 4, 9)).astype(np.float32)
+    u = np.zeros((3, 4, 9, 9), np.float32)
+    ej = np.asarray(jptc.block_energy(jptc.PTCParams(
+        jnp.asarray(u), jnp.asarray(s), jnp.asarray(u))))
+    et = tptc.block_energy(tptc.PTCParams(*(torch.from_numpy(a)
+                                            for a in (u, s, u))))
+    assert et.shape == (3, 4) and et.dtype == torch.float32
+    np.testing.assert_allclose(et.numpy(), ej, rtol=1e-6)
+    fj = jptc.identity_factorize(20, 31, 9)
+    ft = tptc.identity_factorize(20, 31, 9)
+    for a, b in zip(ft, fj):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_random_factorize_follows_the_reference_init():
+    """Haar bases and Glorot-matched Σ on the reference's (P, Q) grid (the
+    two packages draw different numbers, so the law is compared)."""
+    m, n, k = 60, 100, 9
+    fj = jptc.random_factorize(jax.random.PRNGKey(0), m, n, k)
+    ft = tptc.random_factorize(torch.Generator().manual_seed(0), m, n, k)
+    for a, b in zip(ft, fj):
+        assert tuple(a.shape) == b.shape and a.dtype == torch.float32
+    eye = torch.eye(k).expand(7, 12, k, k)
+    for basis in (ft.u, ft.v):
+        assert torch.allclose(basis @ basis.transpose(-1, -2), eye, atol=1e-5)
+    want = np.sqrt(2.0 / (m + n)) * np.sqrt(k)
+    assert abs(float(ft.s.std()) - want) < 0.1 * want
+    assert abs(float(np.asarray(fj.s).std()) - want) < 0.1 * want
