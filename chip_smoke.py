@@ -6,12 +6,13 @@
 
 Phases:
 
-1. ``kernels`` — print the card's name and power limit, build all four
-   CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each, in
-   parallel), and hold each against its plain PyTorch version on the
+1. ``kernels`` — print the card's name and power limit, build all seven
+   CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
+   in parallel), and hold each against its plain PyTorch version on the
    card: the reference package's kernel-test geometries, ragged row
-   counts, feedback masks of density 0, 0.5, 1 and btopk, and the
-   full-width shapes of the main path, where each is also timed beside
+   counts, feedback masks of density 0, 0.5, 1 and btopk, duplicate
+   scatter targets, the prefill (blk, window, cap) sweep, and the
+   full-width shapes of the main paths, where each is also timed beside
    its bound, its plain version and a PyTorch yardstick.
 2. ``parity`` — the reference quickstart's geometry (18 → 18 → 9, k = 9):
    dense pre-training, IC, PM, serving, subspace learning (SL) and serving
@@ -26,16 +27,24 @@ Phases:
    AdamW steps on Σ and biases through ``build_cnn_train_step`` with
    feedback and column sampling, on a fixed batch of 32; one step's
    gradients held against the same step through the plain versions.
+5. ``gateway`` — qwen3-4b at full width (36 layers, d_model 2560, k = 128
+   fused PTC with bf16 bases) serving 16 seeded Poisson requests through
+   the continuous-batching gateway with paged KV and chunked prefill
+   (chunk 64); every busy step must launch the gather, the scatter and
+   the prefill attention, one step is held against the plain versions,
+   and at smoke width (fp32) chunked prefill must emit the one-token
+   path's tokens.
 
 Every stage of a main path prints its wall time and its launches of each
 kernel, and must have launched each kernel it uses (``STAGE_KERNELS``).
 The last two lines are a ``{"kernels": [...]}`` JSON summary and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there are
-counted over the last quickstart path driven (full width, else parity),
-with every count set to 0 just before it; they are null when no main path
-ran.  Any failed check raises (exit code not 0).  Without a CUDA device,
-or without the repository beside this script, it exits with code 2 and
-prints no result.
+counted over its main path with every count set to 0 just before it: the
+PTC kernels over the last quickstart path driven (full width, else
+parity), the serving kernels over the gateway's qwen3-4b run; they are
+null when that path did not run.  Any failed check raises (exit code not
+0).  Without a CUDA device, or without the repository beside this script,
+it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -48,23 +57,35 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "parity", "full", "vgg8")
-# the kernels each stage of quickstart.run launches
+PHASES = ("kernels", "parity", "full", "vgg8", "gateway")
+# the kernels each stage of quickstart.run launches, and each busy step of
+# the serving gateway
 STAGE_KERNELS = {
     "ic": ("mesh_apply", "ptc_block_matmul"),
     "pm": ("mesh_apply", "ptc_block_matmul"),
     "serve": ("ptc_block_matmul",),
     "sl": ("ptc_block_matmul", "sigma_grad", "feedback_matmul"),
     "serve_sl": ("ptc_block_matmul",),
+    "gateway": ("paged_gather", "paged_scatter", "prefill_attention"),
 }
+QUICKSTART_STAGES = ("ic", "pm", "serve", "sl", "serve_sl")
+# the kernels of each main path: quickstart.run, and the gateway
+QUICKSTART_KERNELS = ("mesh_apply", "ptc_block_matmul", "sigma_grad",
+                      "feedback_matmul")
+GATEWAY_KERNELS = STAGE_KERNELS["gateway"]
 # TPU kernel each CUDA kernel replaces (function, file:line)
 REPLACES = {"ptc_block_matmul": "src/repro/kernels/ptc_block_matmul.py:46",
             "mesh_apply": "src/repro/kernels/mesh_apply.py:45",
             "sigma_grad": "src/repro/kernels/sigma_grad.py:43",
-            "feedback_matmul": "src/repro/kernels/feedback_matmul.py:48"}
+            "feedback_matmul": "src/repro/kernels/feedback_matmul.py:48",
+            "paged_gather": "src/repro/kernels/paged_kv.py:45",
+            "paged_scatter": "src/repro/kernels/paged_kv.py:79",
+            "prefill_attention": "src/repro/kernels/prefill_attn.py:88"}
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 without tensor
-# cores, and HBM3 bandwidth
+# cores, dense bf16 on the tensor cores (bf16 in, fp32 accumulate: the
+# least-time route for attention's products), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # the reference quickstart on a CPU (examples/quickstart.py): dense
 # accuracy, IC identity MSE, PM layer-1 error after OSP, mapped accuracy,
@@ -105,8 +126,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -119,8 +141,9 @@ def rel_err(a, b) -> tuple[float, float]:
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """One entry per kernel instantiation: template width, dtype,
-    registers and (if any) spilled bytes, from ``nvcc -Xptxas -v``."""
+    """One entry per kernel instantiation: its name, integer template
+    argument, dtype (bf16 if any operand is), registers and (if any)
+    spilled bytes, from ``nvcc -Xptxas -v``."""
     out, name, spill = [], "", ""
     for line in log.splitlines():
         if "Function properties for" in line:
@@ -130,10 +153,12 @@ def ptxas_summary(log: str) -> list[str]:
                  if "spill stores" in line else 0):
             spill = ", spills: " + line.strip()
         elif "Used" in line and "registers" in line and name:
-            width = re.search(r"kernelILi(\d+)E", name)
+            base = re.search(r"\d+([a-z_]+_kernel)", name)
+            width = re.search(r"Li(\d+)E", name)
             dtype = "bf16" if "bfloat16" in name else "fp32"
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"K={width.group(1) if width else '?'} {dtype} "
+            out.append(f"{base.group(1) if base else name}"
+                       f"<{width.group(1) if width else ''}> {dtype} "
                        f"{regs} regs{spill}")
             name = ""
     return out
@@ -275,6 +300,7 @@ def kernel_phase(torch) -> dict:
                                  library_ms=None, bound_ms=b_ms,
                                  bound_by=b_by)
     summary.update(backward_kernels(torch, gen))
+    summary.update(serving_kernels(torch, gen))
     return summary
 
 
@@ -405,6 +431,240 @@ def backward_kernels(torch, gen) -> dict:
             for name in ("sigma_grad", "feedback_matmul")}
 
 
+def engine_scatter_idx(n_periods: int, slots: int, chunk: int,
+                       n_pages: int, page_size: int, pages_per_slot: int,
+                       lens, take):
+    """(P·B·C, 2) scatter targets as the gateway builds them
+    (``engine._scatter_chunk``): slot b's first ``take[b]`` rows at its
+    consecutive positions from ``lens[b]`` in its own pages, every other
+    row on the period's scratch page at offset 0 (duplicates)."""
+    import numpy as np
+    stripe = n_pages + 1
+    idx = np.zeros((slots, chunk, 2), np.int32)
+    idx[:, :, 0] = n_pages
+    for b in range(slots):
+        pos = lens[b] + np.arange(take[b])
+        idx[b, :take[b], 0] = b * pages_per_slot + pos // page_size
+        idx[b, :take[b], 1] = pos % page_size
+    return np.concatenate([idx.reshape(-1, 2) + np.asarray(
+        [[p * stripe, 0]], np.int32) for p in range(n_periods)])
+
+
+def serving_kernels(torch, gen) -> dict:
+    """``paged_gather``, ``paged_scatter`` and ``prefill_attention`` against
+    their plain versions (bitwise for the two copies), then timed at the
+    qwen3-4b gateway's full-width shapes."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import (paged_gather, paged_scatter,
+                                     prefill_attention, ref)
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ids(high, *shape):
+        return torch.randint(0, high, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    summary = {}
+    # the gateway's full width: qwen3-4b (36 layers, 8 KV heads of 128),
+    # 8 slots, pages of 16 tokens, 320 pages (+1 scratch) per period,
+    # tables of 40 pages (S_max 640), prefill chunk 64
+    periods, slots, ps, n_pages, jmax, d, chunk = 36, 8, 16, 320, 40, 1024, 64
+    pool_pages = periods * (n_pages + 1)
+
+    # -- paged_gather: the reference test's geometry, odd row widths, and
+    # at full width the table of a full gateway (every period's 8 slots
+    # own all 320 pages of its stripe)
+    for (npg, p_s, dd, b, j, dtype) in ((10, 4, 6, 3, 2, f32),
+                                        (10, 4, 6, 3, 2, bf16),
+                                        (7, 3, 5, 2, 3, bf16)):
+        pages, table = randn(npg, p_s, dd, dtype=dtype), ids(npg, b, j)
+        check(torch.equal(paged_gather(table, pages),
+                          ref.paged_gather_ref(table, pages)),
+              f"paged_gather {(npg, p_s, dd, b, j)} {dtype}: not bitwise "
+              f"equal to pages[table]")
+    pages = randn(pool_pages, ps, d, dtype=bf16)
+    table = torch.cat([torch.randperm(n_pages, generator=gen, device=dev)
+                       + p * (n_pages + 1) for p in range(periods)])
+    table = table.to(torch.int32).reshape(periods * slots, jmax)
+    out = paged_gather(table, pages)
+    gather_err, _ = rel_err(out, ref.paged_gather_ref(table, pages))
+    check(gather_err == 0.0 and torch.equal(out, ref.paged_gather_ref(
+        table, pages)), "paged_gather full width: not bitwise equal to "
+                        "pages[table]")
+    view_bytes = out.numel() * out.element_size()
+    ms = cuda_ms(lambda: paged_gather(table, pages), 20)
+    plain = cuda_ms(lambda: ref.paged_gather_ref(table, pages), 20)
+    lib = cuda_ms(lambda: pages[table], 20)
+    # each page the table names read once, the views written once
+    read = int(torch.unique(table).numel()) * ps * d * 2
+    b_ms, b_by = bound_ms(0, read + view_bytes + table.numel() * 4)
+    print(f"[check] paged_gather: test geometry fp32 + bf16, odd rows, full "
+          f"width: bitwise equal to pages[table]")
+    print(f"[time] paged_gather (table {tuple(table.shape)}, pages "
+          f"{tuple(pages.shape)} bf16, view {view_bytes / 1e6:.1f} MB): "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library pages[table] "
+          f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    summary["paged_gather"] = dict(max_abs_err=gather_err, ms=ms,
+                                   plain_ms=plain,
+                                   library_ms=lib, bound_ms=b_ms,
+                                   bound_by=b_by)
+
+    # -- paged_scatter: distinct targets (the reference test), heavy
+    # duplicates (last-wins), and the gateway's mid-run step at full width
+    scatter_err = [0.0]
+
+    def scatter_case(pool, idx, rows, what):
+        got = paged_scatter(idx, rows, pool.clone())
+        want = ref.paged_scatter_ref(idx, rows, pool.clone())
+        again = paged_scatter(idx, rows, pool.clone())
+        scatter_err[0] = max(scatter_err[0], rel_err(got, want)[0])
+        check(torch.equal(got, want), f"paged_scatter {what}: not bitwise "
+                                      f"equal to the last-wins plain version")
+        check(torch.equal(got, again), f"paged_scatter {what}: two runs "
+                                       f"differ")
+
+    pool = randn(8, 4, 5)
+    idx = torch.tensor([[2, 1], [5, 0], [2, 3]], dtype=torch.int32,
+                       device=dev)
+    scatter_case(pool, idx, randn(3, 5), "test geometry")
+    for dtype in (f32, bf16):
+        dup = torch.stack([ids(6, 4096), ids(4, 4096)], dim=1)
+        scatter_case(randn(6, 4, 7, dtype=dtype), dup,
+                     randn(4096, 7, dtype=dtype), f"duplicates {dtype}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(0, 512, slots)
+    take = np.asarray([64, 64, 64, 1, 1, 1, 0, 0])    # prefill, decode, idle
+    idx = torch.as_tensor(engine_scatter_idx(
+        periods, slots, chunk, n_pages, ps, jmax, lens, take), device=dev)
+    rows = randn(idx.shape[0], d, dtype=bf16)
+    pool = randn(pool_pages, ps, d, dtype=bf16)
+    scatter_case(pool, idx, rows, "full width")
+    flat = (idx[:, 0].long() * ps + idx[:, 1].long())
+    winners = int(torch.unique(flat).numel())
+    print(f"[check] paged_scatter: test geometry, 4096 rows onto 24 targets "
+          f"(fp32 + bf16), full width ({idx.shape[0]} rows, {winners} "
+          f"distinct targets): bitwise equal to the last-wins plain version, "
+          f"two runs equal")
+    ms = cuda_ms(lambda: paged_scatter(idx, rows, pool), 20)
+    plain = cuda_ms(lambda: ref.paged_scatter_ref(idx, rows, pool), 20)
+    lib = cuda_ms(lambda: pool.view(-1, d).index_put_((flat,), rows), 20)
+    # least bytes: the targets read once (last-wins needs only them to
+    # pick the winners), each winning row read once and written once; a
+    # row that loses to a later one need never be read
+    nbytes = idx.numel() * 4 + 2 * winners * d * 2
+    b_ms, b_by = bound_ms(0, nbytes)
+    print(f"[time] paged_scatter ({idx.shape[0]} rows of {d} bf16, "
+          f"{winners} written): kernel {ms:.4f} ms, plain (last-wins + "
+          f"index_put_) {plain:.4f} ms, library index_put_ alone {lib:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}: targets read, winning rows "
+          f"read and written, {nbytes / 1e6:.1f} MB)")
+    summary["paged_scatter"] = dict(max_abs_err=scatter_err[0], ms=ms,
+                                    plain_ms=plain,
+                                    library_ms=lib, bound_ms=b_ms,
+                                    bound_by=b_by)
+
+    # -- prefill_attention: the reference test sweep, masked-block
+    # exactness, the smoke LM's mixed types, and the full-width step
+    worst = 0.0
+    b, c, h, hkv, hd, s = 3, 5, 4, 2, 8, 24
+    lens = torch.tensor([0, 7, 19], dtype=torch.int32, device=dev)
+    q, k, v = randn(b, c, h, hd), randn(b, s, hkv, hd), randn(b, s, hkv, hd)
+    for blk in (None, 8, 4):
+        for window, cap in ((None, None), (6, None), (None, 3.0), (5, 2.0)):
+            kw = dict(blk=blk, window=window, cap=cap)
+            got = prefill_attention(lens, q, k, v, **kw)
+            err = float((got - ref.prefill_attention_ref(
+                lens, q, k, v, window=window, cap=cap)).abs().max())
+            check(err < 2e-5, f"prefill_attention {kw}: max abs err "
+                              f"{err:.2e} >= 2e-5")
+            check(torch.equal(got, prefill_attention(lens, q, k, v, **kw)),
+                  f"prefill_attention {kw}: two runs differ")
+            worst = max(worst, err)
+    lens1 = torch.tensor([12], dtype=torch.int32, device=dev)
+    q1, k1, v1 = randn(1, 2, 2, 4), randn(1, 16, 1, 4), randn(1, 16, 1, 4)
+    base = prefill_attention(lens1, q1, k1, v1, blk=4, window=3)
+    k2, v2 = k1.clone(), v1.clone()
+    k2[:, :8], v2[:, :8] = 999.0, -999.0
+    check(torch.equal(base, prefill_attention(lens1, q1, k2, v2, blk=4,
+                                              window=3)),
+          "prefill_attention: a block outside the window changed the output")
+    qm, km, vm = q.clone(), k.to(bf16), v.to(bf16)     # the smoke LM's types
+    err = float((prefill_attention(lens, qm, km, vm, blk=8) - ref.
+                 prefill_attention_ref(lens, qm, km, vm)).abs().max())
+    check(err < 2e-5, f"prefill_attention fp32 q, bf16 kv: max abs err "
+                      f"{err:.2e} >= 2e-5")
+    worst = max(worst, err)
+
+    b, c, h, hkv, hd, s, blk = slots, chunk, 32, 8, 128, 640, 64
+    lens = torch.linspace(0, 576, b, device=dev).to(torch.int32)
+    q, k, v = randn(b, c, h, hd), randn(b, s, hkv, hd), randn(b, s, hkv, hd)
+    out = prefill_attention(lens, q, k, v, blk=blk)
+    err = float((out - ref.prefill_attention_ref(lens, q, k, v)).abs().max())
+    check(err < 2e-5, f"prefill_attention full width fp32: max abs err "
+                      f"{err:.2e} >= 2e-5")
+    worst = max(worst, err)
+    # a planted fault the limit must catch: the plain version's causal
+    # mask one key too wide (query c also sees key lens + c + 1)
+    leak = float((out - ref.prefill_attention_ref(lens + 1, q, k, v))
+                 .abs().max())
+    check(leak > 2e-5, f"prefill_attention full width fp32: a one-key "
+                       f"mask leak reads {leak:.2e}, inside 2e-5")
+    q, k, v = q.to(bf16), k.to(bf16), v.to(bf16)
+    out = prefill_attention(lens, q, k, v, blk=blk)
+    want = ref.prefill_attention_ref(lens, q, k, v)
+    diff, rel = rel_err(out, want)
+    check(rel <= 2 ** -7, f"prefill_attention full width bf16: rel err "
+                          f"{rel:.2e} > one bf16 ulp (2^-7)")
+    print(f"[check] prefill_attention: 12 (blk, window, cap) cases + fp32 q "
+          f"over bf16 kv + full width fp32: max abs err {worst:.2e} (tol "
+          f"2e-5; a one-key mask leak reads {leak:.2e}), two runs equal; "
+          f"masked block exact; full width bf16: max "
+          f"abs err {diff:.2e}, {rel:.2e} of the largest |out| (tol 2^-7, "
+          f"one bf16 ulp)")
+
+    ms = cuda_ms(lambda: prefill_attention(lens, q, k, v, blk=blk), 20)
+    plain = cuda_ms(lambda: ref.prefill_attention_ref(lens, q, k, v), 3)
+    qi = lens.long()[:, None] + torch.arange(c, device=dev)[None, :]
+    mask = (torch.arange(s, device=dev)[None, None, :]
+            <= qi[:, :, None])[:, None]                      # (B, 1, C, S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        try:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        except TypeError:       # a PyTorch without enable_gqa
+            return F.scaled_dot_product_attention(
+                qt, kt.repeat_interleave(h // hkv, 1),
+                vt.repeat_interleave(h // hkv, 1), attn_mask=mask)
+    _, lib_rel = rel_err(library().transpose(1, 2), want)
+    lib = cuda_ms(library, 20)
+    # least work: each live (query, key) pair once per query head, 2·Dh for
+    # q·k and 2·Dh for p·v; bytes: q and out once, each slot's K/V rows up
+    # to its last query position once
+    live = int(torch.minimum(qi + 1, torch.tensor(s, device=dev)).sum())
+    flops = 4 * hd * h * live
+    kv_rows = int(torch.clamp(lens.long() + c, max=s).sum())
+    nbytes = 2 * (2 * q.numel() + 2 * kv_rows * hkv * hd) + 4 * b
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"[time] prefill_attention (B={b}, C={c}, H={h}, Hkv={hkv}, "
+          f"Dh={hd}, S={s}, blk={blk}, lens {lens.tolist()}, bf16; {live} "
+          f"live pairs per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"library scaled_dot_product_attention with a boolean mask "
+          f"(rel err {lib_rel:.1e}) {lib:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
+          f"{nbytes / 1e6:.1f} MB)")
+    summary["prefill_attention"] = dict(max_abs_err=worst, ms=ms,
+                                        plain_ms=plain, library_ms=lib,
+                                        bound_ms=b_ms, bound_by=b_by)
+    return summary
+
+
 # ---------------------------------------------------------------------------
 # phases 2 and 3: the main path
 # ---------------------------------------------------------------------------
@@ -424,16 +684,17 @@ def main_path(torch, name: str, geometry: tuple, **kw) -> tuple[dict, dict]:
     build.reset_launch_counts()
     res = quickstart.run(*geometry, device="cuda",
                          log=lambda m: print(f"[{name}] {m}"), **kw)
-    launches = dict(build.launch_counts)
+    launches = {k: build.launch_counts[k] for k in QUICKSTART_KERNELS}
     print(f"[{name}] wall {time.perf_counter() - t0:.1f} s, launches "
           + ", ".join(f"{k}={v}" for k, v in launches.items()))
     for kernel, n in launches.items():
         check(n > 0, f"{name}: {kernel} was not launched on the main path")
-    for stage, kernels in STAGE_KERNELS.items():
+    for stage in QUICKSTART_STAGES:
+        kernels = STAGE_KERNELS[stage]
         info = res["stages"][stage]
         counts = info["launches"]
         print(f"[{name}] stage {stage}: {info['seconds']:.2f} s, launches "
-              + ", ".join(f"{k}={v}" for k, v in counts.items()))
+              + ", ".join(f"{k}={counts[k]}" for k in QUICKSTART_KERNELS))
         for kernel in kernels:
             check(counts[kernel] > 0,
                   f"{name}: {kernel} was not launched in {stage}")
@@ -608,7 +869,7 @@ def vgg8_phase(torch, steps: int = 30, batch: int = 32) -> None:
           f"{last:.4f}; step time (loss, gradients, AdamW) median "
           f"{median_ms:.2f} ms over steps 2-{steps}, first step "
           f"{1e3 * step_s[0]:.2f} ms; launches over {steps} steps "
-          + ", ".join(f"{k}={v}" for k, v in counts.items()))
+          + ", ".join(f"{k}={counts[k]}" for k in QUICKSTART_KERNELS))
     check(last < first, "vgg8: the loss did not fall")
 
     # where a step's device time goes: 3 steps under the profiler, their
@@ -633,6 +894,279 @@ def vgg8_phase(torch, steps: int = 30, batch: int = 32) -> None:
     print("[profile] top kernels per step: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 3e3:.3f} ms x"
         f"{e.count / 3:.0f}" for e in top))
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the LM serving gateway
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree):
+    for leaf in tree.values():
+        if isinstance(leaf, dict):
+            yield from _leaves(leaf)
+        else:
+            yield leaf
+
+
+# the checked gateway step, kernels against plain versions: the limit on
+# max |error| over the largest entry, for logits and new KV rows; it must
+# pass the sound step and fail the planted faults.  On an H100 the sound
+# step read 1.25e-2 (new KV rows) and the mildest fault, a one-key mask
+# leak, 6.78e-2 (new KV rows); the limit sits between them
+GATEWAY_TOL = 3e-2
+
+
+def gateway_phase(torch, check_step: int = 12) -> dict:
+    """qwen3-4b at full width (k = 128 fused PTC, bf16 bases) served
+    through the gateway with chunked prefill; returns the launches of the
+    three serving kernels over that run.
+
+    Busy step ``check_step`` is also checked: its gathered views and its
+    scattered pools bitwise against the plain versions, and (after the
+    run) its logits and new KV rows against the same step with the
+    attention through the plain version, and through planted faults of it
+    that the limit must catch."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import build, paged_scatter, ref
+    from repro_torch.models import attention, lm
+    from repro_torch.serving import (GatewayConfig, PageConfig,
+                                     ServingGateway, poisson_workload)
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_model(torch.Generator(dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[gateway] qwen3-4b: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, PTC k="
+          f"{cfg.ptc.k} {cfg.ptc.mode} {cfg.ptc.base_dtype}; init "
+          f"{init_s:.1f} s on the card, parameters {n_bytes / 1e9:.2f} GB, "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    pages = PageConfig(page_size=16, n_pages=320, max_pages_per_slot=40)
+    gcfg = GatewayConfig(slots=8, pages=pages, prefill_chunk=64, kv_block=64)
+    reqs = poisson_workload(0, 16, 0.5, cfg.vocab, prompt_len=(128, 512),
+                            max_new=(16, 64))
+    # warm-up, untimed: build the serving kernels (if the kernels phase
+    # did not), and let cuBLAS and the allocator meet every shape
+    t0 = time.perf_counter()
+    build.build([build.KERNELS[k] for k in GATEWAY_KERNELS])
+    ServingGateway(cfg, params, gcfg, device=dev).run(poisson_workload(
+        1, 2, 1.0, cfg.vocab, prompt_len=(64, 128), max_new=(2, 2)))
+    torch.cuda.synchronize()
+    print(f"[gateway] warm-up (kernel build if needed, 2 short requests): "
+          f"{time.perf_counter() - t0:.1f} s")
+    gw = ServingGateway(cfg, params, gcfg, device=dev)
+    print(f"[gateway] {len(reqs)} requests at 0.5 per step, prompts "
+          f"{min(r.prompt_len for r in reqs)}-"
+          f"{max(r.prompt_len for r in reqs)} tokens, max_new "
+          f"{min(r.max_new for r in reqs)}-{max(r.max_new for r in reqs)}, "
+          f"no EOS; {gcfg.slots} slots, pages of {pages.page_size} x "
+          f"{pages.n_pages} (+1 scratch) per period, S_max "
+          f"{pages.max_tokens_per_slot}, prefill chunk {gcfg.prefill_chunk},"
+          f" kv block {gcfg.kv_block}")
+
+    # instrument the run: a mark (host clock, launch counts) at the start
+    # of every busy step (its gather), and the checks of one busy step
+    marks, captured = [], {}
+    gather, step_fn, scatter = gw._gather_views, gw._step_fn, gw._scatter
+
+    def gather_views():
+        marks.append((time.perf_counter(), dict(build.launch_counts)))
+        views = gather()
+        if len(marks) == check_step:
+            table = torch.as_tensor(gw._period_table(), device=dev)
+            for name, pools in gw._pools.items():
+                for kk, pool in pools.items():
+                    want = ref.paged_gather_ref(table, pool)
+                    check(torch.equal(views[name][kk].reshape(want.shape),
+                                      want),
+                          f"gateway step {check_step}: gathered {name}.{kk} "
+                          f"differs from the plain version")
+        return views
+
+    def step(prm, views, batch):
+        out = step_fn(prm, views, batch)
+        if len(marks) == check_step:
+            captured.update(views=views, batch=batch, out=out)
+        return out
+
+    def scatter_rows(new_kv, full_idx, fn):
+        if len(marks) != check_step:
+            return scatter(new_kv, full_idx, fn)
+        before = {n: {kk: t.clone() for kk, t in p.items()}
+                  for n, p in gw._pools.items()}
+        scatter(new_kv, full_idx, fn)
+        after, gw._pools = gw._pools, before
+        scatter(new_kv, full_idx, ref.paged_scatter_ref)
+        plain, gw._pools = gw._pools, after
+        for name in after:
+            for kk in after[name]:
+                check(torch.equal(after[name][kk], plain[name][kk]),
+                      f"gateway step {check_step}: scattered {name}.{kk} "
+                      f"differs from the last-wins plain version")
+        captured["idx"] = full_idx
+
+    gw._gather_views, gw._step_fn, gw._scatter = \
+        gather_views, step, scatter_rows
+    build.reset_launch_counts()
+    rep = gw.run(reqs)
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), dict(build.launch_counts)))
+    launches = {k: build.launch_counts[k] for k in GATEWAY_KERNELS}
+    del gw._gather_views, gw._scatter                # back to the methods
+    gw._step_fn = step_fn
+
+    step_ms = []
+    for i, ((t_a, c_a), (t_b, c_b)) in enumerate(zip(marks, marks[1:]), 1):
+        for kernel in GATEWAY_KERNELS:
+            check(c_b[kernel] > c_a[kernel],
+                  f"gateway: {kernel} not launched in busy step {i}")
+        if i != check_step:
+            step_ms.append(1e3 * (t_b - t_a))
+    per_step = {k: (marks[1][1][k] - marks[0][1][k]) for k in GATEWAY_KERNELS}
+    for r in rep["requests"]:
+        check(r["n_out"] == r["max_new"] and r["finish_reason"] == "max_new",
+              f"gateway: request {r['rid']} produced {r['n_out']} of "
+              f"{r['max_new']} tokens")
+    lat, ttft = rep["latency_steps"], rep["ttft_steps"]
+    median_ms = float(np.median(step_ms))
+    print(f"[gateway] served {len(rep['requests'])} requests: "
+          f"{rep['steps']} steps ({rep['busy_steps']} busy, occupancy "
+          f"{rep['occupancy']:.2f}/{gcfg.slots}), {rep['tokens_out']} tokens "
+          f"out in {rep['wall_s']:.2f} s wall ({rep['tokens_per_s']:.1f} "
+          f"tokens/s); TTFT steps p50 {ttft['p50']:.0f} p99 {ttft['p99']:.1f};"
+          f" latency steps p50 {lat['p50']:.0f} p99 {lat['p99']:.1f}")
+    print(f"[gateway] busy step (gather, forward, scatter, argmax to the "
+          f"host) median {median_ms:.2f} ms, min {min(step_ms):.2f}, max "
+          f"{max(step_ms):.2f} over {len(step_ms)} steps; launches per busy "
+          f"step " + ", ".join(f"{k}={v}" for k, v in per_step.items())
+          + "; over the run " + ", ".join(f"{k}={v}" for k, v in
+                                           launches.items())
+          + f"; peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB")
+
+    # the checked step again with the attention through the plain version,
+    # and through planted faults of it, each of which must read above the
+    # limit: GQA's head map as `.repeat` (head h reads KV head h % Hkv
+    # instead of h // rep), the 1/sqrt(Dh) logit scale dropped, and the
+    # causal mask one key too wide (query c also sees key lens + c + 1)
+    kernel = attention.prefill_attention
+    logits_k, new_k = captured["out"]
+
+    def plain_step(fault=None):
+        def plain_attention(lens, q, k, v, *, blk=None, window=None,
+                            cap=None):
+            if fault == "mask":
+                lens = lens + 1
+            elif fault == "scale":
+                q = q * q.shape[-1] ** 0.5
+            elif fault == "gqa":
+                rep = q.shape[2] // k.shape[2]
+                k, v = k.repeat(1, 1, rep, 1), v.repeat(1, 1, rep, 1)
+            return ref.prefill_attention_ref(lens, q, k, v, window=window,
+                                             cap=cap)
+        attention.prefill_attention = plain_attention
+        try:
+            logits, new = gw._step_fn(params, captured["views"],
+                                      captured["batch"])
+        finally:
+            attention.prefill_attention = kernel
+        rel_kv = max(rel_err(new_k["pos0"][kk], new["pos0"][kk])[1]
+                     for kk in ("k", "v"))
+        return rel_err(logits_k, logits)[1], rel_kv, logits, new
+
+    rel_logits, rel_kv, logits_p, new_p = plain_step()
+    agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    first_equal = all(torch.equal(new_k["pos0"][kk][0], new_p["pos0"][kk][0])
+                      for kk in ("k", "v"))
+    del logits_p, new_p
+    check(first_equal, "gateway: layer 0's new KV rows differ between the "
+                       "kernel and plain steps (they precede any attention)")
+    check(rel_logits < GATEWAY_TOL and rel_kv < GATEWAY_TOL,
+          f"gateway step {check_step}: kernel vs plain attention: logits "
+          f"rel err {rel_logits:.2e}, new KV rel err {rel_kv:.2e} (tol "
+          f"{GATEWAY_TOL:.0e})")
+    faults = {f: plain_step(f)[:2] for f in ("gqa", "scale", "mask")}
+    print(f"[gateway] busy step {check_step}, kernels vs plain versions on "
+          f"the same views: gathered views and scattered pools bitwise equal;"
+          f" logits rel err {rel_logits:.2e}, new KV rows rel err "
+          f"{rel_kv:.2e} (tol {GATEWAY_TOL:.0e} of the largest entry: bf16 "
+          f"through 36 layers), layer 0's rows bitwise equal, argmax agrees "
+          f"on {agree:.2f} of the slots; planted faults in the plain version "
+          + ", ".join(f"{f}: logits {a:.2e}, new KV {b:.2e}"
+                      for f, (a, b) in faults.items()))
+    for f, (a, b) in faults.items():
+        check(max(a, b) > GATEWAY_TOL,
+              f"gateway step {check_step}: planted fault '{f}' reads logits "
+              f"{a:.2e}, new KV {b:.2e}, inside the limit {GATEWAY_TOL:.0e}")
+
+    # where a busy step's device time goes: the checked step replayed
+    # (gather, forward, scatter, argmax) 5 times unprofiled, 5 profiled
+    def busy_step():
+        views = gw._gather_views()
+        logits, new_kv = gw._step_fn(params, views, captured["batch"])
+        gw._scatter(new_kv, captured["idx"], paged_scatter)
+        return logits.argmax(-1).cpu()
+
+    busy_step()
+    wall = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        busy_step()
+        wall.append(1e3 * (time.perf_counter() - t0))
+    replay_ms = float(np.median(wall))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            busy_step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 5e3
+    if busy_ms == 0:
+        print("[profile] gateway: the profiler saw no device time; not "
+              "measured")
+    else:
+        print(f"[profile] gateway busy step replayed 5 times: unprofiled "
+              f"median {replay_ms:.2f} ms, kernel time {busy_ms:.2f} ms/step "
+              f"in {sum(e.count for e in kernels) / 5:.0f} launches/step: "
+              f"device busy {100 * busy_ms / replay_ms:.0f}%")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        print("[profile] top device operations per step: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms x"
+            f"{e.count / 5:.0f}" for e in top))
+    del params, gw, captured
+    torch.cuda.empty_cache()
+
+    # smoke width, fp32, on the card: chunked prefill emits the one-token
+    # path's tokens (gemma2: sliding window and soft-caps in the kernel)
+    for name in ("qwen3-4b", "gemma2-27b"):
+        scfg = smoke_config(name)
+        sp = lm.init_model(torch.Generator(dev).manual_seed(1), scfg)
+        tokens = {}
+        for chunk in (1, 8):
+            g = ServingGateway(scfg, sp, GatewayConfig(
+                slots=4, pages=PageConfig(8, 64, 8), prefill_chunk=chunk,
+                kv_block=8 if chunk > 1 else None), device=dev)
+            r = g.run(poisson_workload(1, 8, 0.5, scfg.vocab,
+                                       prompt_len=(4, 40), max_new=(4, 16)))
+            tokens[chunk] = [q["tokens"] for q in r["requests"]]
+        n = sum(len(t) for t in tokens[1])
+        check(tokens[1] == tokens[8], f"gateway {scfg.name}: chunk 8 tokens "
+                                      f"differ from chunk 1 tokens")
+        print(f"[gateway] {scfg.name} (fp32): prefill chunk 8 emits the "
+              f"chunk-1 path's {n} tokens of 8 requests exactly")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -662,12 +1196,14 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     summary = kernel_phase(torch) if "kernels" in phases else {}
-    # launches of each kernel on the last main path driven in this run
-    # (full width if it ran, else parity); null when none was driven
-    launches = dict.fromkeys(build.SOURCES)
+    # launches of each kernel on its main path in this run: the last
+    # quickstart path driven (full width, else parity) for the PTC kernels,
+    # the gateway for the serving kernels; null where none was driven
+    launches = dict.fromkeys(build.KERNELS)
 
     if "parity" in phases:
-        res, launches = main_path(torch, "parity", (18, 18, 9, 9))
+        res, counts = main_path(torch, "parity", (18, 18, 9, 9))
+        launches.update(counts)
         # the reference quickstart's numbers (CPU run of examples/
         # quickstart.py); the port draws its own randomness, so it lands
         # near them, not on them
@@ -692,9 +1228,9 @@ def main(argv=None) -> int:
         # input noise 6 (not the parity run's 0.8) keeps the 4096-wide
         # task from being trivially separable: dense held-out accuracy
         # is about 0.9, so the served accuracy can show a mapping loss
-        res, launches = main_path(torch, "full", (4096, 512, 10, 9),
-                                  noise=6.0, serve_batches=8,
-                                  serve_rows=1024)
+        res, counts = main_path(torch, "full", (4096, 512, 10, 9),
+                                noise=6.0, serve_batches=8, serve_rows=1024)
+        launches.update(counts)
         print(f"[full] served accuracy {res['served_acc']:.4f} beside dense "
               f"pre-trained accuracy {res['dense_served_acc']:.4f} on the "
               f"same {8 * 1024} request rows (training rows: dense "
@@ -712,11 +1248,15 @@ def main(argv=None) -> int:
     if "vgg8" in phases:
         vgg8_phase(torch)
 
+    if "gateway" in phases:
+        launches.update(gateway_phase(torch))
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)                     # name, power limit: as nvidia-smi has it
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
-             source=f"src/repro_torch/csrc/{build.SOURCES[name]}",
+             source="src/repro_torch/csrc/"
+                    + build.SOURCES[build.KERNELS[name]],
              replaces=REPLACES[name], launches=launches[name],
              max_abs_err=info["max_abs_err"], ms=info["ms"],
              plain_ms=info["plain_ms"], bound_ms=info["bound_ms"],

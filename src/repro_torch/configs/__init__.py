@@ -1,0 +1,44 @@
+"""Config registry of the port: the dense attention-only architectures.
+
+Counterpart of ``repro/configs/__init__.py`` and of ``parse_arch`` in
+``repro/launch/train.py``.  The reference's other architectures (MoE,
+ssm, hybrid, vlm, encdec) wait for their families (ROADMAP.md, queue 1,
+"LM families beyond dense attention"); asking for one raises.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from .common import smoke_reduce
+
+__all__ = ["ARCH_NAMES", "get_config", "smoke_config", "parse_arch",
+           "smoke_reduce"]
+
+_ARCH_MODULES = {
+    "gemma2-27b": "gemma2_27b",
+    "chatglm3-6b": "chatglm3_6b",
+    "olmo-1b": "olmo_1b",
+    "qwen3-4b": "qwen3_4b",
+}
+
+ARCH_NAMES = list(_ARCH_MODULES)
+
+
+def get_config(name: str):
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port has {ARCH_NAMES} "
+                       f"(other families: ROADMAP.md, queue 1)")
+    mod = importlib.import_module(f".{_ARCH_MODULES[name]}", __package__)
+    return mod.ARCH
+
+
+def smoke_config(name: str):
+    return smoke_reduce(get_config(name))
+
+
+def parse_arch(name: str):
+    """``<id>`` or ``smoke:<id>`` (the reduced config)."""
+    if name.startswith("smoke:"):
+        return smoke_config(name.split(":", 1)[1])
+    return get_config(name)

@@ -1,0 +1,31 @@
+"""Smoke reductions (counterpart of ``repro/configs/common.py``)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..models.layers import PTCLinearCfg
+from ..models.lm import ArchConfig, period_plan
+
+__all__ = ["smoke_reduce"]
+
+
+def smoke_reduce(cfg: ArchConfig) -> ArchConfig:
+    """Reduced same-family config: small widths, two periods, tiny vocab,
+    k = 8 fp32 PTC — runs a real step on a CPU in well under a second."""
+    plan, _ = period_plan(cfg)
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=len(plan) * 2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 2,
+        head_dim=16,
+        d_ff=96,
+        vocab=256,
+        sliding_window=8 if cfg.sliding_window else None,
+        ptc=PTCLinearCfg(k=8, mode=cfg.ptc.mode, base_dtype=torch.float32),
+    )

@@ -22,7 +22,7 @@ from .optim.zo import ZOConfig
 
 __all__ = ["tensor", "named_tuple", "phase_noise", "device_realization",
            "ptc_params", "weights", "commanded_state", "noise_model",
-           "zo_config", "param_tree", "subspace_masks"]
+           "zo_config", "param_tree", "subspace_masks", "lm_params"]
 
 
 def tensor(a, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -98,3 +98,20 @@ def subspace_masks(obj, device="cpu") -> SubspaceMasks | None:
         return None
     return SubspaceMasks(*(None if m is None else tensor(m, device)
                            for m in (obj.feedback, obj.column)))
+
+
+def lm_params(tree, device="cpu") -> dict:
+    """A reference LM parameter tree (``repro.models.lm.init_model``: nested
+    dicts, per-position leaves stacked on the period axis) as the same
+    nesting of tensors, each leaf in its own dtype.
+
+    A bf16 leaf arrives from ``numpy.asarray`` as ``ml_dtypes.bfloat16``,
+    which torch cannot read: it goes through float32 (exact: every bf16
+    value is a float32 value) and back to bf16."""
+    if isinstance(tree, dict):
+        return {name: lm_params(leaf, device) for name, leaf in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)

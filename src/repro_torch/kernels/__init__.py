@@ -7,6 +7,9 @@ wrapper                       replaces (TPU kernel in ``repro.kernels``)
 ``mesh_apply(_batched)``      ``mesh_apply.mesh_apply_butterfly``
 ``sigma_grad``                ``sigma_grad.sigma_grad``
 ``feedback_matmul``           ``feedback_matmul.feedback_matmul``
+``paged_gather``              ``paged_kv.paged_gather``
+``paged_scatter(_rows)``      ``paged_kv.paged_scatter(_rows)``
+``prefill_attention``         ``prefill_attn.prefill_attention``
 ============================  ==========================================
 
 Each wrapper launches its CUDA kernel (``repro_torch/csrc``) on a CUDA
@@ -16,9 +19,12 @@ tensor and runs its plain PyTorch version (:mod:`.ref`) on a CPU tensor.
 from .build import launch_counts, reset_launch_counts
 from .feedback_matmul import feedback_matmul
 from .mesh_apply import mesh_apply, mesh_apply_batched, mesh_apply_plain
+from .paged_kv import paged_gather, paged_scatter, paged_scatter_rows
+from .prefill_attn import prefill_attention
 from .ptc_block_matmul import ptc_block_matmul
 from .sigma_grad import sigma_grad
 
 __all__ = ["launch_counts", "reset_launch_counts", "mesh_apply",
            "mesh_apply_batched", "mesh_apply_plain", "ptc_block_matmul",
-           "sigma_grad", "feedback_matmul"]
+           "sigma_grad", "feedback_matmul", "paged_gather", "paged_scatter",
+           "paged_scatter_rows", "prefill_attention"]

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/repro_torch/`` at
 the root of the checkout, at first use; the library is loaded with
-``ctypes``.  Library names carry a hash of the source and the flags, so an
+``ctypes``.  A library may hold several kernels (``paged_kv.cu`` holds the
+gather and the scatter): :data:`KERNELS` names each kernel's library.  Library names carry a hash of the source and the flags, so an
 edited source is never served a stale build.  :func:`build` starts one
 ``nvcc`` per source, all at once.
 
@@ -25,19 +26,30 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
-           "check_status", "launch_counts", "reset_launch_counts"]
+__all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build",
+           "library", "check_status", "launch_counts", "reset_launch_counts"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# library name -> source file
 SOURCES = {"mesh_apply": "mesh_apply.cu",
            "ptc_block_matmul": "ptc_block_matmul.cu",
            "sigma_grad": "sigma_grad.cu",
-           "feedback_matmul": "feedback_matmul.cu"}
+           "feedback_matmul": "feedback_matmul.cu",
+           "paged_kv": "paged_kv.cu",
+           "prefill_attn": "prefill_attn.cu"}
+# kernel name (the launch counter's key) -> library name
+KERNELS = {"mesh_apply": "mesh_apply",
+           "ptc_block_matmul": "ptc_block_matmul",
+           "sigma_grad": "sigma_grad",
+           "feedback_matmul": "feedback_matmul",
+           "paged_gather": "paged_kv",
+           "paged_scatter": "paged_kv",
+           "prefill_attention": "prefill_attn"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
+launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -63,13 +75,13 @@ def _lib_path(name: str) -> Path:
 
 
 def build(names=None, force: bool = False) -> dict:
-    """Compile the named kernels (default: all) in parallel.
+    """Compile the named libraries (default: all) in parallel.
 
     Returns the wall seconds of the whole build and the names it built.  ``ptxas`` reports
     (registers, shared memory, spills) are kept beside each library as
     ``<name>.ptxas.log``.  Raises with nvcc's output if any build fails.
     """
-    names = list(SOURCES) if names is None else list(names)
+    names = list(SOURCES) if names is None else list(dict.fromkeys(names))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -96,7 +108,8 @@ def build(names=None, force: bool = False) -> dict:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name``, built if missing."""
+    """The loaded shared library ``name`` (a key of :data:`SOURCES`),
+    built if missing."""
     lib = _libs.get(name)
     if lib is None:
         path = _lib_path(name)

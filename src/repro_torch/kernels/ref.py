@@ -10,7 +10,10 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ptc_block_matmul_ref", "mesh_apply_ref", "sigma_grad_ref",
-           "feedback_matmul_ref"]
+           "feedback_matmul_ref", "paged_gather_ref", "paged_scatter_ref",
+           "prefill_attention_ref", "NEG_INF"]
+
+NEG_INF = -2.0 ** 30    # prefill attention's finite floor for masked logits
 
 
 def ptc_block_matmul_ref(x, u, s, v):
@@ -73,3 +76,67 @@ def mesh_apply_ref(x, phases, layer_slot, layer_partner, layer_sign, d=None):
         s = torch.where(live, torch.sin(ph), 0.0).to(x.dtype) * sg.to(x.dtype)
         x = c * x + s * x[..., pt]
     return x
+
+
+def paged_gather_ref(table, pages):
+    """Per-slot contiguous views of a paged pool, in one indexing call.
+
+    table: (B, J) int32 page ids; pages: (n_pages, ps, d)  →  (B, J·ps, d)
+    """
+    b, j = table.shape
+    if table.numel() and (table.min() < 0 or table.max() >= pages.shape[0]):
+        raise IndexError("paged_gather: a page id lies outside the pool")
+    return pages[table.long()].reshape(b, j * pages.shape[1], pages.shape[2])
+
+
+def paged_scatter_ref(idx, rows, pages):
+    """Write ``rows[r]`` at ``pages[idx[r, 0], idx[r, 1]]`` in place and
+    return ``pages``; duplicate targets resolve last-wins, made explicit:
+    only the last occurrence of each target takes part in one
+    ``index_put_``.
+
+    idx: (R, 2) int32; rows: (R, d); pages: (n_pages, ps, d)
+    """
+    n_pages, ps, d = pages.shape
+    pid, off = idx[:, 0].long(), idx[:, 1].long()
+    if idx.shape[0] and (pid.min() < 0 or pid.max() >= n_pages
+                         or off.min() < 0 or off.max() >= ps):
+        raise ValueError("paged_scatter: a target lies outside the pool")
+    flat = pid * ps + off
+    order = torch.arange(flat.shape[0], device=flat.device)
+    last = torch.full((n_pages * ps,), -1, dtype=torch.long,
+                      device=flat.device)
+    last.scatter_reduce_(0, flat, order, reduce="amax")
+    keep = last[flat] == order
+    pages.view(n_pages * ps, d).index_put_((flat[keep],), rows[keep])
+    return pages
+
+
+def prefill_attention_ref(lens, q, k, v, window=None, cap=None):
+    """Dense masked softmax in fp32 with the kernel's masking discipline:
+    masked logits take the finite floor ``NEG_INF`` before the max and
+    their probabilities are zeroed by the mask.
+
+    lens: (B,) int; q: (B, C, H, Dh); k, v: (B, S, Hkv, Dh)  →  (B, C, H,
+    Dh) in q's dtype
+    """
+    b, c, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    kr = k.to(f32).repeat_interleave(h // hkv, dim=2)   # head h -> h // rep
+    vr = v.to(f32).repeat_interleave(h // hkv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kr) * hd ** -0.5
+    if cap is not None:
+        logits = cap * torch.tanh(logits / cap)
+    qi = lens.long()[:, None] + torch.arange(c, device=q.device)[None, :]
+    ki = torch.arange(s, device=q.device)
+    ok = ki[None, None, :] <= qi[:, :, None]                     # (B, C, S)
+    if window is not None:
+        ok = ok & (ki[None, None, :] > qi[:, :, None] - window)
+    ok = ok[:, None]                                           # (B, 1, C, S)
+    logits = torch.where(ok, logits, NEG_INF)
+    p = torch.where(ok, torch.exp(logits - logits.amax(-1, keepdim=True)),
+                    0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr) \
+        / p.sum(-1).transpose(1, 2)[..., None]
+    return out.to(q.dtype)

@@ -1,0 +1,174 @@
+"""GQA self-attention over PTC-factorized projections: the serving paths.
+
+Counterpart of the decode part of ``repro/models/attention.py``: grouped
+KV heads, qk-norm (qwen3), logit soft-capping (gemma2), sliding-window
+local layers (gemma2) and partial rotary (chatglm), against page-assembled
+KV views with per-slot cache lengths (the continuous-batching gateway).
+
+GQA expands KV head h // rep to query head h (``repeat_interleave``,
+``jnp.repeat``'s semantics).  The training paths (``attention``,
+``_sdpa`` / ``_sdpa_chunked``), the dense-cache decode and cross-attention
+belong to later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels.prefill_attn import prefill_attention
+from .layers import (PTCLinearCfg, apply_ptc_linear, apply_rotary,
+                     init_ptc_linear, init_rmsnorm, rmsnorm, rotary_cache,
+                     softcap)
+
+__all__ = ["AttnCfg", "init_attention", "decode_attention_paged",
+           "decode_attention_paged_chunked"]
+
+Params = dict
+NEG_INF = -2.0 ** 30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    rope_frac: float = 1.0          # <1 = partial rotary (chatglm 2d-RoPE)
+    qk_norm: bool = False           # qwen3
+    attn_softcap: float | None = None   # gemma2
+    qkv_bias: bool = False          # chatglm3
+    window: int | None = None       # sliding window (gemma2 local layers)
+
+
+def init_attention(gen: torch.Generator, cfg: AttnCfg,
+                   lin: PTCLinearCfg) -> Params:
+    d, hd = cfg.d_model, cfg.head_dim
+    p: Params = {
+        "wq": init_ptc_linear(gen, d, cfg.n_heads * hd, lin, bias=cfg.qkv_bias),
+        "wk": init_ptc_linear(gen, d, cfg.n_kv_heads * hd, lin,
+                              bias=cfg.qkv_bias),
+        "wv": init_ptc_linear(gen, d, cfg.n_kv_heads * hd, lin,
+                              bias=cfg.qkv_bias),
+        "wo": init_ptc_linear(gen, cfg.n_heads * hd, d, lin),
+    }
+    if cfg.qk_norm:
+        p["qn"] = init_rmsnorm(hd, gen.device)
+        p["kn"] = init_rmsnorm(hd, gen.device)
+    return p
+
+
+def _project_qkv(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, x, positions):
+    """Project q, k, v from x (B, S, d); qk-norm, then rotary at
+    ``positions`` (B, S)."""
+    b, sq = x.shape[0], x.shape[1]
+    q = apply_ptc_linear(p["wq"], x, lin, d_out=cfg.n_heads * cfg.head_dim,
+                         name="wq")
+    k = apply_ptc_linear(p["wk"], x, lin,
+                         d_out=cfg.n_kv_heads * cfg.head_dim, name="wk")
+    v = apply_ptc_linear(p["wv"], x, lin,
+                         d_out=cfg.n_kv_heads * cfg.head_dim, name="wv")
+    q = q.reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, sq, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, sq, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(p["qn"], q)
+        k = rmsnorm(p["kn"], k)
+    if cfg.rope_frac > 0 and positions is not None:
+        cos, sin = rotary_cache(positions, cfg.head_dim, cfg.rope_theta,
+                                cfg.rope_frac)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+    return q, k, v
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with JAX's type promotion (fp32 × bf16 → fp32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def decode_attention_paged(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, x,
+                           k_view, v_view, lens):
+    """One-token decode against page-assembled per-slot KV views with
+    per-slot cache lengths (the gateway's ``prefill_chunk`` = 1 path,
+    plain PyTorch: no TPU kernel computes it).
+
+    x: (B, 1, d); k_view/v_view: (B, S_max, Hkv, Dh); lens: (B,) int32.
+    Returns ``(out, k_new, v_new)``: the caller persists the new
+    (B, 1, Hkv, Dh) rows into the page pool; the views are step-scratch.
+    """
+    b = x.shape[0]
+    lens = lens.to(torch.int32)
+    q, k_new, v_new = _project_qkv(p, cfg, lin, x, lens[:, None])
+    sk = k_view.shape[1]
+    # splice each slot's new row in at its own write position (clamped to
+    # the view, as dynamic_update_slice clamps its start)
+    at = lens.long().clamp(0, sk - 1)
+    rows = torch.arange(b, device=x.device)
+    k = k_view.clone()
+    v = v_view.clone()
+    k[rows, at] = k_new[:, 0].to(k.dtype)
+    v[rows, at] = v_new[:, 0].to(v.dtype)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kr = k.repeat_interleave(rep, dim=2)
+    vr = v.repeat_interleave(rep, dim=2)
+    logits = _einsum("bqhd,bkhd->bhqk", q, kr).float()
+    logits = logits * (cfg.head_dim ** -0.5)
+    logits = softcap(logits, cfg.attn_softcap)
+    ki = torch.arange(sk, device=x.device)[None, None, None, :]
+    ln = lens[:, None, None, None]
+    ok = ki <= ln
+    if cfg.window is not None:
+        ok = ok & (ki > ln - cfg.window)
+    logits = torch.where(ok, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = _einsum("bhqk,bkhd->bqhd", w, vr)
+    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    out = apply_ptc_linear(p["wo"], o, lin, d_out=cfg.d_model, name="wo")
+    return out, k_new, v_new
+
+
+def decode_attention_paged_chunked(p: Params, cfg: AttnCfg,
+                                   lin: PTCLinearCfg, x, k_view, v_view,
+                                   lens, kv_block: int | None = None):
+    """C-token chunked prefill against page-assembled per-slot views.
+
+    x: (B, C, d) — each slot's next C tokens (padding columns are
+    arbitrary: the causal mask and the caller's length bookkeeping keep
+    them out of every surviving value); lens: (B,) int32, so chunk column
+    c sits at absolute position ``lens[b] + c``.  Attention runs through
+    the ``prefill_attention`` kernel over the view with the chunk's own
+    K/V rows spliced in, ``kv_block`` keys to a block.
+
+    The splice selects by absolute position — view row ``lens[b] + c``
+    takes chunk column c, every other row keeps the pool's value — and is
+    never a slice assignment, which would clamp or raise for a chunk
+    reaching past S_max.
+
+    Returns ``(out, k_new, v_new)`` with out (B, C, d) and k_new / v_new
+    (B, C, Hkv, Dh) for the caller's multi-row page scatter.
+    """
+    b, c = x.shape[0], x.shape[1]
+    lens = lens.to(torch.int32)
+    positions = lens[:, None] + torch.arange(c, dtype=torch.int32,
+                                             device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(p, cfg, lin, x, positions)
+    s = k_view.shape[1]
+    rel = torch.arange(s, dtype=torch.int32, device=x.device)[None, :] \
+        - lens[:, None]                                            # (B, S)
+    in_chunk = ((rel >= 0) & (rel < c))[:, :, None, None]
+    sel = rel.clamp(0, c - 1).long()
+    rows = torch.arange(b, device=x.device)[:, None]
+
+    def splice(view, new):
+        return torch.where(in_chunk, new.to(view.dtype)[rows, sel], view)
+
+    o = prefill_attention(lens, q.contiguous(), splice(k_view, k_new),
+                          splice(v_view, v_new), blk=kv_block,
+                          window=cfg.window, cap=cfg.attn_softcap)
+    o = o.reshape(b, c, cfg.n_heads * cfg.head_dim)
+    out = apply_ptc_linear(p["wo"], o, lin, d_out=cfg.d_model, name="wo")
+    return out, k_new, v_new

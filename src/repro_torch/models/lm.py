@@ -1,0 +1,266 @@
+"""LM assembly from PTC layers: decoder-only dense attention stacks.
+
+Counterpart of ``repro/models/lm.py`` for what the serving gateway runs:
+architectures are described by :class:`ArchConfig` and composed as
+``n_periods`` repetitions of a static *period plan* (gemma2's local/global
+alternation is a period of two attention sub-layers); per-position
+parameters are stacked on a leading period axis, as the reference's
+``jax.vmap`` init gives them, and the steps walk the periods in a Python
+loop (the reference scans them), pushing the reference's PTC scope names
+``p{period}.s{sub}.attn`` / ``.mlp``.
+
+Only the dense attention family is ported.  ssm, hybrid, MoE, vlm and
+encdec configurations raise (ROADMAP.md, queue 1, "LM families beyond
+dense attention"); training (``forward``, ``build_train_step``,
+``inject_masks``) and the solo serve step belong to later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from .attention import (AttnCfg, decode_attention_paged,
+                        decode_attention_paged_chunked, init_attention)
+from .ffn import FFNCfg, init_mlp, mlp
+from .layers import (PTCLinearCfg, embed, init_embedding, init_layernorm,
+                     init_rmsnorm, layernorm, layernorm_np, ptc_scope,
+                     rmsnorm, softcap)
+
+__all__ = ["ArchConfig", "SubLayerPlan", "period_plan", "init_model",
+           "build_gateway_step", "build_gateway_prefill_step"]
+
+Params = dict
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                     # dense (the only family ported)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None
+    # attention flavour
+    rope_theta: float = 10000.0
+    rope_frac: float = 1.0
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    sliding_window: int | None = None
+    local_global: bool = False      # gemma2: alternate local/global layers
+    n_experts: int = 0              # > 0 (MoE) is not ported
+    # norms / activations / embeddings
+    norm: str = "rmsnorm"           # rmsnorm | layernorm | nonparam
+    act: str = "silu"
+    post_norm: bool = False         # gemma2 sandwich norm
+    tie_embed: bool = True
+    # substrate policy
+    ptc: PTCLinearCfg = dataclasses.field(default_factory=PTCLinearCfg)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    def attn_cfg(self, window=None) -> AttnCfg:
+        return AttnCfg(d_model=self.d_model, n_heads=self.n_heads,
+                       n_kv_heads=self.n_kv_heads, head_dim=self.hd,
+                       rope_theta=self.rope_theta, rope_frac=self.rope_frac,
+                       qk_norm=self.qk_norm, attn_softcap=self.attn_softcap,
+                       qkv_bias=self.qkv_bias, window=window)
+
+    def ffn_cfg(self) -> FFNCfg:
+        return FFNCfg(d_model=self.d_model, d_ff=self.d_ff, act=self.act)
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLayerPlan:
+    kind: str                       # attn
+    ffn: str                        # mlp
+    window: int | None = None
+
+
+def period_plan(cfg: ArchConfig) -> tuple[list[SubLayerPlan], int]:
+    """(plan, n_periods): the static per-period sub-layer schedule."""
+    if cfg.family != "dense" or cfg.n_experts > 0:
+        kind = cfg.family if cfg.n_experts == 0 else "MoE"
+        raise ValueError(
+            f"{cfg.name}: the {kind} family is not ported yet (ROADMAP.md, "
+            f"queue 1, 'LM families beyond dense attention')")
+    if cfg.local_global:
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: local/global alternation needs "
+                             f"an even layer count, got {cfg.n_layers}")
+        return [SubLayerPlan("attn", "mlp", window=cfg.sliding_window),
+                SubLayerPlan("attn", "mlp", window=None)], cfg.n_layers // 2
+    return [SubLayerPlan("attn", "mlp")], cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# parameter trees
+# ---------------------------------------------------------------------------
+
+
+def _tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, tree[key], *(r[key] for r in rest))
+                for key in tree}
+    return fn(tree, *rest)
+
+
+def _stacked(make: Callable[[], Params], n: int) -> Params:
+    """``n`` draws of ``make()`` stacked on a new leading axis, filled in
+    place one draw at a time (peak memory: the stack plus one draw)."""
+    first = make()
+    out = _tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    _tree_map(lambda o, a: o[0].copy_(a), out, first)
+    del first
+    for i in range(1, n):
+        _tree_map(lambda o, a, i=i: o[i].copy_(a), out, make())
+    return out
+
+
+def _init_norm(cfg: ArchConfig, device) -> Params:
+    if cfg.norm == "rmsnorm":
+        return init_rmsnorm(cfg.d_model, device)
+    if cfg.norm == "layernorm":
+        return init_layernorm(cfg.d_model, device)
+    return {}   # nonparam
+
+
+def _apply_norm(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(p, x)
+    if cfg.norm == "layernorm":
+        return layernorm(p, x)
+    return layernorm_np(x)
+
+
+def _init_sublayer(gen: torch.Generator, cfg: ArchConfig,
+                   plan: SubLayerPlan) -> Params:
+    dev = gen.device
+    p: Params = {"ln1": _init_norm(cfg, dev),
+                 "attn": init_attention(gen, cfg.attn_cfg(plan.window),
+                                        cfg.ptc)}
+    if cfg.post_norm:
+        p["pn1"] = _init_norm(cfg, dev)
+    p["ln2"] = _init_norm(cfg, dev)
+    p["mlp"] = init_mlp(gen, cfg.ffn_cfg(), cfg.ptc)
+    if cfg.post_norm:
+        p["pn2"] = _init_norm(cfg, dev)
+    return p
+
+
+def init_model(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """Random parameters on the generator's device: embedding (and
+    unembedding when untied) in the base dtype, fp32 norms and Σ, and one
+    ``pos{i}`` tree per plan position stacked over the periods."""
+    plan, n_periods = period_plan(cfg)
+    params: Params = {
+        "embed": init_embedding(gen, cfg.vocab, cfg.d_model,
+                                cfg.ptc.base_dtype),
+        "final_norm": _init_norm(cfg, gen.device),
+    }
+    if not cfg.tie_embed:
+        params["unembed"] = {"w": (torch.randn(
+            (cfg.vocab, cfg.d_model), generator=gen, device=gen.device)
+            * (cfg.d_model ** -0.5)).to(cfg.ptc.base_dtype)}
+    for i, sub in enumerate(plan):
+        params[f"pos{i}"] = _stacked(lambda sub=sub: _init_sublayer(
+            gen, cfg, sub), n_periods)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# gateway steps
+# ---------------------------------------------------------------------------
+
+
+def _build_step(cfg: ArchConfig, attend: Callable, last_column: Callable):
+    """The shared body of the gateway steps: embed, walk every period's
+    sub-layers with ``attend`` (one of the paged attention functions),
+    final norm, logits; ``last_column(logits, batch)`` picks each slot's
+    (B, vocab) row."""
+    plan, n_periods = period_plan(cfg)
+
+    @torch.no_grad()
+    def step(params, views, batch):
+        lens = batch["lens"]
+        x = embed(params["embed"], batch["token"])
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+        outs = []
+        for pi in range(n_periods):
+            with ptc_scope(f"p{pi}"):
+                new = {}
+                for i, sub in enumerate(plan):
+                    name = f"pos{i}"
+                    p = _tree_map(lambda a: a[pi], params[name])
+                    h = _apply_norm(cfg, p["ln1"], x)
+                    with ptc_scope(f"s{i}.attn"):
+                        h, k_new, v_new = attend(
+                            p["attn"], cfg.attn_cfg(sub.window), cfg.ptc, h,
+                            views[name]["k"][pi], views[name]["v"][pi], lens)
+                    new[name] = {"k": k_new, "v": v_new}
+                    if cfg.post_norm:
+                        h = _apply_norm(cfg, p["pn1"], h)
+                    x = x + h
+                    h = _apply_norm(cfg, p["ln2"], x)
+                    with ptc_scope(f"s{i}.mlp"):
+                        h = mlp(p["mlp"], cfg.ffn_cfg(), cfg.ptc, h)
+                    if cfg.post_norm:
+                        h = _apply_norm(cfg, p["pn2"], h)
+                    x = x + h
+            outs.append(new)
+        new_kv = _tree_map(lambda *xs: torch.stack(xs), *outs)
+        x = _apply_norm(cfg, params["final_norm"], x)
+        w = params["embed"]["e"] if cfg.tie_embed else params["unembed"]["w"]
+        logits = softcap(x @ w.T, cfg.final_softcap)
+        return last_column(logits, batch), new_kv
+
+    return step
+
+
+def build_gateway_step(cfg: ArchConfig):
+    """Returns ``gateway_step(params, views, batch) -> (logits, new_kv)``:
+    the continuous-batching decode step over page-assembled KV views with
+    per-slot cache lengths (``repro_torch.serving.engine``).
+
+    ``batch``: {"token": (B, 1) int, "lens": (B,) int32}.  ``views``: per
+    plan position ``{"k", "v"}`` of (n_periods, B, S_max, Hkv, Dh) gathered
+    from the page pool.  ``new_kv`` holds each position's NEW (n_periods, B,
+    1, Hkv, Dh) rows, which the engine scatters into the pool.  Logits:
+    (B, vocab)."""
+    return _build_step(cfg, decode_attention_paged,
+                       lambda logits, batch: logits[:, 0])
+
+
+def build_gateway_prefill_step(cfg: ArchConfig, kv_block: int | None = None):
+    """Returns ``prefill_step(params, views, batch) -> (logits, new_kv)``:
+    the chunked-prefill gateway step, every slot advancing up to C tokens.
+
+    ``batch``: {"token": (B, C) int, "lens": (B,) int32, "n_valid": (B,)
+    int32} — slot b's next ``n_valid[b]`` tokens sit in columns
+    0..n_valid-1 at absolute positions ``lens[b] + c`` (decode slots ride
+    along with n_valid = 1).  ``new_kv`` holds (n_periods, B, C, Hkv, Dh)
+    rows per position, of which the engine scatters the first
+    ``n_valid[b]``.  Logits are taken at column ``n_valid[b] - 1``:
+    (B, vocab).  ``kv_block`` sets the prefill kernel's KV block (None =
+    the whole view).  PTC scope names equal :func:`build_gateway_step`'s.
+    """
+    def attend(p, acfg, lin, h, k_view, v_view, lens):
+        return decode_attention_paged_chunked(p, acfg, lin, h, k_view,
+                                              v_view, lens, kv_block=kv_block)
+
+    def last_column(logits, batch):
+        col = (batch["n_valid"].long() - 1)[:, None, None]
+        return torch.take_along_dim(logits, col, dim=1)[:, 0]
+
+    return _build_step(cfg, attend, last_column)

@@ -10,6 +10,7 @@ unless asked to.
   instead of quietly running the plain versions on the CPU.
 """
 
+import argparse
 import ast
 import os
 import subprocess
@@ -25,7 +26,10 @@ from repro_torch.core.calibration import calibrate_identity
 from repro_torch.core.mapping import parallel_map
 from repro_torch.core.noise import NoiseModel
 from repro_torch.hw import make_twin
+from repro_torch.configs import smoke_config
 from repro_torch.quickstart import run
+from repro_torch.serving import GatewayConfig, ServingGateway
+from repro_torch.serving import gateway
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -86,7 +90,13 @@ def test_entry_points_refuse_the_host_without_cuda():
              lambda: make_twin(gen, 4, 9, model),
              lambda: calibrate_identity(gen, 4, 9, model),
              lambda: parallel_map(gen, w, 9, model),
-             run]
+             run,
+             lambda: gateway.run(argparse.Namespace(
+                 arch="smoke:qwen3-4b", seed=0, requests=1, rate=1.0,
+                 prompt_len_range=(2, 3), max_new=(1, 2), eos_id=None,
+                 slots=1, page_size=4, pages=4, max_pages_per_slot=2)),
+             lambda: ServingGateway(smoke_config("qwen3-4b"), {},
+                                    GatewayConfig())]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

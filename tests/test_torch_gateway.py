@@ -1,0 +1,93 @@
+"""Port parity: ``repro_torch.serving`` (the digital gateway, on the CPU)
+against ``repro.serving`` on the same requests with the same parameters
+(the reference's ``init_model``, carried over by ``convert.lm_params``).
+
+At prefill chunk 1 and 4 (and chunk 4 advancing 2 tokens a step) the two
+gateways emit the same tokens for every request and report the same
+steps, busy steps, TTFT and latency in steps, and the same
+admission/finish trace.  The CLI refuses the reference's
+hardware-in-the-loop flags instead of ignoring them.
+"""
+
+import argparse
+import functools
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import smoke_config as jsmoke_config
+from repro.models.lm import init_model
+from repro.serving import engine as jengine
+from repro.serving import kv_pages as jkv
+from repro.serving import scheduler as jsched
+from repro_torch import convert
+from repro_torch.configs import smoke_config
+from repro_torch.serving import engine as tengine
+from repro_torch.serving import gateway as tgateway
+from repro_torch.serving import kv_pages as tkv
+from repro_torch.serving import scheduler as tsched
+
+WORKLOAD = dict(seed=4, n_requests=7, rate=0.7)
+LENGTHS = dict(prompt_len=(3, 14), max_new=(2, 8))
+
+
+@functools.lru_cache(maxsize=None)
+def _params(name):
+    return init_model(jax.random.PRNGKey(1), jsmoke_config(name))
+
+
+def _serve(kv, sched, engine, cfg, params, chunk, stride, device=None):
+    gcfg = engine.GatewayConfig(
+        slots=3, pages=kv.PageConfig(page_size=4, n_pages=40,
+                                     max_pages_per_slot=8),
+        prefill_chunk=chunk, prefill_stride=stride,
+        kv_block=4 if chunk > 1 else None)
+    reqs = sched.poisson_workload(WORKLOAD["seed"], WORKLOAD["n_requests"],
+                                  WORKLOAD["rate"], cfg.vocab, **LENGTHS)
+    kw = {} if device is None else {"device": device}
+    return engine.ServingGateway(cfg, params, gcfg, **kw).run(reqs)
+
+
+@pytest.mark.parametrize("name,chunk,stride", [
+    ("qwen3-4b", 1, None), ("qwen3-4b", 4, None), ("qwen3-4b", 4, 2),
+    ("gemma2-27b", 4, None)])
+def test_gateway_matches_reference(name, chunk, stride):
+    jp = _params(name)
+    want = _serve(jkv, jsched, jengine, jsmoke_config(name), jp, chunk,
+                  stride)
+    got = _serve(tkv, tsched, tengine, smoke_config(name),
+                 convert.lm_params(jp), chunk, stride, device="cpu")
+    assert [r["tokens"] for r in got["requests"]] == \
+        [r["tokens"] for r in want["requests"]]
+    for key in ("steps", "busy_steps", "tokens_out", "ttft_steps",
+                "latency_steps", "admission_wait_steps", "schedule_trace"):
+        assert got[key] == want[key], key
+    assert all(r["n_out"] == r["max_new"] for r in got["requests"])
+
+
+def test_cli_runs_on_the_cpu_and_refuses_hardware_flags(capsys):
+    assert tgateway.main(["--arch", "smoke:qwen3-4b", "--device", "cpu",
+                          "--requests", "3", "--prefill-chunk", "4"]) == 0
+    assert "3 requests" in capsys.readouterr().out
+    for flags in (["--fleet", "2"], ["--hw-logits"], ["--hw-shadow"]):
+        with pytest.raises(SystemExit) as exc:
+            tgateway.main(["--arch", "smoke:qwen3-4b", "--device", "cpu",
+                           *flags])
+        assert exc.value.code == 2
+        assert "not ported yet" in capsys.readouterr().err
+
+
+def test_run_serves_given_params_and_requests():
+    cfg = smoke_config("olmo-1b")
+    params = convert.lm_params(init_model(jax.random.PRNGKey(2),
+                                          jsmoke_config("olmo-1b")))
+    reqs = tsched.poisson_workload(0, 2, 1.0, cfg.vocab, prompt_len=(2, 5),
+                                   max_new=(3, 3))
+    args = argparse.Namespace(
+        arch="smoke:olmo-1b", seed=0, device="cpu", slots=2, page_size=4,
+        pages=8, max_pages_per_slot=2, prefill_chunk=2,
+        params_override=params, requests_override=reqs)
+    rep = tgateway.run(args)
+    assert rep["config"]["device"] == "cpu" and rep["tokens_out"] == 6
+    assert np.all([r["finish_reason"] == "max_new" for r in rep["requests"]])
