@@ -6,14 +6,17 @@
 
 Phases:
 
-1. ``kernels`` — print the card's name and power limit, build all seven
-   CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
-   in parallel), and hold each against its plain PyTorch version on the
-   card: the reference package's kernel-test geometries, ragged row
-   counts, feedback masks of density 0, 0.5, 1 and btopk, duplicate
-   scatter targets, the prefill (blk, window, cap) sweep, and the
-   full-width shapes of the main paths, where each is also timed beside
-   its bound, its plain version and a PyTorch yardstick.
+1. ``kernels`` — print the card's name and power limit, build the CUDA
+   kernels of all seven TPU kernels from ``src/repro_torch/csrc`` (one
+   nvcc per source, all in parallel; prefill attention has two routes,
+   the tensor-core kernel for bf16 at head dims 64 and 128 and the
+   CUDA-core kernel for the rest), and hold each against its plain
+   PyTorch version on the card: the reference package's kernel-test
+   geometries, ragged row counts, feedback masks of density 0, 0.5, 1
+   and btopk, duplicate scatter targets, the prefill (blk, window, cap)
+   sweep on both routes, and the full-width shapes of the main paths,
+   where each is also timed beside its bound, its plain version and a
+   PyTorch yardstick.
 2. ``parity`` — the reference quickstart's geometry (18 → 18 → 9, k = 9):
    dense pre-training, IC, PM, serving, subspace learning (SL) and serving
    with the trained Σ; metrics against the reference run and the served
@@ -112,18 +115,43 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms per call over ``reps`` back-to-back calls (warm)."""
+    """Mean device ms per call over ``reps`` back-to-back calls (warm).
+
+    A spin kernel holds the card while the host queues every call, so the
+    events time the device alone even where a call's host work (a Python
+    wrapper's checks) outlasts its kernels."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 1e-3)))  # ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_split(fn, reps: int = 10) -> list[tuple[str, float]]:
+    """(kernel name, device ms per call) of each kernel ``fn`` launches,
+    from ``torch.profiler`` over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [(re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key),
+             e.self_device_time_total / reps / 1e3)
+            for e in prof.key_averages() if e.self_device_time_total]
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -353,6 +381,8 @@ def backward_kernels(torch, gen) -> dict:
             dx = feedback_matmul(dy, u, s, v, mask)
             record("feedback_matmul", f"{(t, p, q, k)} {label}", dx,
                    ref.feedback_matmul_ref(dy, u, s, v, mask))
+            check(torch.equal(dx, feedback_matmul(dy, u, s, v, mask)),
+                  f"feedback_matmul {(t, p, q, k)} {label}: two runs differ")
             if label == "density 0.0":
                 check(int(torch.count_nonzero(dx)) == 0,
                       f"feedback_matmul {(t, p, q, k)}: density 0 is not an "
@@ -360,7 +390,8 @@ def backward_kernels(torch, gen) -> dict:
         torch.cuda.synchronize()
     for name, (rel, diff) in worst.items():
         print(f"[check] {name}: {len(shapes)} shapes"
-              + (" x masks of density 0, 0.5, 1 and btopk 0.6"
+              + (" x masks of density 0, 0.5, 1 and btopk 0.6 (density 0 "
+                 "an exact zero), deterministic"
                  if name == "feedback_matmul" else ", deterministic")
               + f", max rel err {rel:.2e} (tol 1e-4), max abs err "
                 f"{diff:.2e}")
@@ -420,9 +451,12 @@ def backward_kernels(torch, gen) -> dict:
         timings[("feedback_matmul", label)] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
             bound_by=b_by)
+        split = device_split(lambda: feedback_matmul(dy, u, s, v, mask))
         print(f"[time] feedback_matmul {label} (T={t}, P={p}, Q={q}, k={k}, "
               f"btopk 0.6: {kept} of {p * q} blocks, fp32): kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, yardstick dy @ masked "
+              f"{ms:.4f} ms ({100 * b_ms / ms:.0f}% of the bound; by launch "
+              + ", ".join(f"{n} {m:.4f}" for n, m in split)
+              + f"), plain {plain:.4f} ms, yardstick dy @ masked "
               f"unblockize(W) (one cuBLAS call) {lib:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB)")
@@ -456,9 +490,13 @@ def serving_kernels(torch, gen) -> dict:
     qwen3-4b gateway's full-width shapes."""
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.kernels import (paged_gather, paged_scatter,
+    from repro_torch.kernels import (build, paged_gather, paged_scatter,
                                      prefill_attention, ref)
+    from repro_torch.kernels.prefill_attn import NAME, NAME_CUDA_CORES
+    from repro_torch.kernels.prefill_attn import _fn as prefill_fn_cc
+    from repro_torch.kernels.prefill_attn import _tile as prefill_tile
 
+    NAME_CC = NAME_CUDA_CORES
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
 
@@ -568,8 +606,11 @@ def serving_kernels(torch, gen) -> dict:
                                     library_ms=lib, bound_ms=b_ms,
                                     bound_by=b_by)
 
-    # -- prefill_attention: the reference test sweep, masked-block
-    # exactness, the smoke LM's mixed types, and the full-width step
+    # -- prefill_attention, CUDA-core route (fp32 q, and the pairs the
+    # tensor cores do not take): the reference test sweep, masked-block
+    # exactness, the smoke LM's mixed types, and the full-width step at fp32
+    tc_before = build.launch_counts[NAME]
+    cc_before = build.launch_counts[NAME_CC]
     worst = 0.0
     b, c, h, hkv, hd, s = 3, 5, 4, 2, 8, 24
     lens = torch.tensor([0, 7, 19], dtype=torch.int32, device=dev)
@@ -614,19 +655,103 @@ def serving_kernels(torch, gen) -> dict:
                  .abs().max())
     check(leak > 2e-5, f"prefill_attention full width fp32: a one-key "
                        f"mask leak reads {leak:.2e}, inside 2e-5")
-    q, k, v = q.to(bf16), k.to(bf16), v.to(bf16)
+    check(build.launch_counts[NAME] == tc_before,
+          "prefill_attention: an fp32 call went to the tensor-core kernel")
+    n_cc = build.launch_counts[NAME_CC] - cc_before
+    print(f"[check] prefill_attention, CUDA-core route ({n_cc} launches): "
+          f"12 (blk, window, cap) cases + fp32 q over bf16 kv + full width "
+          f"fp32: max abs err {worst:.2e} (tol 2e-5; a one-key mask leak "
+          f"reads {leak:.2e}), two runs equal; masked block exact")
+    q32, k32, v32 = q, k, v
+    ms_cc32 = cuda_ms(lambda: prefill_attention(lens, q32, k32, v32,
+                                                blk=blk), 20)
+
+    # -- prefill_attention, tensor-core route (bf16 q over bf16 K/V, Dh 64
+    # and 128): the 12 (blk, window, cap) cases at GQA ratios 1, 2, 4 and
+    # 16, C·rep not a multiple of the 64-row tile, lens at 0 and at S - C,
+    # S not a multiple of the 64-key tile; reruns bitwise, a block outside
+    # the window changes no bit, a one-key leak reads above the limit
+    tc_tol = 2 ** -7
+    tc_worst, tc_abs, n_tc = 0.0, 0.0, 0
+    tc_before = build.launch_counts[NAME]
+    cc_before = build.launch_counts[NAME_CC]
+    for (b, c, h, hkv, hd, s, ln) in (
+            (3, 13, 8, 2, 128, 200, [0, 100, 187]),   # rep 4, 52 rows
+            (2, 5, 16, 1, 64, 72, [0, 67]),           # rep 16, 80 rows
+            (2, 37, 3, 3, 64, 136, [0, 99]),          # rep 1, 37 rows
+            (2, 50, 4, 2, 128, 640, [0, 590])):       # rep 2, 100 rows
+        lens = torch.tensor(ln, dtype=torch.int32, device=dev)
+        q, k, v = (randn(b, c, h, hd, dtype=bf16),
+                   randn(b, s, hkv, hd, dtype=bf16),
+                   randn(b, s, hkv, hd, dtype=bf16))
+        for blk in (None, 8, 4):
+            for window, cap in ((None, None), (6, None), (None, 3.0),
+                                (5, 2.0)):
+                kw = dict(blk=blk, window=window, cap=cap)
+                what = f"bf16 {(b, c, h, hkv, hd, s, ln)} {kw}"
+                got = prefill_attention(lens, q, k, v, **kw)
+                diff, rel = rel_err(got, ref.prefill_attention_ref(
+                    lens, q, k, v, window=window, cap=cap))
+                check(rel <= tc_tol, f"prefill_attention {what}: max abs "
+                                     f"err {rel:.2e} of the largest |out| > "
+                                     f"2^-7")
+                check(torch.equal(got, prefill_attention(lens, q, k, v,
+                                                         **kw)),
+                      f"prefill_attention {what}: two runs differ")
+                tc_worst, tc_abs = max(tc_worst, rel), max(tc_abs, diff)
+                n_tc += 2
+        leak = rel_err(prefill_attention(lens, q, k, v),
+                       ref.prefill_attention_ref(lens + 1, q, k, v))[1]
+        check(leak > tc_tol, f"prefill_attention bf16 {(b, c, h, hkv, hd)}: "
+                             f"a one-key mask leak reads {leak:.2e}, inside "
+                             f"2^-7")
+        n_tc += 1
+    lens1 = torch.tensor([128], dtype=torch.int32, device=dev)
+    q1, k1, v1 = (randn(1, 8, 4, 64, dtype=bf16),
+                  randn(1, 136, 2, 64, dtype=bf16),
+                  randn(1, 136, 2, 64, dtype=bf16))
+    base = prefill_attention(lens1, q1, k1, v1, window=20)
+    k2, v2 = k1.clone(), v1.clone()
+    # keys 0-100 lie before every query's window (keys > 108): tile 0 is
+    # skipped, tile 1 masks them inside a live tile
+    k2[:, :101], v2[:, :101] = 999.0, -999.0
+    check(torch.equal(base, prefill_attention(lens1, q1, k2, v2, window=20)),
+          "prefill_attention bf16: a block outside the window changed the "
+          "output")
+    n_tc += 2
+    check(build.launch_counts[NAME] - tc_before == n_tc
+          and build.launch_counts[NAME_CC] == cc_before,
+          f"prefill_attention: {build.launch_counts[NAME] - tc_before} of "
+          f"{n_tc} bf16 calls went to the tensor-core kernel")
+
+    b, c, h, hkv, hd, s, blk = slots, chunk, 32, 8, 128, 640, 64
+    lens = torch.linspace(0, 576, b, device=dev).to(torch.int32)
+    q, k, v = (t.to(bf16) for t in (q32, k32, v32))
     out = prefill_attention(lens, q, k, v, blk=blk)
     want = ref.prefill_attention_ref(lens, q, k, v)
     diff, rel = rel_err(out, want)
-    check(rel <= 2 ** -7, f"prefill_attention full width bf16: rel err "
-                          f"{rel:.2e} > one bf16 ulp (2^-7)")
-    print(f"[check] prefill_attention: 12 (blk, window, cap) cases + fp32 q "
-          f"over bf16 kv + full width fp32: max abs err {worst:.2e} (tol "
-          f"2e-5; a one-key mask leak reads {leak:.2e}), two runs equal; "
-          f"masked block exact; full width bf16: max "
-          f"abs err {diff:.2e}, {rel:.2e} of the largest |out| (tol 2^-7, "
-          f"one bf16 ulp)")
+    check(rel <= tc_tol, f"prefill_attention full width bf16: rel err "
+                         f"{rel:.2e} > 2^-7")
+    tc_worst, tc_abs = max(tc_worst, rel), max(tc_abs, diff)
+    print(f"[check] prefill_attention, tensor-core route ({n_tc + 1} "
+          f"launches): 12 (blk, window, cap) cases x Dh 64/128, rep "
+          f"1/2/4/16, ragged rows and keys, lens 0 and S - C, and the full "
+          f"width: max abs err {tc_abs:.2e}, {tc_worst:.2e} of the largest "
+          f"|out| (tol 2^-7); two runs equal; masked block exact; one-key "
+          f"mask leak caught in every geometry")
 
+    # the earlier design, the CUDA-core kernel, on the same bf16 inputs,
+    # timed beside the tensor-core kernel in this run
+    def cuda_core_bf16():
+        o = torch.empty_like(q)
+        status = prefill_fn_cc()(
+            lens.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), b, c, h, hkv, hd, s, prefill_tile(blk), 0, 0.0,
+            hd ** -0.5, 1, 1, torch.cuda.current_stream().cuda_stream)
+        build.check_status("prefill_attn", status)
+        return o
+    _, cc_rel = rel_err(cuda_core_bf16(), want)
+    ms_cc16 = cuda_ms(cuda_core_bf16, 20)
     ms = cuda_ms(lambda: prefill_attention(lens, q, k, v, blk=blk), 20)
     plain = cuda_ms(lambda: ref.prefill_attention_ref(lens, q, k, v), 3)
     qi = lens.long()[:, None] + torch.arange(c, device=dev)[None, :]
@@ -654,12 +779,17 @@ def serving_kernels(torch, gen) -> dict:
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
     print(f"[time] prefill_attention (B={b}, C={c}, H={h}, Hkv={hkv}, "
           f"Dh={hd}, S={s}, blk={blk}, lens {lens.tolist()}, bf16; {live} "
-          f"live pairs per head): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"library scaled_dot_product_attention with a boolean mask "
-          f"(rel err {lib_rel:.1e}) {lib:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}; {flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
+          f"live pairs per head): tensor-core kernel {ms:.4f} ms "
+          f"({100 * b_ms / ms:.0f}% of the bound), the CUDA-core kernel "
+          f"on the same bf16 inputs {ms_cc16:.4f} ms (rel err "
+          f"{cc_rel:.1e}), plain {plain:.4f} ms, library "
+          f"scaled_dot_product_attention with a boolean mask (rel err "
+          f"{lib_rel:.1e}) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
           f"{nbytes / 1e6:.1f} MB)")
-    summary["prefill_attention"] = dict(max_abs_err=worst, ms=ms,
+    print(f"[time] prefill_attention CUDA-core route, the same shape at "
+          f"fp32: {ms_cc32:.4f} ms")
+    summary["prefill_attention"] = dict(max_abs_err=tc_abs, ms=ms,
                                         plain_ms=plain, library_ms=lib,
                                         bound_ms=b_ms, bound_by=b_by)
     return summary
@@ -931,6 +1061,7 @@ def gateway_phase(torch, check_step: int = 12) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import build, paged_scatter, ref
+    from repro_torch.kernels.prefill_attn import NAME_CUDA_CORES as NAME_CC
     from repro_torch.models import attention, lm
     from repro_torch.serving import (GatewayConfig, PageConfig,
                                      ServingGateway, poisson_workload)
@@ -1030,9 +1161,16 @@ def gateway_phase(torch, check_step: int = 12) -> dict:
         for kernel in GATEWAY_KERNELS:
             check(c_b[kernel] > c_a[kernel],
                   f"gateway: {kernel} not launched in busy step {i}")
+        # bf16 pools at Dh 128: every layer's prefill on the tensor cores
+        tc = c_b["prefill_attention"] - c_a["prefill_attention"]
+        cc = c_b[NAME_CC] - c_a[NAME_CC]
+        check(tc == cfg.n_layers and cc == 0,
+              f"gateway: busy step {i} made {tc} tensor-core and {cc} "
+              f"CUDA-core prefill launches, not {cfg.n_layers} and 0")
         if i != check_step:
             step_ms.append(1e3 * (t_b - t_a))
-    per_step = {k: (marks[1][1][k] - marks[0][1][k]) for k in GATEWAY_KERNELS}
+    per_step = {k: (marks[1][1][k] - marks[0][1][k])
+                for k in (*GATEWAY_KERNELS, NAME_CC)}
     for r in rep["requests"]:
         check(r["n_out"] == r["max_new"] and r["finish_reason"] == "max_new",
               f"gateway: request {r['rid']} produced {r['n_out']} of "

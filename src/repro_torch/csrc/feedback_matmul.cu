@@ -7,165 +7,400 @@
 // (T, P*k), u and v (P, Q, k, k) with v holding V*, s (P, Q, k), mask (Q, P)
 // already scaled by its normalizer  ->  dx (T, Q*k); fp32 throughout.
 //
-// What bounds it on an H100: arithmetic.  Per row and kept block it does
-// two k x k products and a k-wide scale ((4k^2 + k) flops); at the widest
-// shape of the training path (FC 4096 -> 512 of VGG-8, T = 1024, P = 57,
-// Q = 456, k = 9) with 60% of the blocks kept that is ~5.4 GFLOP over ~28
-// MB: the fp32 CUDA-core rate is the bound.  k = 9 fits no tensor-core tile,
-// so this first kernel stays on the CUDA cores in full fp32.
+// What bounds it on an H100: arithmetic.  Composed, a kept block costs
+// 2k^2 flops per row; at the widest shape of the training path (FC 4096 ->
+// 512 of VGG-8, T = 1024, P = 57, Q = 456, k = 9) with 60% of the blocks
+// kept that is 2.6 GFLOP over ~28 MB: 0.039 ms at the fp32 CUDA-core rate
+// (67 TFLOP/s).  k = 9 fits no tensor-core tile and plain TF32 misses the
+// 1e-4 limit; 3xTF32 on k padded to 16 would waste 2/3 of each product,
+// so the products stay on the CUDA cores in full fp32.
+//
+// The first design kept the factored form (4k^2 + k flops per row and block,
+// twice the composed cost), fed every FMA one shared-memory operand (one
+// thread per row, U and V* broadcast: no register reuse), and gave each
+// CTA one q, so every dy column tile was staged again for each of the
+// ~0.6 Q CTAs that kept it (~0.57 GB of fills at FC W1): 17x its bound.
 //
 // Design:
-//  * It is the transposed traffic of the PTC forward kernel, and reuses its
-//    scheme: a CTA owns one (128-row tile, q) output tile and loops over p
-//    itself, accumulating in fp32 registers (one thread per row, k
-//    accumulators): no atomics, no second pass.
-//  * Masked blocks are skipped at block level.  A first small kernel
-//    compacts, on the card, each mask row into the ascending list of p with
-//    mask[q, p] != 0 (one warp per q, ballot + popc); the main kernel walks
-//    only those.  The mask never travels to the host, so there is no
-//    synchronisation per step.  btopk keeps exactly round(alpha P) blocks
-//    per row, so every CTA does the same work.  A row with no kept block
-//    writes exact zeros.
-//  * Per pass the CTA stages PC kept blocks' U, V*, s * mask and the
-//    matching dy columns of its row tile in shared memory (coalesced loads,
-//    odd row stride; every thread reads the same U/V element at once).
-//  * The ragged T tail is masked in the kernel.  Launches on the caller's
-//    stream, allocates nothing (the wrapper passes the list scratch), and
-//    returns cudaGetLastError().
+//  * Two pre-passes into scratch the wrapper allocates.  (1) Each kept block
+//    is composed once, W~_pq = mask[q,p] U_pq diag(s_pq) V*_pq (2k^3 flops
+//    a block, ~23 MFLOP at FC W1), laid out (P, Q, k, KP) with KP = k padded
+//    to a multiple of 4 by zero columns; masked blocks are not composed,
+//    and the product never reads them.  Then dx_q = sum_p dy_p W~_pq.  (2) dy is transposed to
+//    (P*k, T_pad), so one block column of a row tile is contiguous and moves
+//    by one bulk copy (dy's own rows, P*k floats, are not 16-byte aligned).
+//  * The main kernel's CTA owns a tile of 32 * RT rows and a group of 8
+//    consecutive q, one consumer warp each, plus a producer warp.  It lists,
+//    on the card, the p that any q of the group kept (ballot + popc, with
+//    each p's per-q bits).  The producer's one thread walks that list and
+//    bulk-copies (cp.async.bulk, mbarrier completion) each block's dy
+//    column tile and the group's W~ blocks into a ring of NB slots in
+//    shared memory: each dy tile is staged once for all 8 q, where the first
+//    design staged it once per q.  Consumer warps release a slot through a
+//    second mbarrier, so a warp whose q kept more blocks so far may trail
+//    the others by up to NB blocks before it holds them up.  A warp whose q
+//    did not keep p skips it (the test is warp-uniform).
+//  * Register tiling: each lane owns RT rows x k columns of accumulators
+//    (4 consecutive rows per float4 load when RT >= 4), so a dy load feeds
+//    k FMAs and a W~ row (float4 broadcast loads) feeds RT rows.
+//  * Output goes through shared memory in rounds of 32 or 128 rows, so each
+//    row's 8k columns of the group are written contiguously.
+//  * A mask row with no kept block gives an exact zero; the T tail is zero
+//    in dy's transpose and never stored.  Fixed order, no atomics: two
+//    runs give the same bits.  Launches on the caller's stream, allocates
+//    nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kMaxRows = 128;
+constexpr int kGroup = 8;                  // q per CTA, one consumer warp each
+constexpr int kThreads = 32 * (kGroup + 1);  // + one producer warp
+constexpr int kRingBytes = 96 * 1024;      // ring budget per CTA
 
-// plist[q, :counts[q]] = the p with mask[q, p] != 0, ascending.
-__global__ void kept_blocks_kernel(const float* __restrict__ mask,
-                                   int* __restrict__ plist,
-                                   int* __restrict__ counts, int Q, int P) {
-  const int q = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (q >= Q) return;  // whole warps leave together
-  const float* row = mask + (long long)q * P;
-  int* out = plist + (long long)q * P;
-  int n = 0;
-  for (int base = 0; base < P; base += 32) {
-    const int p = base + lane;
-    const bool kept = p < P && row[p] != 0.f;
-    const unsigned bits = __ballot_sync(0xffffffffu, kept);
-    if (kept) out[n + __popc(bits & ((1u << lane) - 1u))] = p;
-    n += __popc(bits);
+__host__ __device__ constexpr int padded(int K) { return (K + 3) / 4 * 4; }
+
+template <int K, int RT>
+struct Ring {  // in floats
+  static constexpr int KP = padded(K);
+  static constexpr int TR = 32 * RT;                 // rows per CTA
+  static constexpr int DY = K * TR;                  // dy^T tile: [l][row]
+  static constexpr int SLOT = DY + kGroup * K * KP;  // + the group's W~
+  static constexpr int NB_FIT = kRingBytes / (4 * SLOT);
+  static constexpr int NB = NB_FIT < 2 ? 2 : (NB_FIT > 8 ? 8 : NB_FIT);
+  // output rows staged per round: 128 (4 per lane) when RT >= 4, else 32
+  static constexpr int RR = RT >= 4 ? 128 : 32;
+  static constexpr int OUT = RR * (kGroup * K + 1);
+  static constexpr int FLOATS = NB * SLOT > OUT ? NB * SLOT : OUT;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// a copy that never lands stops the kernel with a trap after some
+// seconds instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
-  if (lane == 0) counts[q] = n;
+}
+// bytes (a multiple of 16) from global to shared, completing on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// the consumer warps' own barrier (the producer warp does not join)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kGroup) : "memory");
 }
 
+// wt[p, q, l, :] = mask[q, p] * sum_i u[p, q, l, i] s[p, q, i] v[p, q, i, :]
+// for kept blocks (zero past column k); masked blocks are left unwritten.
+// A CTA stages 128 / K consecutive blocks' U, s and V* in shared memory
+// (coalesced), then one thread composes one row l of one block.
 template <int K>
-__global__ void __launch_bounds__(kMaxRows)
-feedback_matmul_kernel(const float* __restrict__ dy,
-                       const float* __restrict__ u,
-                       const float* __restrict__ s,
-                       const float* __restrict__ v,
+__global__ void __launch_bounds__(128)
+compose_kernel(const float* __restrict__ u, const float* __restrict__ s,
+               const float* __restrict__ v, const float* __restrict__ mask,
+               float* __restrict__ wt, int P, int Q, int k) {
+  constexpr int KP = padded(K), B = 128 / K;
+  __shared__ float us[B * K * K], vs[B * K * K], ss[B * K], ms[B];
+  const long long blk0 = (long long)blockIdx.x * B;
+  const int nb = (int)min((long long)B, (long long)P * Q - blk0);
+  const int tid = threadIdx.x, kk = k * k;
+  for (int i = tid; i < nb * kk; i += 128) {
+    us[i] = u[blk0 * kk + i];
+    vs[i] = v[blk0 * kk + i];
+  }
+  for (int i = tid; i < nb * k; i += 128) ss[i] = s[blk0 * k + i];
+  if (tid < nb) {
+    const long long blk = blk0 + tid;  // p * Q + q
+    ms[tid] = mask[(blk % Q) * P + blk / Q];
+  }
+  __syncthreads();
+  const int b = tid / k, l = tid % k;
+  if (b >= nb) return;
+  const float m = ms[b];
+  if (m == 0.f) return;
+  const float* ub = us + b * kk + l * k;
+  const float* sb = ss + b * k;
+  const float* vb = vs + b * kk;
+  float w[KP];
+#pragma unroll
+  for (int j = 0; j < KP; ++j) w[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < k) {
+      const float a = ub[i] * sb[i];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (j < k) w[j] = fmaf(a, vb[i * k + j], w[j]);
+    }
+  }
+  float4* out = reinterpret_cast<float4*>(wt + ((blk0 + b) * k + l) * KP);
+#pragma unroll
+  for (int j4 = 0; j4 < KP / 4; ++j4)
+    out[j4] = make_float4(w[4 * j4] * m, w[4 * j4 + 1] * m,
+                          w[4 * j4 + 2] * m, w[4 * j4 + 3] * m);
+}
+
+// dyt (P*k, T_pad) = dy (T, P*k) transposed, zero past row T: each
+// (block, column l)'s rows are contiguous, so one bulk copy moves a row
+// tile of it
+__global__ void transpose_kernel(const float* __restrict__ dy,
+                                 float* __restrict__ dyt, int T, int T_pad,
+                                 int N) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32, t0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int t = t0 + i, c = c0 + threadIdx.x;
+    tile[i][threadIdx.x] = (t < T && c < N) ? dy[(long long)t * N + c] : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int c = c0 + i, t = t0 + threadIdx.x;
+    if (c < N && t < T_pad) dyt[(long long)c * T_pad + t] = tile[threadIdx.x][i];
+  }
+}
+
+template <int K, int RT>
+__global__ void __launch_bounds__(kThreads, 2)
+feedback_matmul_kernel(const float* __restrict__ dyt,
+                       const float* __restrict__ wt,
                        const float* __restrict__ mask,
-                       const int* __restrict__ plist,
-                       const int* __restrict__ counts,
-                       float* __restrict__ dx, int T, int P, int Q, int k) {
-  constexpr int PC = (48 / K) > 0 ? (48 / K) : 1;  // kept blocks per pass
-  constexpr int COLS = PC * K;
-  constexpr int ROW = COLS | 1;                     // odd: conflict-free
-  __shared__ float dys[kMaxRows * ROW];
-  __shared__ float us[PC][K][K];
-  __shared__ float vs[PC][K][K];
-  __shared__ float ss[PC][K];
-  __shared__ int ps[PC];
+                       float* __restrict__ dx, int T, int T_pad, int P,
+                       int Q, int k) {
+  using L = Ring<K, RT>;
+  constexpr int KP = L::KP, TR = L::TR, NB = L::NB;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);        // [NB][SLOT]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + L::FLOATS);
+  int* plist = reinterpret_cast<int*>(bars + 2 * NB);   // [P]
+  uint32_t* pbits = reinterpret_cast<uint32_t*>(plist + P);  // [P]
+  __shared__ int n_kept;
 
-  const int rows = blockDim.x;
-  const int q = blockIdx.x;
-  const long long t0 = (long long)blockIdx.y * rows;
-  const int r = threadIdx.x;
-  const long long ldy = (long long)P * k;
-  const int n = counts[q];
-  const int* kept = plist + (long long)q * P;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * kGroup;
+  const int nq = min(kGroup, Q - q0);
+  const int t0 = blockIdx.y * TR;
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * NB;
 
-  float acc[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < n; c0 += PC) {
-    const int np = min(PC, n - c0);
-    __syncthreads();  // the previous pass is done with the tiles
-    if (r < PC) ps[r] = r < np ? kept[c0 + r] : 0;
-    __syncthreads();
-    for (int i = r; i < rows * COLS; i += rows) {
-      const int rr = i / COLS, c = i % COLS, pi = c / K, j = c % K;
-      const long long t = t0 + rr;
-      dys[rr * ROW + c] = (t < T && pi < np && j < k)
-                              ? dy[t * ldy + (long long)ps[pi] * k + j]
-                              : 0.f;
-    }
-    for (int i = r; i < PC * K * K; i += rows) {
-      const int pi = i / (K * K), e = i % (K * K), ii = e / K, j = e % K;
-      float uv = 0.f, vv = 0.f;
-      if (pi < np && ii < k && j < k) {
-        const long long off = (((long long)ps[pi] * Q + q) * k + ii) * k + j;
-        uv = u[off];
-        vv = v[off];
+  // the p any q of the group kept, ascending, with the group's bits
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < P; base += 32) {
+      const int p = base + lane;
+      uint32_t bits = 0;
+      if (p < P)
+        for (int w = 0; w < nq; ++w)
+          bits |= (uint32_t)(mask[(long long)(q0 + w) * P + p] != 0.f) << w;
+      const unsigned kept = __ballot_sync(0xffffffffu, bits != 0);
+      if (bits != 0) {
+        const int at = n + __popc(kept & ((1u << lane) - 1u));
+        plist[at] = p;
+        pbits[at] = bits;
       }
-      us[pi][ii][j] = uv;
-      vs[pi][ii][j] = vv;
+      n += __popc(kept);
     }
-    for (int i = r; i < PC * K; i += rows) {
-      const int pi = i / K, j = i % K;
-      ss[pi][j] = (pi < np && j < k)
-                      ? s[((long long)ps[pi] * Q + q) * k + j] *
-                            mask[(long long)q * P + ps[pi]]
-                      : 0.f;
+    if (lane == 0) n_kept = n;
+  } else if (warp == kGroup && lane == 0) {
+    for (int b = 0; b < NB; ++b) {
+      mbar_init(full0 + 8 * b, 1);
+      mbar_init(empty0 + 8 * b, kGroup);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n = n_kept;
 
-    for (int pi = 0; pi < np; ++pi) {
-      float dyr[K];
-#pragma unroll
-      for (int j = 0; j < K; ++j) dyr[j] = dys[r * ROW + pi * K + j];
-      float g[K];
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        float a = 0.f;
-#pragma unroll
-        for (int j = 0; j < K; ++j) a = fmaf(us[pi][j][i], dyr[j], a);
-        g[i] = a * ss[pi][i];
-      }
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        float a = acc[j];
-#pragma unroll
-        for (int i = 0; i < K; ++i) a = fmaf(vs[pi][i][j], g[i], a);
-        acc[j] = a;
+  if (warp == kGroup) {
+    // producer: slot idx % NB takes kept block plist[idx] once every
+    // consumer warp has released the slot's previous block
+    if (lane == 0) {
+      const uint32_t wbytes = 4u * nq * k * KP;
+      for (int idx = 0; idx < n; ++idx) {
+        const int b = idx % NB, round = idx / NB;
+        if (round > 0) mbar_wait(empty0 + 8 * b, (round - 1) & 1);
+        const uint32_t full = full0 + 8 * b;
+        mbar_expect_tx(full, 4u * k * TR + wbytes);
+        const int p = plist[idx];
+        const uint32_t slot = smem_u32(ring + b * L::SLOT);
+        for (int l = 0; l < k; ++l)
+          bulk_copy(slot + 4 * l * TR,
+                    dyt + ((long long)p * k + l) * T_pad + t0, 4u * TR, full);
+        bulk_copy(slot + 4 * L::DY, wt + ((long long)p * Q + q0) * k * KP,
+                  wbytes, full);
       }
     }
+    return;
   }
 
-  const long long t = t0 + r;
-  if (t < T) {
-    float* out = dx + t * ((long long)Q * k) + (long long)q * k;
+  // consumers: warp w owns q0 + w; lane owns rows row_of(i, lane) of the
+  // tile: 4 consecutive rows per 128 (float4 loads) when RT >= 4, else
+  // lane + 32 i
+  float acc[RT][K];
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (j < k) out[j] = acc[j];
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[i][j] = 0.f;
+
+  const bool live = warp < nq;
+  for (int idx = 0; idx < n; ++idx) {
+    const int b = idx % NB;
+    mbar_wait(full0 + 8 * b, (idx / NB) & 1);
+    if (live && ((pbits[idx] >> warp) & 1u)) {
+      const float* d = ring + b * L::SLOT + (RT >= 4 ? 4 * lane : lane);
+      const float* w = ring + b * L::SLOT + L::DY + warp * k * KP;
+#pragma unroll
+      for (int l = 0; l < K; ++l) {
+        if (l < k) {
+          float dv[RT], wv[KP];
+          if constexpr (RT >= 4) {
+#pragma unroll
+            for (int h = 0; h < RT / 4; ++h) {
+              const float4 x = *reinterpret_cast<const float4*>(
+                  d + l * TR + 128 * h);
+              dv[4 * h] = x.x;
+              dv[4 * h + 1] = x.y;
+              dv[4 * h + 2] = x.z;
+              dv[4 * h + 3] = x.w;
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < RT; ++i) dv[i] = d[l * TR + 32 * i];
+          }
+#pragma unroll
+          for (int j4 = 0; j4 < KP / 4; ++j4) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(w + l * KP + 4 * j4);
+            wv[4 * j4] = x.x;
+            wv[4 * j4 + 1] = x.y;
+            wv[4 * j4 + 2] = x.z;
+            wv[4 * j4 + 3] = x.w;
+          }
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+              acc[i][j] = fmaf(dv[i], wv[j], acc[i][j]);
+        }
+      }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * b);
+  }
+  consumers_sync();  // every block consumed: the ring is free
+
+  // RR rows at a time through shared memory: row rr, column w * k + j
+  constexpr int OS = kGroup * K + 1, RR = L::RR;
+  const int width = nq * k;
+  float* os = ring;
+#pragma unroll
+  for (int h = 0; h < TR / RR; ++h) {
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < RT * RR / TR; ++c) {
+        const int i = h * (RT * RR / TR) + c;  // acc row of this round
+        const int rr = RT >= 4 ? 4 * lane + c : lane;
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          if (j < k) os[rr * OS + warp * k + j] = acc[i][j];
+      }
+    }
+    consumers_sync();
+    for (int rr = warp; rr < RR; rr += kGroup) {
+      const long long t = t0 + RR * h + rr;
+      if (t >= T) break;
+      float* row = dx + t * ((long long)Q * k) + (long long)q0 * k;
+      for (int cc = lane; cc < width; cc += 32) row[cc] = os[rr * OS + cc];
+    }
+    consumers_sync();
   }
 }
 
-template <int K>
-cudaError_t launch(const float* dy, const float* u, const float* s,
-                   const float* v, const float* mask, int* plist, int* counts,
-                   float* dx, int T, int P, int Q, int k,
-                   cudaStream_t stream) {
-  kept_blocks_kernel<<<(Q + 3) / 4, 128, 0, stream>>>(mask, plist, counts, Q,
-                                                       P);
-  const int rows = T >= kMaxRows ? kMaxRows : ((T + 31) / 32) * 32;
-  const dim3 grid(Q, (T + rows - 1) / rows);
-  feedback_matmul_kernel<K><<<grid, rows, 0, stream>>>(
-      dy, u, s, v, mask, plist, counts, dx, T, P, Q, k);
+template <int K, int RT>
+cudaError_t launch_main(const float* dyt, const float* wt, const float* mask,
+                        float* dx, int T, int T_pad, int P, int Q, int k,
+                        cudaStream_t st) {
+  using L = Ring<K, RT>;
+  const size_t smem =
+      sizeof(float) * L::FLOATS + 16 * L::NB + 2 * sizeof(int) * P;
+  auto kern = feedback_matmul_kernel<K, RT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((Q + kGroup - 1) / kGroup, T_pad / L::TR);
+  kern<<<grid, kThreads, smem, st>>>(dyt, wt, mask, dx, T, T_pad, P, Q, k);
   return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t by_rows(int rt, const float* dyt, const float* wt,
+                    const float* mask, float* dx, int T, int T_pad, int P,
+                    int Q, int k, cudaStream_t st) {
+  switch (rt) {
+    case 1: return launch_main<K, 1>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+    case 2: return launch_main<K, 2>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+    case 4:
+      if constexpr (K <= 16)
+        return launch_main<K, 4>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+      break;
+    case 8:
+      if constexpr (K <= 9)
+        return launch_main<K, 8>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the two pre-passes (compose, transpose), then the product
+template <int K>
+cudaError_t launch(int rt, const float* dy, const float* u, const float* s,
+                   const float* v, const float* mask, float* wt, float* dyt,
+                   float* dx, int T, int P, int Q, int k, cudaStream_t st) {
+  const int tr = 32 * rt;
+  const int T_pad = (T + tr - 1) / tr * tr;
+  const long long rows = (long long)P * Q * k;
+  if (rows > 0) {
+    constexpr int B = 128 / K;  // blocks per compose CTA
+    compose_kernel<K><<<(unsigned)(((long long)P * Q + B - 1) / B), 128, 0,
+                        st>>>(u, s, v, mask, wt, P, Q, k);
+    const dim3 grid((P * k + 31) / 32, T_pad / 32);
+    transpose_kernel<<<grid, dim3(32, 8), 0, st>>>(dy, dyt, T, T_pad, P * k);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return by_rows<K>(rt, dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
 }
 
 }  // namespace
@@ -174,24 +409,33 @@ extern "C" const char* repro_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// fp32 only.  plist: (Q, P) int32 and counts: (Q,) int32 scratch.
+// fp32 only.  kt: the kernel's k (4, 8, 9, 16 or 32, >= k); rt: rows per
+// lane (1, 2, 4 or 8; at most 8 for kt <= 9, 4 for 16, 2 for 32).
+// Scratch: wt (P, Q, k, KP) with KP = kt rounded up to a multiple of 4;
+// dyt (P*k, T_pad) with T_pad = T rounded up to a multiple of 32 * rt.
 extern "C" int feedback_matmul(const void* dy, const void* u, const void* s,
-                               const void* v, const void* mask, void* plist,
-                               void* counts, void* dx, int T, int P, int Q,
-                               int k, void* stream) {
+                               const void* v, const void* mask, void* wt,
+                               void* dyt, void* dx, int T, int P, int Q,
+                               int k, int kt, int rt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(dy);
-  const float* b = static_cast<const float*>(u);
-  const float* c = static_cast<const float*>(s);
-  const float* d = static_cast<const float*>(v);
   const float* m = static_cast<const float*>(mask);
-  int* pl = static_cast<int*>(plist);
-  int* cn = static_cast<int*>(counts);
+  const float* uu = static_cast<const float*>(u);
+  const float* ss = static_cast<const float*>(s);
+  const float* vv = static_cast<const float*>(v);
+  float* w = static_cast<float*>(wt);
+  float* d = static_cast<float*>(dyt);
   float* o = static_cast<float*>(dx);
-  if (k <= 4) return static_cast<int>(launch<4>(a, b, c, d, m, pl, cn, o, T, P, Q, k, st));
-  if (k <= 8) return static_cast<int>(launch<8>(a, b, c, d, m, pl, cn, o, T, P, Q, k, st));
-  if (k == 9) return static_cast<int>(launch<9>(a, b, c, d, m, pl, cn, o, T, P, Q, k, st));
-  if (k <= 16) return static_cast<int>(launch<16>(a, b, c, d, m, pl, cn, o, T, P, Q, k, st));
-  if (k <= 32) return static_cast<int>(launch<32>(a, b, c, d, m, pl, cn, o, T, P, Q, k, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > kt || (kt == 32 && rt > 2) || (kt == 16 && rt > 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (kt) {
+    case 4: err = launch<4>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
+    case 8: err = launch<8>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
+    case 9: err = launch<9>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
+    case 16: err = launch<16>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
+    case 32: err = launch<32>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -1,5 +1,9 @@
 // Chunked paged-prefill attention for the serving gateway.
 //
+// Since the tensor-core kernel (prefill_attn_tc.cu), this one serves only
+// fp32 q (over fp32 or bf16 K/V) and bf16 pairs at head dims other than
+// 64 and 128.
+//
 // Replaces the TPU kernel repro/kernels/prefill_attn.py::prefill_attention
 // (dispatched by repro/kernels/ops.py).  Shapes: lens (B,) int32; q (B, C,
 // H, Dh); k, v (B, S, Hkv, Dh) page-assembled views with the chunk's own
@@ -13,8 +17,8 @@
 // What bounds it on an H100: at the gateway's full-width step (B 8, C 64,
 // H 32, Hkv 8, Dh 128, S 640) about 4 * Dh * H FLOPs per live query-key pair,
 // a few GFLOP over a few tens of MB: the tensor cores' rate, were the products
-// on them.  This first kernel keeps them on the CUDA cores in fp32 (a
-// wgmma design is later work).
+// on them.  This first kernel keeps them on the CUDA cores in fp32 (the
+// wgmma design is prefill_attn_tc.cu).
 //
 // Design:
 //  * The TPU grid (slot, KV block) carries the online-softmax state (running

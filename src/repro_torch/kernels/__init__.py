@@ -12,6 +12,10 @@ wrapper                       replaces (TPU kernel in ``repro.kernels``)
 ``prefill_attention``         ``prefill_attn.prefill_attention``
 ============================  ==========================================
 
+``prefill_attention`` has two kernels: the tensor-core one for bf16 q over
+bf16 K/V at head dims 64 and 128, the CUDA-core one for every other pair
+(:func:`.prefill_attn.route`).
+
 Each wrapper launches its CUDA kernel (``repro_torch/csrc``) on a CUDA
 tensor and runs its plain PyTorch version (:mod:`.ref`) on a CPU tensor.
 """

@@ -4,7 +4,10 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/repro_torch/`` at
 the root of the checkout, at first use; the library is loaded with
 ``ctypes``.  A library may hold several kernels (``paged_kv.cu`` holds the
-gather and the scatter): :data:`KERNELS` names each kernel's library.  Library names carry a hash of the source and the flags, so an
+gather and the scatter), and one TPU kernel may have two routes
+(``prefill_attention`` on the tensor cores, ``prefill_attention_cudacore``
+for the pairs they do not take): :data:`KERNELS` names each kernel's
+library.  Library names carry a hash of the source and the flags, so an
 edited source is never served a stale build.  :func:`build` starts one
 ``nvcc`` per source, all at once.
 
@@ -37,7 +40,8 @@ SOURCES = {"mesh_apply": "mesh_apply.cu",
            "sigma_grad": "sigma_grad.cu",
            "feedback_matmul": "feedback_matmul.cu",
            "paged_kv": "paged_kv.cu",
-           "prefill_attn": "prefill_attn.cu"}
+           "prefill_attn": "prefill_attn.cu",
+           "prefill_attn_tc": "prefill_attn_tc.cu"}
 # kernel name (the launch counter's key) -> library name
 KERNELS = {"mesh_apply": "mesh_apply",
            "ptc_block_matmul": "ptc_block_matmul",
@@ -45,7 +49,8 @@ KERNELS = {"mesh_apply": "mesh_apply",
            "feedback_matmul": "feedback_matmul",
            "paged_gather": "paged_kv",
            "paged_scatter": "paged_kv",
-           "prefill_attention": "prefill_attn"}
+           "prefill_attention": "prefill_attn_tc",
+           "prefill_attention_cudacore": "prefill_attn"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

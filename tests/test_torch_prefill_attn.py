@@ -6,7 +6,10 @@ mode (``repro.kernels.ops.prefill_attention``).
 * fp32 queries over bf16 K/V views (the smoke LM's types) at 2e-5;
 * a block the window never sees changes no bit of the output;
 * a block that does not divide the view raises the reference's
-  ``ValueError``; the kernel's key tile never straddles a block.
+  ``ValueError``; the kernel's key tile never straddles a block;
+* the wrapper's route between its two CUDA kernels is a rule on the dtypes
+  and the head dim alone (bf16/bf16 at Dh 64 and 128 on the tensor cores),
+  each route with its own launch counter and library.
 """
 
 import jax.numpy as jnp
@@ -16,7 +19,8 @@ import torch
 
 from repro.kernels import ops
 from repro_torch.kernels import prefill_attention
-from repro_torch.kernels.prefill_attn import _tile
+from repro_torch.kernels.prefill_attn import _tile, route
+from repro_torch.kernels.ref import prefill_attention_ref
 
 
 def _inputs(seed, b, c, h, hkv, hd, s):
@@ -79,3 +83,38 @@ def test_kernel_tile_divides_the_block(blk):
     t = _tile(blk)
     assert 1 <= t <= 32 and blk % t == 0
     assert t == min(blk, 32) or blk % 32 != 0
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,hd,want", [
+    (torch.bfloat16, torch.bfloat16, 128, "tensor_cores"),   # the gateway
+    (torch.bfloat16, torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, torch.bfloat16, 96, "cuda_cores"),      # no wgmma tile
+    (torch.bfloat16, torch.bfloat16, 256, "cuda_cores"),
+    (torch.bfloat16, torch.bfloat16, 8, "cuda_cores"),
+    (torch.float32, torch.float32, 128, "cuda_cores"),       # TF32 misses 2e-5
+    (torch.float32, torch.bfloat16, 128, "cuda_cores"),      # the smoke LM
+    (torch.float32, torch.bfloat16, 64, "cuda_cores"),
+])
+def test_route_is_a_rule_on_dtype_and_head_dim(q_dtype, kv_dtype, hd, want):
+    assert route(q_dtype, kv_dtype, hd) == want
+
+
+def test_each_route_has_its_own_launch_counter_and_library():
+    from repro_torch.kernels import build
+    from repro_torch.kernels.prefill_attn import LIB, LIB_TC, NAME, \
+        NAME_CUDA_CORES
+    assert NAME != NAME_CUDA_CORES
+    assert build.KERNELS[NAME] == LIB_TC and build.KERNELS[NAME_CUDA_CORES] == LIB
+    for lib in (LIB, LIB_TC):
+        assert (build.CSRC / build.SOURCES[lib]).is_file()
+    assert build.launch_counts[NAME] == build.launch_counts[NAME_CUDA_CORES] \
+        == 0   # the CPU path launches neither
+
+
+def test_bf16_inputs_at_a_tensor_core_head_dim_run_the_plain_version_on_cpu():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(2, 2, 3, 4, 2, 64, 16))
+    lens = torch.tensor([0, 10], dtype=torch.int32)
+    got = prefill_attention(lens, q, k, v, blk=8, window=5)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, prefill_attention_ref(lens, q, k, v, window=5))

@@ -10,6 +10,8 @@
   (the same masks handed to both packages), 1e-5 absolute (sums of 32
   rows of order-1 terms in fp32, taken in another order).
 * The frozen bases get no gradient, and the kernel's ds is the autograd ds.
+* The feedback wrapper's plan (compiled k, scratch row width, rows per
+  lane) for the shapes the training path passes.
 """
 
 import jax
@@ -24,6 +26,7 @@ from repro.kernels import ops
 from repro_torch import convert
 from repro_torch.core import ptc as tptc, subspace as tsub
 from repro_torch.kernels import build, feedback_matmul, ref, sigma_grad
+from repro_torch.kernels.feedback_matmul import plan as feedback_plan
 
 
 def _f32(rng, *shape):
@@ -83,6 +86,31 @@ def test_wrappers_are_their_plain_versions_on_cpu_and_check_inputs():
         feedback_matmul(dy, u, s, v, mask.T)
     with pytest.raises(ValueError):
         sigma_grad(dy.T.contiguous().T, x, u, v)
+
+
+@pytest.mark.parametrize("t,k,want", [
+    (1024, 9, (9, 12, 8)),       # FC W1 of VGG-8: 256-row tiles
+    (32768, 9, (9, 12, 8)),      # conv l1
+    (32, 9, (9, 12, 1)),         # a batch-32 FC layer: one 32-row tile
+    (37, 13, (16, 16, 2)),       # k = 13 runs the k = 16 kernel
+    (1000, 13, (16, 16, 4)),
+    (129, 32, (32, 32, 2)),      # k = 32: at most 2 rows per lane
+    (100, 4, (4, 4, 4)),
+    (8, 8, (8, 8, 1)),
+    (1, 1, (4, 4, 1)),
+])
+def test_feedback_plan_picks_kernel_k_scratch_width_and_rows(t, k, want):
+    kt, kp, rt = feedback_plan(t, k)
+    assert (kt, kp, rt) == want
+    assert kt >= k and kp % 4 == 0 and kp >= kt
+    assert rt in (1, 2, 4, 8) and (32 * rt < 2 * t or rt == 1)
+
+
+def test_feedback_plan_rejects_k_past_the_widest_kernel():
+    with pytest.raises(ValueError, match="outside"):
+        feedback_plan(64, 33)
+    with pytest.raises(ValueError, match="outside"):
+        feedback_plan(64, 0)
 
 
 @pytest.fixture(scope="module")
