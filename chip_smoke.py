@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases kernels     # build + kernel checks only
+    python3 chip_smoke.py --phases kernels,vgg8 --parent DIR
+                                               # + an earlier tree's PTC
+                                               # kernels timed beside
 
 Phases:
 
@@ -10,13 +13,16 @@ Phases:
    kernels of all seven TPU kernels from ``src/repro_torch/csrc`` (one
    nvcc per source, all in parallel; prefill attention has two routes,
    the tensor-core kernel for bf16 at head dims 64 and 128 and the
-   CUDA-core kernel for the rest), and hold each against its plain
+   CUDA-core kernel for the rest; ``ptc_block_matmul`` two, the product
+   route and the per-block route for Q = 1 and few rows, each checked at
+   every shape it can take), and hold each against its plain
    PyTorch version on the card: the reference package's kernel-test
    geometries, ragged row counts, feedback masks of density 0, 0.5, 1
    and btopk, duplicate scatter targets, the prefill (blk, window, cap)
    sweep on both routes, and the full-width shapes of the main paths,
    where each is also timed beside its bound, its plain version and a
-   PyTorch yardstick.
+   PyTorch yardstick (and, with ``--parent``, the earlier tree's
+   ``ptc_block_matmul`` and ``sigma_grad``).
 2. ``parity`` — the reference quickstart's geometry (18 → 18 → 9, k = 9):
    dense pre-training, IC, PM, serving, subspace learning (SL) and serving
    with the trained Σ; metrics against the reference run and the served
@@ -39,13 +45,15 @@ Phases:
    path's tokens.
 
 Every stage of a main path prints its wall time and its launches of each
-kernel, and must have launched each kernel it uses (``STAGE_KERNELS``).
+kernel, and must have launched each kernel it uses (``STAGE_KERNELS``),
+and of ``ptc_block_matmul``'s two routes only the one its entry names.
 The last two lines are a ``{"kernels": [...]}`` JSON summary and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there are
 counted over its main path with every count set to 0 just before it: the
 PTC kernels over the last quickstart path driven (full width, else
-parity), the serving kernels over the gateway's qwen3-4b run; they are
-null when that path did not run.  Any failed check raises (exit code not
+parity), the serving kernels over the gateway's qwen3-4b run, the
+CUDA-core prefill route (which that bf16 run never takes) over the
+smoke-width fp32 gateways; they are null when that path did not run.  Any failed check raises (exit code not
 0).  Without a CUDA device, or without the repository beside this script,
 it exits with code 2 and prints no result.
 """
@@ -62,28 +70,47 @@ from pathlib import Path
 
 PHASES = ("kernels", "parity", "full", "vgg8", "gateway")
 # the kernels each stage of quickstart.run launches, and each busy step of
-# the serving gateway
+# serving gateway.  ptc_block_matmul has two routes, each counted under its
+# own name: the IC/PM probes take the per-block route
+# (ptc_block_matmul_perblock), serving and SL the product route
+# (ptc_block_matmul); a stage must launch the route it names and not the
+# other
 STAGE_KERNELS = {
-    "ic": ("mesh_apply", "ptc_block_matmul"),
-    "pm": ("mesh_apply", "ptc_block_matmul"),
+    "ic": ("mesh_apply", "ptc_block_matmul_perblock"),
+    "pm": ("mesh_apply", "ptc_block_matmul_perblock"),
     "serve": ("ptc_block_matmul",),
     "sl": ("ptc_block_matmul", "sigma_grad", "feedback_matmul"),
     "serve_sl": ("ptc_block_matmul",),
     "gateway": ("paged_gather", "paged_scatter", "prefill_attention"),
 }
+PTC_ROUTES = ("ptc_block_matmul", "ptc_block_matmul_perblock")
 QUICKSTART_STAGES = ("ic", "pm", "serve", "sl", "serve_sl")
 # the kernels of each main path: quickstart.run, and the gateway
-QUICKSTART_KERNELS = ("mesh_apply", "ptc_block_matmul", "sigma_grad",
+QUICKSTART_KERNELS = ("mesh_apply", "ptc_block_matmul",
+                      "ptc_block_matmul_perblock", "sigma_grad",
                       "feedback_matmul")
 GATEWAY_KERNELS = STAGE_KERNELS["gateway"]
 # TPU kernel each CUDA kernel replaces (function, file:line)
 REPLACES = {"ptc_block_matmul": "src/repro/kernels/ptc_block_matmul.py:46",
+            "ptc_block_matmul_perblock":
+                "src/repro/kernels/ptc_block_matmul.py:46",
             "mesh_apply": "src/repro/kernels/mesh_apply.py:45",
             "sigma_grad": "src/repro/kernels/sigma_grad.py:43",
             "feedback_matmul": "src/repro/kernels/feedback_matmul.py:48",
             "paged_gather": "src/repro/kernels/paged_kv.py:45",
             "paged_scatter": "src/repro/kernels/paged_kv.py:79",
-            "prefill_attention": "src/repro/kernels/prefill_attn.py:88"}
+            "prefill_attention": "src/repro/kernels/prefill_attn.py:88",
+            "prefill_attention_cudacore":
+                "src/repro/kernels/prefill_attn.py:88"}
+# the port's kernels by their device function names (a wrapper may launch
+# several), for the profiles' per-kernel sums
+KERNEL_FAMILIES = {
+    "ptc_block_matmul": r"ptc_(compose|product|sum_splits)_kernel",
+    "ptc_block_matmul_perblock": r"ptc_perblock_kernel",
+    "sigma_grad": r"sigma_(grad|sum_splits)_kernel",
+    "feedback_matmul": r"::(compose|transpose|feedback_matmul)_kernel",
+    "mesh_apply": r"mesh_apply\w*_kernel",
+}
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 without tensor
 # cores, dense bf16 on the tensor cores (bf16 in, fp32 accumulate: the
 # least-time route for attention's products), and HBM3 bandwidth
@@ -197,11 +224,9 @@ def ptxas_summary(log: str) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(torch) -> dict:
+def kernel_phase(torch, parent=None) -> dict:
     from repro_torch.core import unitary as un
-    from repro_torch.core.ptc import PTCParams, compose_weight, unblockize
-    from repro_torch.kernels import (build, mesh_apply, mesh_apply_plain,
-                                     ptc_block_matmul, ref)
+    from repro_torch.kernels import build, mesh_apply, mesh_apply_plain
 
     info = build.build(force=True)
     print(f"[build] nvcc sm_90a, {len(info['built'])} kernels in parallel: "
@@ -214,62 +239,8 @@ def kernel_phase(torch) -> dict:
     gen = torch.Generator(dev).manual_seed(0)
     summary = {}
 
-    # -- ptc_block_matmul ----------------------------------------------------
-    def ptc_inputs(t, p, q, k, dtype):
-        def mk(*shape):
-            return torch.randn(shape, generator=gen, device=dev).to(dtype)
-        return mk(t, q * k), mk(p, q, k, k), mk(p, q, k), mk(p, q, k, k)
-
-    worst_rel, worst_abs = 0.0, 0.0
-    shapes = [(8, 2, 3, 8), (64, 4, 4, 16), (32, 1, 1, 9), (16, 3, 2, 4),
-              (128, 2, 2, 32),                      # reference test sweep
-              (1000, 3, 5, 9), (37, 2, 3, 13),      # ragged T
-              (9, 25992, 1, 9),                     # IC / PM probe
-              (1024, 2, 57, 9), (1024, 57, 456, 9)]  # serve, W2 and W1
-    for (t, p, q, k) in shapes:
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 6e-2)):
-            if dtype == torch.bfloat16 and t * p * q > 1e6:
-                continue
-            x, u, s, v = ptc_inputs(t, p, q, k, dtype)
-            y = ptc_block_matmul(x, u, s, v)
-            yr = ref.ptc_block_matmul_ref(x, u, s, v)
-            torch.cuda.synchronize()
-            diff = float((y.float() - yr.float()).abs().max())
-            rel = diff / (float(yr.float().abs().max()) + 1e-6)
-            check(y.shape == yr.shape and bool(torch.isfinite(y).all()),
-                  f"ptc_block_matmul {t, p, q, k}: bad output")
-            check(rel < tol, f"ptc_block_matmul {(t, p, q, k)} {dtype}: "
-                             f"rel err {rel:.2e} >= {tol}")
-            if dtype == torch.float32:
-                worst_rel = max(worst_rel, rel)
-                worst_abs = max(worst_abs, diff)
-    print(f"[check] ptc_block_matmul: {len(shapes)} shapes fp32 + bf16, "
-          f"max rel err {worst_rel:.2e} (tol 1e-4 fp32, 6e-2 bf16), "
-          f"max abs err {worst_abs:.2e}")
-
-    timings = {}
-    for label, (t, p, q, k), reps in (("serve W1", (1024, 57, 456, 9), 20),
-                                      ("probe", (9, 25992, 1, 9), 50)):
-        x, u, s, v = ptc_inputs(t, p, q, k, torch.float32)
-        ms = cuda_ms(lambda: ptc_block_matmul(x, u, s, v), reps)
-        plain = cuda_ms(lambda: ref.ptc_block_matmul_ref(x, u, s, v), 3)
-        lib = cuda_ms(lambda: x @ unblockize(compose_weight(
-            PTCParams(u, s, v))).T, reps)
-        # the least work for y = x·Wᵀ: compose each W_pq = U diag(s) V*
-        # once, then one dense product
-        flops = 2 * k * k * t * p * q + (2 * k ** 3 + k * k) * p * q
-        nbytes = 4 * (x.numel() + u.numel() + s.numel() + v.numel()
-                      + t * p * k)
-        b_ms, b_by = bound_ms(flops, nbytes)
-        timings[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=b_ms, bound_by=b_by)
-        print(f"[time] ptc_block_matmul {label} (T={t}, P={p}, Q={q}, k={k},"
-              f" fp32): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"yardstick x @ unblockize(compose_weight).T {lib:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)")
-    summary["ptc_block_matmul"] = dict(
-        max_abs_err=worst_abs, **timings["serve W1"])
+    # -- ptc_block_matmul: both routes ---------------------------------------
+    summary.update(ptc_kernels(torch, gen, parent))
 
     # -- mesh_apply ----------------------------------------------------------
     worst = 0.0
@@ -327,18 +298,258 @@ def kernel_phase(torch) -> dict:
     summary["mesh_apply"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
                                  library_ms=None, bound_ms=b_ms,
                                  bound_by=b_by)
-    summary.update(backward_kernels(torch, gen))
+    summary.update(backward_kernels(torch, gen, parent))
     summary.update(serving_kernels(torch, gen))
     return summary
 
 
-def backward_kernels(torch, gen) -> dict:
+def ptc_kernels(torch, gen, parent=None) -> dict:
+    """``ptc_block_matmul`` on both routes against its plain version: the
+    reference test sweep, ragged T, VGG-8's layer geometries at batch 32,
+    T at each route's tile edge (fp32 and bf16; Q = 1 shapes on both
+    routes); the launch rule and the kernel's tiles against the wrapper's
+    plan; then both routes timed at their main paths' shapes."""
+    import ctypes
+    from repro_torch.core.ptc import PTCParams, compose_weight, unblockize
+    from repro_torch.kernels import build, ptc_block_matmul, ref
+    from repro_torch.kernels.ptc_block_matmul import (
+        K_STAGE, LIB, PER_BLOCK_MAX_T, ROUTES, Plan, plan, route)
+
+    dev = torch.device("cuda")
+    sms = build.sm_count(dev)
+
+    # the kernel's tile (rows, blocks, K stage) is the wrapper plan's
+    out = (ctypes.c_int * 3)()
+    for k in (4, 8, 9, 13, 16, 32):
+        for p in (2, 8, 9, 57):
+            pl = plan(64, p, 3, k, sms)
+            want = (pl.bm, pl.nblk, K_STAGE)
+            check(build.library(LIB).ptc_block_matmul_tile(k, pl.wn, out)
+                  == 0 and tuple(out) == want,
+                  f"ptc_block_matmul k={k} P={p}: the kernel's tile "
+                  f"{tuple(out)} is not the plan's {want}")
+
+    def ptc_inputs(t, p, q, k, dtype):
+        def mk(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return mk(t, q * k), mk(p, q, k, k), mk(p, q, k), mk(p, q, k, k)
+
+    worst = {r: [0.0, 0.0] for r in ROUTES}        # rel, abs (fp32)
+    n_checked = {r: 0 for r in ROUTES}
+    shapes = [(8, 2, 3, 8), (64, 4, 4, 16), (32, 1, 1, 9), (16, 3, 2, 4),
+              (128, 2, 2, 32),                      # reference test sweep
+              (1000, 3, 5, 9), (37, 2, 3, 13),      # ragged T
+              (9, 25992, 1, 9),                     # IC / PM probe
+              (1024, 2, 57, 9), (1024, 57, 456, 9),  # serve, W2 and W1
+              # VGG-8 at batch 32: conv0 (Q·k 27), conv2 (P·k 135), conv4
+              # (P·k 261), FC W1 (P·k 513), FC 512 -> 10 (Q·k 513)
+              (32768, 8, 3, 9), (8192, 15, 64, 9), (2048, 29, 128, 9),
+              (32, 57, 456, 9), (32, 2, 57, 9),
+              # T at the product tiles' edges (128 rows for P > 8, 256 for
+              # P <= 8) and the per-block route's (32-row stages, the
+              # crossover at PER_BLOCK_MAX_T)
+              (127, 9, 4, 9), (128, 9, 4, 9), (129, 9, 4, 9),
+              (255, 8, 5, 9), (256, 8, 5, 9), (257, 8, 5, 9),
+              (31, 300, 1, 9), (32, 300, 1, 9), (33, 300, 1, 9),
+              (PER_BLOCK_MAX_T, 300, 1, 9), (PER_BLOCK_MAX_T + 1, 300, 1, 9),
+              (9, 64, 1, 4), (9, 64, 1, 8), (13, 64, 1, 13), (16, 64, 1, 16),
+              (32, 20, 1, 32)]
+    for (t, p, q, k) in shapes:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 6e-2)):
+            if dtype == torch.bfloat16 and t * p * q > 1e6:
+                continue
+            x, u, s, v = ptc_inputs(t, p, q, k, dtype)
+            yr = ref.ptc_block_matmul_ref(x, u, s, v)
+            picked = route(t, p, q, k)
+            for which in ROUTES if q == 1 else ("product",):
+                before = dict(build.launch_counts)
+                y = ptc_block_matmul(x, u, s, v, force_route=which)
+                again = ptc_block_matmul(x, u, s, v, force_route=which)
+                torch.cuda.synchronize()
+                what = f"ptc_block_matmul {which} {(t, p, q, k)} {dtype}"
+                check(build.launch_counts[ROUTES[which]]
+                      - before[ROUTES[which]] == 2,
+                      f"{what}: not launched on its route")
+                diff, rel = rel_err(y, yr)
+                check(y.shape == yr.shape and bool(torch.isfinite(y).all()),
+                      f"{what}: bad output")
+                check(rel < tol, f"{what}: rel err {rel:.2e} >= {tol}")
+                check(torch.equal(y, again), f"{what}: two runs differ")
+                n_checked[which] += 1
+                if dtype == torch.float32:
+                    worst[which] = [max(worst[which][0], rel),
+                                    max(worst[which][1], diff)]
+            before = dict(build.launch_counts)
+            ptc_block_matmul(x, u, s, v)
+            check(build.launch_counts[ROUTES[picked]]
+                  == before[ROUTES[picked]] + 1,
+                  f"ptc_block_matmul {(t, p, q, k)}: the call did not take "
+                  f"the {picked} route its rule names")
+    # the split-K plans rerun bitwise (FC W1 at batch 32 splits 33 ways)
+    x, u, s, v = ptc_inputs(32, 57, 456, 9, torch.float32)
+    yr = ref.ptc_block_matmul_ref(x, u, s, v)
+    ktiles = -(-456 * 9 // K_STAGE)
+    for splits in (1, 2, 7, plan(32, 57, 456, 9, sms).splits, ktiles):
+        pl = plan(32, 57, 456, 9, sms)
+        kt = -(-ktiles // splits)
+        pl = Plan(pl.kt, pl.wn, pl.bm, pl.nblk, -(-ktiles // kt),
+                  K_STAGE * kt)
+        y = ptc_block_matmul(x, u, s, v, force_plan=pl)
+        check(torch.equal(y, ptc_block_matmul(x, u, s, v, force_plan=pl))
+              and rel_err(y, yr)[1] < 1e-4,
+              f"ptc_block_matmul FC W1 at T 32, {pl.splits} K splits: wrong "
+              f"or not deterministic")
+    for which in ROUTES:
+        print(f"[check] ptc_block_matmul {which} route ({ROUTES[which]}): "
+              f"{n_checked[which]} cases (fp32 + bf16), deterministic, max "
+              f"rel err {worst[which][0]:.2e} (tol 1e-4 fp32, 6e-2 bf16), "
+              f"max abs err {worst[which][1]:.2e}; the rule picks per_block "
+              f"for Q = 1 and T <= {PER_BLOCK_MAX_T}, product otherwise")
+
+    old = parent_ptc(torch, parent)
+    summary, timings = {}, {}
+    for label, (t, p, q, k), reps in (
+            ("serve W1", (1024, 57, 456, 9), 20),
+            ("probe", (9, 25992, 1, 9), 50),
+            ("conv l1", (32768, 8, 64, 9), 20),
+            ("FC W1 at T 32", (32, 57, 456, 9), 50)):
+        x, u, s, v = ptc_inputs(t, p, q, k, torch.float32)
+        which = route(t, p, q, k)
+        ms = cuda_ms(lambda: ptc_block_matmul(x, u, s, v), reps)
+        plain = cuda_ms(lambda: ref.ptc_block_matmul_ref(x, u, s, v), 3)
+        lib = cuda_ms(lambda: x @ unblockize(compose_weight(
+            PTCParams(u, s, v))).T, reps)
+        # the least work for y = x·Wᵀ: compose each W_pq = U diag(s) V*
+        # once, then one dense product
+        flops = 2 * k * k * t * p * q + (2 * k ** 3 + k * k) * p * q
+        nbytes = 4 * (x.numel() + u.numel() + s.numel() + v.numel()
+                      + t * p * k)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        timings[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=b_ms, bound_by=b_by, route=which)
+        extra = ""
+        if old is not None:
+            extra = (f", the parent tree's kernel "
+                     f"{cuda_ms(lambda: old(x, u, s, v), reps):.4f} ms")
+        split = device_split(lambda: ptc_block_matmul(x, u, s, v))
+        pl = plan(t, p, q, k, sms)
+        print(f"[time] ptc_block_matmul {label} (T={t}, P={p}, Q={q}, k={k},"
+              f" fp32), {which} route"
+              + (f" ({pl.bm} rows x {pl.nblk} blocks a CTA, {pl.splits} K "
+                 f"splits)" if which == "product" else "")
+              + f": kernel {ms:.4f} ms ({100 * b_ms / ms:.0f}% of the bound;"
+              f" by launch " + ", ".join(f"{n} {m:.4f}" for n, m in split)
+              + f"){extra}, plain {plain:.4f} ms, library x @ "
+              f"unblockize(compose_weight).T {lib:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    # the crossover: both routes at Q = 1, over the probe's 25,992 blocks
+    # and over 57 (the per-block grid spans P alone)
+    for p in (25992, 57):
+        line = []
+        for t in (9, 32, 64, 128, 256, 1024):
+            x, u, s, v = ptc_inputs(t, p, 1, 9, torch.float32)
+            by_route = {r: cuda_ms(lambda: ptc_block_matmul(
+                x, u, s, v, force_route=r), 20) for r in ROUTES}
+            line.append(f"T {t}: " + ", ".join(
+                f"{r} {m:.4f}" for r, m in by_route.items()))
+        print(f"[time] ptc_block_matmul at Q = 1, P = {p}, k = 9, ms by "
+              f"route: " + "; ".join(line))
+    # what x's 4-byte copies cost: serve W1 with x 16-byte aligned and not
+    x, u, s, v = ptc_inputs(1024, 57, 456, 9, torch.float32)
+    buf = torch.empty(x.numel() + 1, device=dev)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    print(f"[time] ptc_block_matmul serve W1, x by 16-byte copies "
+          f"{cuda_ms(lambda: ptc_block_matmul(x, u, s, v), 20):.4f} ms, by "
+          f"4-byte copies (x 4 bytes off alignment) "
+          f"{cuda_ms(lambda: ptc_block_matmul(xm, u, s, v), 20):.4f} ms")
+    for which, label in (("product", "serve W1"), ("per_block", "probe")):
+        info = dict(timings[label])
+        del info["route"]
+        summary[ROUTES[which]] = dict(max_abs_err=worst[which][1], **info)
+    return summary
+
+
+def parent_library(torch, parent, name):
+    """An earlier tree's ``csrc/<name>.cu`` built into ``build/parent/``
+    and loaded, or None without a parent tree."""
+    import ctypes
+    import os
+    from repro_torch.kernels import build
+    if parent is None:
+        return None
+    src = Path(parent) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+    out = build.BUILD_DIR.parent / "parent" / f"lib{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                          str(src)], capture_output=True, text=True)
+    check(res.returncode == 0, f"parent {name}: nvcc failed:\n{res.stdout}"
+                               f"{res.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    print(f"[build] parent tree's {name}.cu ({os.path.relpath(src)}): built")
+    return lib
+
+
+def parent_ptc(torch, parent):
+    """The earlier tree's ``ptc_block_matmul`` (its C interface: one
+    kernel, ``(x, u, s, v, y, T, P, Q, k, dtype, stream)``) as a callable
+    on fp32 inputs, or None."""
+    import ctypes
+    lib = parent_library(torch, parent, "ptc_block_matmul")
+    if lib is None:
+        return None
+    fn = lib.ptc_block_matmul
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+
+    def call(x, u, s, v):
+        p, q, k, _ = u.shape
+        y = torch.empty((x.shape[0], p * k), device=x.device)
+        status = fn(x.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                    y.data_ptr(), x.shape[0], p, q, k, 0,
+                    torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"parent ptc_block_matmul: CUDA error {status}")
+        return y
+    return call
+
+
+def parent_sigma(torch, parent):
+    """The earlier tree's ``sigma_grad`` (its C interface: the row chunks
+    from ``sigma_grad_chunks``) as a callable, or None."""
+    import ctypes
+    lib = parent_library(torch, parent, "sigma_grad")
+    if lib is None:
+        return None
+    lib.sigma_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    lib.sigma_grad_chunks.argtypes = [ctypes.c_int] * 4
+
+    def call(dy, x, u, v):
+        p, q, k, _ = u.shape
+        t = dy.shape[0]
+        chunks = lib.sigma_grad_chunks(t, p, q, k)
+        part = torch.empty((chunks, p, q, k) if chunks > 1 else (0,),
+                           device=dy.device)
+        ds = torch.empty((p, q, k), device=dy.device)
+        status = lib.sigma_grad(dy.data_ptr(), x.data_ptr(), u.data_ptr(),
+                                v.data_ptr(), part.data_ptr(), ds.data_ptr(),
+                                t, p, q, k, chunks,
+                                torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"parent sigma_grad: CUDA error {status}")
+        return ds
+    return call
+
+
+def backward_kernels(torch, gen, parent=None) -> dict:
     """``sigma_grad`` and ``feedback_matmul`` against their plain versions,
     then timed at the training path's full-width shapes."""
     from repro_torch.core.ptc import (PTCParams, blockize, compose_weight,
                                       unblockize)
     from repro_torch.core.sparsity import SparsityConfig, feedback_mask
-    from repro_torch.kernels import feedback_matmul, ref, sigma_grad
+    from repro_torch.kernels import build, feedback_matmul, ref, sigma_grad
+    from repro_torch.kernels.sigma_grad import Plan as SigmaPlan
+    from repro_torch.kernels.sigma_grad import plan as sigma_plan
 
     dev = torch.device("cuda")
 
@@ -388,8 +599,36 @@ def backward_kernels(torch, gen) -> dict:
                       f"feedback_matmul {(t, p, q, k)}: density 0 is not an "
                       f"exact zero")
         torch.cuda.synchronize()
+    # sigma_grad alone: VGG-8's other layer geometries at batch 32, T at
+    # the ring stage's edge (16 rows) and at a split plan's chunk edge, and
+    # the split-T plans rerun bitwise
+    extra = [(8192, 15, 64, 9), (2048, 29, 128, 9), (32, 57, 456, 9),
+             (32, 2, 57, 9), (15, 3, 17, 9), (16, 3, 17, 9), (17, 3, 17, 9),
+             (255, 9, 3, 9), (256, 9, 3, 9), (257, 9, 3, 9),
+             (300, 5, 7, 4), (300, 5, 7, 8), (300, 5, 7, 13), (300, 3, 5, 16),
+             (300, 3, 5, 32)]
+    for (t, p, q, k) in extra:
+        dy, x, u, v = mk(t, p * k), mk(t, q * k), mk(p, q, k, k), \
+            mk(p, q, k, k)
+        ds = sigma_grad(dy, x, u, v)
+        record("sigma_grad", (t, p, q, k), ds, ref.sigma_grad_ref(dy, x, u, v))
+        check(torch.equal(ds, sigma_grad(dy, x, u, v)),
+              f"sigma_grad {(t, p, q, k)}: two runs differ")
+    dy, x, u, v = mk(4096, 8 * 9), mk(4096, 64 * 9), mk(8, 64, 9, 9), \
+        mk(8, 64, 9, 9)
+    want = ref.sigma_grad_ref(dy, x, u, v)
+    for chunk in (16, 272, 1024, 4096):
+        pl = SigmaPlan(9, 8, 16, -(-4096 // chunk), chunk)
+        ds = sigma_grad(dy, x, u, v, force_plan=pl)
+        record("sigma_grad", f"(4096, 8, 64, 9), {pl.splits} T splits", ds,
+               want)
+        check(torch.equal(ds, sigma_grad(dy, x, u, v, force_plan=pl)),
+              f"sigma_grad {pl.splits} T splits: two runs differ")
+    torch.cuda.synchronize()
     for name, (rel, diff) in worst.items():
         print(f"[check] {name}: {len(shapes)} shapes"
+              + (f" + {len(extra)} + 4 split plans" if name == "sigma_grad"
+                 else "")
               + (" x masks of density 0, 0.5, 1 and btopk 0.6 (density 0 "
                  "an exact zero), deterministic"
                  if name == "feedback_matmul" else ", deterministic")
@@ -397,6 +636,7 @@ def backward_kernels(torch, gen) -> dict:
                 f"{diff:.2e}")
 
     timings = {}
+    old = parent_sigma(torch, parent)
     for label, (t, p, q, k) in (("FC W1", (1024, 57, 456, 9)),
                                 ("conv l1", (32768, 8, 64, 9))):
         dy, x, u, s, v = mk(t, p * k), mk(t, q * k), mk(p, q, k, k), \
@@ -425,8 +665,16 @@ def backward_kernels(torch, gen) -> dict:
         timings[("sigma_grad", label)] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
             bound_by=b_by)
+        pl = sigma_plan(t, p, q, k, build.sm_count(dev))
+        split = device_split(lambda: sigma_grad(dy, x, u, v))
+        par = "" if old is None else (
+            f", the parent tree's kernel "
+            f"{cuda_ms(lambda: old(dy, x, u, v), 20):.4f} ms")
         print(f"[time] sigma_grad {label} (T={t}, P={p}, Q={q}, k={k}, "
-              f"fp32): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"fp32; {pl.mp} x {pl.nq} blocks a CTA, {pl.splits} T splits):"
+              f" kernel {ms:.4f} ms ({100 * b_ms / ms:.0f}% of the bound; by "
+              f"launch " + ", ".join(f"{n} {m:.4f}" for n, m in split)
+              + f"){par}, plain {plain:.4f} ms, library "
               f"one torch.einsum (opt_einsum "
               f"{torch.backends.opt_einsum.is_available()}, rel err "
               f"{lib_rel:.1e}) {lib:.4f} ms, fused-mode backward (dy.T @ x "
@@ -663,8 +911,11 @@ def serving_kernels(torch, gen) -> dict:
           f"fp32: max abs err {worst:.2e} (tol 2e-5; a one-key mask leak "
           f"reads {leak:.2e}), two runs equal; masked block exact")
     q32, k32, v32 = q, k, v
+    cc_abs = worst
     ms_cc32 = cuda_ms(lambda: prefill_attention(lens, q32, k32, v32,
                                                 blk=blk), 20)
+    plain_cc32 = cuda_ms(lambda: ref.prefill_attention_ref(lens, q32, k32,
+                                                           v32), 3)
 
     # -- prefill_attention, tensor-core route (bf16 q over bf16 K/V, Dh 64
     # and 128): the 12 (blk, window, cap) cases at GQA ratios 1, 2, 4 and
@@ -787,11 +1038,32 @@ def serving_kernels(torch, gen) -> dict:
           f"{lib_rel:.1e}) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
           f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
           f"{nbytes / 1e6:.1f} MB)")
-    print(f"[time] prefill_attention CUDA-core route, the same shape at "
-          f"fp32: {ms_cc32:.4f} ms")
     summary["prefill_attention"] = dict(max_abs_err=tc_abs, ms=ms,
                                         plain_ms=plain, library_ms=lib,
                                         bound_ms=b_ms, bound_by=b_by)
+    # the CUDA-core route at the same shape in fp32: the same least work
+    # over the fp32 peak, 4-byte elements; the library call on fp32 inputs
+    q32t, k32t, v32t = (t.transpose(1, 2) for t in (q32, k32, v32))
+
+    def library32():
+        try:
+            return F.scaled_dot_product_attention(
+                q32t, k32t, v32t, attn_mask=mask, enable_gqa=True)
+        except TypeError:
+            return F.scaled_dot_product_attention(
+                q32t, k32t.repeat_interleave(h // hkv, 1),
+                v32t.repeat_interleave(h // hkv, 1), attn_mask=mask)
+    lib32 = cuda_ms(library32, 20)
+    b_ms32, b_by32 = bound_ms(flops, 2 * nbytes - 4 * b)
+    print(f"[time] prefill_attention CUDA-core route, the same shape at "
+          f"fp32: kernel {ms_cc32:.4f} ms ({100 * b_ms32 / ms_cc32:.0f}% of "
+          f"the bound), plain {plain_cc32:.4f} ms, library "
+          f"scaled_dot_product_attention on the fp32 inputs {lib32:.4f} ms, "
+          f"bound {b_ms32:.4f} ms ({b_by32}; {flops / 1e9:.2f} GFLOP at the "
+          f"fp32 peak, {(2 * nbytes - 4 * b) / 1e6:.1f} MB)")
+    summary[NAME_CC] = dict(max_abs_err=cc_abs, ms=ms_cc32,
+                            plain_ms=plain_cc32, library_ms=lib32,
+                            bound_ms=b_ms32, bound_by=b_by32)
     return summary
 
 
@@ -828,6 +1100,10 @@ def main_path(torch, name: str, geometry: tuple, **kw) -> tuple[dict, dict]:
         for kernel in kernels:
             check(counts[kernel] > 0,
                   f"{name}: {kernel} was not launched in {stage}")
+        for kernel in PTC_ROUTES:
+            check(kernel in kernels or counts[kernel] == 0,
+                  f"{name}: {stage} launched {kernel} {counts[kernel]} "
+                  f"times, not the route its entry names")
 
     # served logits against the mapped weights through a dense product
     d_in, _, d_out, _ = geometry
@@ -1024,6 +1300,15 @@ def vgg8_phase(torch, steps: int = 30, batch: int = 32) -> None:
     print("[profile] top kernels per step: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 3e3:.3f} ms x"
         f"{e.count / 3:.0f}" for e in top))
+    by_kernel = {}
+    for e in kernels:
+        name = next((n for n, pat in KERNEL_FAMILIES.items()
+                     if re.search(pat, e.key)), "other")
+        ms, n = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (ms + e.self_device_time_total / 3e3, n + e.count / 3)
+    print("[profile] vgg8 kernel time per step by kernel: " + "; ".join(
+        f"{name} {ms:.3f} ms in {n:.0f} launches" for name, (ms, n) in
+        sorted(by_kernel.items(), key=lambda kv: -kv[1][0])))
 
 
 # ---------------------------------------------------------------------------
@@ -1287,7 +1572,10 @@ def gateway_phase(torch, check_step: int = 12) -> dict:
     torch.cuda.empty_cache()
 
     # smoke width, fp32, on the card: chunked prefill emits the one-token
-    # path's tokens (gemma2: sliding window and soft-caps in the kernel)
+    # path's tokens (gemma2: sliding window and soft-caps in the kernel);
+    # fp32 attention takes the CUDA-core route, whose launches here are its
+    # count on a main path
+    build.reset_launch_counts()
     for name in ("qwen3-4b", "gemma2-27b"):
         scfg = smoke_config(name)
         sp = lm.init_model(torch.Generator(dev).manual_seed(1), scfg)
@@ -1304,13 +1592,24 @@ def gateway_phase(torch, check_step: int = 12) -> dict:
                                       f"differ from chunk 1 tokens")
         print(f"[gateway] {scfg.name} (fp32): prefill chunk 8 emits the "
               f"chunk-1 path's {n} tokens of 8 requests exactly")
-    return launches
+    check(build.launch_counts[NAME_CC] > 0
+          and build.launch_counts["prefill_attention"] == 0,
+          "gateway: the fp32 smoke-width gateways did not take the "
+          "CUDA-core prefill route alone")
+    print(f"[gateway] smoke-width fp32 gateways: {NAME_CC} launched "
+          f"{build.launch_counts[NAME_CC]} times")
+    return dict(launches, **{NAME_CC: build.launch_counts[NAME_CC]})
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
+    ap.add_argument("--parent", default=None,
+                    help="an earlier checkout (say a git archive of the "
+                         "parent commit): its ptc_block_matmul.cu and "
+                         "sigma_grad.cu are built and timed beside this "
+                         "tree's kernels in the kernels phase")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in PHASES for p in phases):
@@ -1333,7 +1632,8 @@ def main(argv=None) -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    summary = kernel_phase(torch) if "kernels" in phases else {}
+    summary = kernel_phase(torch, args.parent) if "kernels" in phases \
+        else {}
     # launches of each kernel on its main path in this run: the last
     # quickstart path driven (full width, else parity) for the PTC kernels,
     # the gateway for the serving kernels; null where none was driven

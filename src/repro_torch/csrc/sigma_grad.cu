@@ -7,201 +7,244 @@
 // x (T, Q*k), u and v (P, Q, k, k) with v holding V*  ->  ds (P, Q, k), fp32
 // throughout.
 //
-// What bounds it on an H100: arithmetic.  Per row and block it does two k x k
-// products and a k-wide multiply-add ((4k^2 + 2k) flops), so at the widest
-// shape of the training path (FC 4096 -> 512 of VGG-8 at T = 1024 rows:
-// P = 57, Q = 456, k = 9) that is ~9.1 GFLOP over ~37 MB of inputs: the fp32
-// CUDA-core rate, not device memory, is the bound.  k = 9 fits no
-// tensor-core tile, so this first kernel stays on the CUDA cores in full
-// fp32; a wgmma design, and sharing U^T dy with the feedback pass, is later
-// work.
+// The function's least work: the dense G = dy^T x summed over all rows
+// (k^2 multiply-adds a row and block), then ds_pq[i] = sum_a U[a,i]
+// (G_pq V*_pq^T)[a,i] once per block (2k^3).  The first design applied U^T
+// and V* to every row (2k^2 + k a row and block) with one shared-memory
+// operand per FMA, so it ran at twice the work and at the shared-memory
+// issue rate.
 //
 // Design:
-//  * The TPU grid (P, Q, T-tiles) keeps one block's (k,) accumulator
-//    resident across a sequential token stream.  GPU blocks run in no
-//    order, and on the training path T is the long axis (32,768 rows for a
-//    VGG-8 conv at batch 32 against 24 blocks in its first layer), so T is
-//    split: a CTA owns (p, a group of QC consecutive q, a chunk of rows).
-//  * Each thread takes one row of a 128-row tile at a time; its QC x K
-//    accumulators stay in registers across the whole chunk.  U_pq and V*_pq
-//    of the group sit in shared memory for the CTA's life (every thread
-//    reads the same element at once: a broadcast); the row tiles of dy_p and
-//    of the group's x columns are staged in shared memory with coalesced
-//    loads and an odd row stride (no bank conflicts).  Padded entries
-//    (j >= k, rows >= T) are zero, so the unrolled loops need no checks.
-//  * The chunk's partial sums are reduced across the CTA in a fixed order
-//    (warp butterfly, then warps in order) and written to partials
-//    (n_chunks, P, Q, k); a second kernel sums the chunks in order.  No
-//    atomics: two runs give the same bits.  With one chunk the first kernel
-//    writes ds directly.
+//  * A CTA of 128 threads owns a tile of G: MP p-blocks x NQ q-blocks
+//    (8 x 16 blocks = 72 x 144 at k = 9), and walks its range of T.  Each
+//    thread owns a TT x TT register tile of it (9 x 9 at k = 9: one whole
+//    block; 8 x 8 otherwise); per row it loads TT values of dy and TT of x
+//    as float4s from shared memory (each thread's slot padded to a multiple
+//    of 4 floats) and adds their outer product: 13 FMAs per load at k = 9.
+//  * Row slices of dy[:, p-range] and x[:, q-range], 16 rows a stage, come
+//    through a 3-stage cp.async ring.  The copies are 4 bytes each: the
+//    slots' padding scatters the columns, and dy's rows (P*k = 513, 135 and
+//    261 floats on VGG-8) and x's (Q*k = 27, 513) are not 16-byte aligned.
+//    Each thread copies the same (at most two) columns every stage, so the
+//    copy addresses are computed once.  The ring starts zeroed, and
+//    positions no copy writes (padding, blocks past P or Q) stay zero; rows
+//    past the range are zero-filled.
+//  * Epilogue: G goes to shared memory (it never reaches device memory),
+//    and one thread per (block, i) writes ds_pq[i] = sum_a U[a,i]
+//    (sum_b G[a,b] V*[i,b]), reading U and V* through L2 (prefetched there
+//    when the CTA starts).
+//  * Where the output tiles cannot fill the card (conv l1 of VGG-8: P = 8,
+//    Q = 64, 4 tiles; FC 512 -> 10: 4 tiles), the wrapper's plan splits T
+//    into chunks across CTAs; each chunk projects its partial G (the
+//    projection is linear) into (splits, P, Q, k) partials, and a second
+//    pass adds them in a fixed order.  No atomics: two runs give the same
+//    bits.  With one chunk the kernel writes ds directly.
 //  * Launches on the caller's stream, allocates nothing (the wrapper passes
-//    the partials buffer), and returns cudaGetLastError().
+//    the partials), and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "ptc_common.cuh"
 
 namespace {
 
-constexpr int kRows = 128;           // threads per CTA = rows per tile
-constexpr int kWarps = kRows / 32;
-constexpr int kTargetCtas = 1024;    // ~8 per SM on 132 SMs
-constexpr int kMinChunkRows = 512;   // amortize the U/V load and reduction
+constexpr int kThreads = 128;
+constexpr int kTY = 8, kTX = 16;   // thread grid over the G tile
+constexpr int kBK = 16;            // rows of T per ring stage
+constexpr int kStages = 3;
 
-__host__ __device__ constexpr int group_of(int K) {
-  return (48 / K) > 0 ? (48 / K) : 1;  // q blocks per CTA
-}
+template <int KT>
+struct Tile {
+  static constexpr int TT = KT == 9 ? 9 : 8;         // thread tile TT x TT
+  static constexpr int TS = ptc::pad4(TT);           // its slot in smem
+  static constexpr int BMG = kTY * TT, BNG = kTX * TT;  // G tile
+  static constexpr int MP = BMG / KT, NQ = BNG / KT;    // blocks in it
+  static constexpr int DW = kTY * TS, XW = kTX * TS;    // smem row widths
+  static constexpr int STAGE = kBK * (DW + XW);
+  static constexpr int GS = BNG + 1;                    // G row stride
+  static constexpr int RING = kStages * STAGE;
+  static constexpr int FLOATS = RING > BMG * GS ? RING : BMG * GS;
+  static constexpr int COLS = BMG + BNG;                // copied columns
+  static constexpr int CPT = (COLS + kThreads - 1) / kThreads;
+};
 
-template <int K>
-__global__ void __launch_bounds__(kRows)
+template <int KT>
+__global__ void __launch_bounds__(kThreads, 3)
 sigma_grad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
                   const float* __restrict__ u, const float* __restrict__ v,
                   float* __restrict__ out, int T, int P, int Q, int k,
-                  int chunk_rows) {
-  constexpr int QC = group_of(K);
-  constexpr int XCOLS = QC * K;
-  constexpr int XROW = XCOLS | 1;    // odd: conflict-free column reads
-  constexpr int DROW = K | 1;
-  __shared__ float xs[kRows * XROW];
-  __shared__ float dys[kRows * DROW];
-  __shared__ float us[QC][K][K];
-  __shared__ float vs[QC][K][K];
-  __shared__ float red[kWarps][XCOLS];
+                  int chunk_rows, int splits) {
+  using L = Tile<KT>;
+  constexpr int TT = L::TT, TS = L::TS, MP = L::MP, NQ = L::NQ;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int n_groups = (Q + QC - 1) / QC;
-  const int p = blockIdx.x / n_groups;
-  const int q0 = (blockIdx.x % n_groups) * QC;
-  const int nq = min(QC, Q - q0);
-  const long long t_begin = (long long)blockIdx.y * chunk_rows;
-  const long long t_end = min((long long)T, t_begin + chunk_rows);
-  const int tid = threadIdx.x;
-  const long long ldy = (long long)P * k;
-  const long long ldx = (long long)Q * k;
+  const int tid = threadIdx.x, ty = tid / kTX, tx = tid % kTX;
+  const int q0 = blockIdx.x * NQ, p0 = blockIdx.y * MP, split = blockIdx.z;
+  const long long t_beg = (long long)split * chunk_rows;
+  const long long t_end = min((long long)T, t_beg + chunk_rows);
+  const int ldy = P * k, ldx = Q * k, kk = k * k;
 
-  for (int i = tid; i < QC * K * K; i += kRows) {
-    const int qi = i / (K * K), e = i % (K * K), ii = e / K, j = e % K;
-    float uv = 0.f, vv = 0.f;
-    if (qi < nq && ii < k && j < k) {
-      const long long off = (((long long)p * Q + q0 + qi) * k + ii) * k + j;
-      uv = u[off];
-      vv = v[off];
+  for (int i = tid; i < L::RING; i += kThreads) smem[i] = 0.f;
+  // the epilogue's U and V* rows of this tile, into L2
+  for (int pb = 0; pb < MP && p0 + pb < P; ++pb) {
+    const int nq = min(NQ, Q - q0);
+    const long long off = ((long long)(p0 + pb) * Q + q0) * kk;
+    for (int e = 32 * tid; e < nq * kk; e += 32 * kThreads) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(u + off + e));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(v + off + e));
     }
-    us[qi][ii][j] = uv;
-    vs[qi][ii][j] = vv;
   }
 
-  float acc[QC][K];
+  // this thread's copy columns: c < BMG in dy's tile, else in x's; src is
+  // the column's element in row 0, or null where no copy is made
+  const float* src[L::CPT];
+  int ld[L::CPT], dst[L::CPT], rs[L::CPT];
 #pragma unroll
-  for (int qi = 0; qi < QC; ++qi) {
-#pragma unroll
-    for (int i = 0; i < K; ++i) acc[qi][i] = 0.f;
+  for (int n = 0; n < L::CPT; ++n) {
+    const int c = tid + n * kThreads;
+    src[n] = nullptr;
+    ld[n] = dst[n] = rs[n] = 0;
+    if (c < L::BMG) {
+      const int blk = c / KT, a = c % KT;
+      if (a < k && p0 + blk < P) src[n] = dy + (p0 + blk) * k + a;
+      ld[n] = ldy;
+      dst[n] = (c / TT) * TS + c % TT;
+      rs[n] = L::DW;
+    } else if (c < L::COLS) {
+      const int c2 = c - L::BMG, blk = c2 / KT, a = c2 % KT;
+      if (a < k && q0 + blk < Q) src[n] = x + (q0 + blk) * k + a;
+      ld[n] = ldx;
+      dst[n] = kBK * L::DW + (c2 / TT) * TS + c2 % TT;
+      rs[n] = L::XW;
+    }
   }
+  __syncthreads();  // the zeroed ring before any copy lands
 
-  for (long long t0 = t_begin; t0 < t_end; t0 += kRows) {
-    __syncthreads();  // the previous tile is consumed (and U/V are staged)
-    for (int i = tid; i < kRows * K; i += kRows) {
-      const int rr = i / K, j = i % K;
-      const long long t = t0 + rr;
-      dys[rr * DROW + j] =
-          (t < t_end && j < k) ? dy[t * ldy + (long long)p * k + j] : 0.f;
-    }
-    for (int i = tid; i < kRows * XCOLS; i += kRows) {
-      const int rr = i / XCOLS, c = i % XCOLS, qi = c / K, j = c % K;
-      const long long t = t0 + rr;
-      xs[rr * XROW + c] = (t < t_end && qi < nq && j < k)
-                              ? x[t * ldx + (long long)(q0 + qi) * k + j]
-                              : 0.f;
-    }
-    __syncthreads();
-
-    float dyr[K];
+  auto load = [&](int slot, long long t0) {
+    float* base = smem + slot * L::STAGE;
 #pragma unroll
-    for (int j = 0; j < K; ++j) dyr[j] = dys[tid * DROW + j];
+    for (int n = 0; n < L::CPT; ++n) {
+      if (src[n] == nullptr) continue;
+      const float* p = src[n] + t0 * ld[n];
 #pragma unroll
-    for (int qi = 0; qi < QC; ++qi) {
-      if (qi < nq) {
-        float xr[K];
-#pragma unroll
-        for (int j = 0; j < K; ++j) xr[j] = xs[tid * XROW + qi * K + j];
-        float xv[K];
-#pragma unroll
-        for (int i = 0; i < K; ++i) {
-          float a = 0.f;
-#pragma unroll
-          for (int j = 0; j < K; ++j) a = fmaf(vs[qi][i][j], xr[j], a);
-          xv[i] = a;
-        }
-#pragma unroll
-        for (int i = 0; i < K; ++i) {
-          float g = 0.f;
-#pragma unroll
-          for (int j = 0; j < K; ++j) g = fmaf(us[qi][j][i], dyr[j], g);
-          acc[qi][i] = fmaf(g, xv[i], acc[qi][i]);
-        }
+      for (int r = 0; r < kBK; ++r) {
+        const bool ok = t0 + r < t_end;
+        ptc::cp_async4(base + dst[n] + r * rs[n], ok ? p + (long long)r * ld[n]
+                                                     : src[n],
+                       ok);
       }
     }
-  }
+  };
 
-  // fixed-order reduction over the CTA's 128 rows
-  const int lane = tid & 31, warp = tid >> 5;
+  float acc[TT][TT];
 #pragma unroll
-  for (int qi = 0; qi < QC; ++qi) {
+  for (int i = 0; i < TT; ++i)
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      float a = acc[qi][i];
+    for (int j = 0; j < TT; ++j) acc[i][j] = 0.f;
+
+  const int nt = static_cast<int>((t_end - t_beg + kBK - 1) / kBK);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (lane == 0) red[warp][qi * K + i] = a;
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nt) load(st, t_beg + (long long)st * kBK);
+    ptc::cp_async_commit();
+  }
+  for (int it = 0; it < nt; ++it) {
+    ptc::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage it landed; the slot of it - 1 is free
+    {
+      const int nx = it + kStages - 1;
+      if (nx < nt) load(nx % kStages, t_beg + (long long)nx * kBK);
+      ptc::cp_async_commit();
+    }
+    const float* Ds = smem + (it % kStages) * L::STAGE;
+    const float* Xs = Ds + kBK * L::DW;
+#pragma unroll 4
+    for (int r = 0; r < kBK; ++r) {
+      float d[TS], xv[TS];
+#pragma unroll
+      for (int j4 = 0; j4 < TS / 4; ++j4) {
+        const float4 a4 = *reinterpret_cast<const float4*>(
+            Ds + r * L::DW + ty * TS + 4 * j4);
+        const float4 b4 = *reinterpret_cast<const float4*>(
+            Xs + r * L::XW + tx * TS + 4 * j4);
+        d[4 * j4] = a4.x;
+        d[4 * j4 + 1] = a4.y;
+        d[4 * j4 + 2] = a4.z;
+        d[4 * j4 + 3] = a4.w;
+        xv[4 * j4] = b4.x;
+        xv[4 * j4 + 1] = b4.y;
+        xv[4 * j4 + 2] = b4.z;
+        xv[4 * j4 + 3] = b4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TT; ++i)
+#pragma unroll
+        for (int j = 0; j < TT; ++j) acc[i][j] = fmaf(d[i], xv[j], acc[i][j]);
     }
   }
+
+  // epilogue: G to shared memory, then ds_pq[i] for each (block, i)
+  ptc::cp_async_wait<0>();
   __syncthreads();
-  for (int c = tid; c < XCOLS; c += kRows) {
-    const int qi = c / K, i = c % K;
-    if (qi < nq && i < k) {
-      float a = 0.f;
+  float* g = smem;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) a += red[w][c];
-      out[(((long long)blockIdx.y * P + p) * Q + q0 + qi) * k + i] = a;
+  for (int i = 0; i < TT; ++i)
+#pragma unroll
+    for (int j = 0; j < TT; ++j)
+      g[(ty * TT + i) * L::GS + tx * TT + j] = acc[i][j];
+  __syncthreads();
+  for (int task = tid; task < MP * NQ * KT; task += kThreads) {
+    const int i = task % KT, blk = task / KT;
+    const int qb = blk % NQ, pb = blk / NQ;
+    const int p = p0 + pb, q = q0 + qb;
+    if (i >= k || p >= P || q >= Q) continue;
+    const long long b0 = ((long long)p * Q + q) * kk;
+    const float* gb = g + pb * KT * L::GS + qb * KT;
+    float vrow[KT];
+#pragma unroll
+    for (int b = 0; b < KT; ++b)
+      vrow[b] = b < k ? __ldg(v + b0 + i * k + b) : 0.f;
+    float a_sum = 0.f;
+#pragma unroll
+    for (int a = 0; a < KT; ++a) {
+      if (a < k) {
+        float gv = 0.f;
+#pragma unroll
+        for (int b = 0; b < KT; ++b) gv = fmaf(gb[a * L::GS + b], vrow[b], gv);
+        a_sum = fmaf(__ldg(u + b0 + a * k + i), gv, a_sum);
+      }
     }
+    const long long o = ((long long)p * Q + q) * k + i;
+    out[splits == 1 ? o : (long long)split * P * Q * k + o] = a_sum;
   }
 }
 
-// ds[n] = sum over chunks c, in order, of part[c][n]
-__global__ void sum_chunks_kernel(const float* __restrict__ part,
-                                  float* __restrict__ ds, long long n,
-                                  int n_chunks) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float a = 0.f;
-  for (int c = 0; c < n_chunks; ++c) a += part[(long long)c * n + i];
-  ds[i] = a;
+__global__ void sigma_sum_splits_kernel(const float* __restrict__ part,
+                                        float* __restrict__ ds, long long n,
+                                        int splits) {
+  ptc::sum_splits(part, ds, n, splits);
 }
 
-template <int K>
-int chunks_for(int T, int P, int Q) {
-  const long long ctas = (long long)P * ((Q + group_of(K) - 1) / group_of(K));
-  long long want = (kTargetCtas + ctas - 1) / ctas;
-  const long long most = (T + kMinChunkRows - 1) / kMinChunkRows;
-  if (want > most) want = most;
-  if (want > 65535) want = 65535;
-  return want < 1 ? 1 : static_cast<int>(want);
-}
-
-template <int K>
+template <int KT>
 cudaError_t launch(const float* dy, const float* x, const float* u,
                    const float* v, float* part, float* ds, int T, int P,
-                   int Q, int k, int n_chunks, cudaStream_t stream) {
-  const long long per = ((long long)T + n_chunks - 1) / n_chunks;
-  const int chunk_rows = static_cast<int>((per + kRows - 1) / kRows * kRows);
-  const int used = static_cast<int>((T + chunk_rows - 1) / chunk_rows);
-  const int n_groups = (Q + group_of(K) - 1) / group_of(K);
-  const dim3 grid(P * n_groups, used);
-  sigma_grad_kernel<K><<<grid, kRows, 0, stream>>>(
-      dy, x, u, v, used > 1 ? part : ds, T, P, Q, k, chunk_rows);
-  if (used > 1) {
-    const long long n = (long long)P * Q * k;
-    sum_chunks_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                        stream>>>(part, ds, n, used);
+                   int Q, int k, int chunk_rows, int splits,
+                   cudaStream_t st) {
+  using L = Tile<KT>;
+  const size_t smem = sizeof(float) * L::FLOATS;
+  auto kern = sigma_grad_kernel<KT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
+  const dim3 grid((Q + L::NQ - 1) / L::NQ, (P + L::MP - 1) / L::MP, splits);
+  kern<<<grid, kThreads, smem, st>>>(dy, x, u, v, splits > 1 ? part : ds, T,
+                                     P, Q, k, chunk_rows, splits);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n = (long long)P * Q * k;
+  sigma_sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      part, ds, n, splits);
   return cudaGetLastError();
 }
 
@@ -211,21 +254,31 @@ extern "C" const char* repro_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// How many row chunks sigma_grad splits T into; the wrapper sizes the
-// partials buffer (n_chunks, P, Q, k) from it.  0 for an unsupported k.
-extern "C" int sigma_grad_chunks(int T, int P, int Q, int k) {
-  if (k <= 4) return chunks_for<4>(T, P, Q);
-  if (k <= 8) return chunks_for<8>(T, P, Q);
-  if (k == 9) return chunks_for<9>(T, P, Q);
-  if (k <= 16) return chunks_for<16>(T, P, Q);
-  if (k <= 32) return chunks_for<32>(T, P, Q);
+// The tile for block size k: out[0] = p-blocks, out[1] = q-blocks per CTA,
+// out[2] = rows per ring stage.  Returns 0, or cudaErrorInvalidValue for an
+// unsupported k.
+extern "C" int sigma_grad_tile(int k, int* out) {
+  int mp, nq;
+  switch (ptc::kernel_k(k)) {
+    case 4: mp = Tile<4>::MP; nq = Tile<4>::NQ; break;
+    case 8: mp = Tile<8>::MP; nq = Tile<8>::NQ; break;
+    case 9: mp = Tile<9>::MP; nq = Tile<9>::NQ; break;
+    case 16: mp = Tile<16>::MP; nq = Tile<16>::NQ; break;
+    case 32: mp = Tile<32>::MP; nq = Tile<32>::NQ; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[0] = mp;
+  out[1] = nq;
+  out[2] = kBK;
   return 0;
 }
 
-// fp32 only.  part: (n_chunks, P, Q, k) scratch, unused when n_chunks == 1.
+// fp32 only.  T is cut into splits of chunk_rows rows (a multiple of 16);
+// part: (splits, P, Q, k) scratch, unused when splits == 1.
 extern "C" int sigma_grad(const void* dy, const void* x, const void* u,
                           const void* v, void* part, void* ds, int T, int P,
-                          int Q, int k, int n_chunks, void* stream) {
+                          int Q, int k, int chunk_rows, int splits,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(dy);
   const float* b = static_cast<const float*>(x);
@@ -233,12 +286,21 @@ extern "C" int sigma_grad(const void* dy, const void* x, const void* u,
   const float* d = static_cast<const float*>(v);
   float* pt = static_cast<float*>(part);
   float* o = static_cast<float*>(ds);
+  if (chunk_rows <= 0 || chunk_rows % kBK != 0 || splits < 1 ||
+      splits != (int)(((long long)T + chunk_rows - 1) / chunk_rows))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
-  if (n_chunks < 1) return static_cast<int>(err);
-  if (k <= 4) err = launch<4>(a, b, c, d, pt, o, T, P, Q, k, n_chunks, st);
-  else if (k <= 8) err = launch<8>(a, b, c, d, pt, o, T, P, Q, k, n_chunks, st);
-  else if (k == 9) err = launch<9>(a, b, c, d, pt, o, T, P, Q, k, n_chunks, st);
-  else if (k <= 16) err = launch<16>(a, b, c, d, pt, o, T, P, Q, k, n_chunks, st);
-  else if (k <= 32) err = launch<32>(a, b, c, d, pt, o, T, P, Q, k, n_chunks, st);
+  switch (ptc::kernel_k(k)) {
+#define REPRO_SIGMA(KT)                                                  \
+  case KT:                                                               \
+    err = launch<KT>(a, b, c, d, pt, o, T, P, Q, k, chunk_rows, splits, st); \
+    break
+    REPRO_SIGMA(4);
+    REPRO_SIGMA(8);
+    REPRO_SIGMA(9);
+    REPRO_SIGMA(16);
+    REPRO_SIGMA(32);
+#undef REPRO_SIGMA
+  }
   return static_cast<int>(err);
 }

@@ -14,7 +14,9 @@ wrapper                       replaces (TPU kernel in ``repro.kernels``)
 
 ``prefill_attention`` has two kernels: the tensor-core one for bf16 q over
 bf16 K/V at head dims 64 and 128, the CUDA-core one for every other pair
-(:func:`.prefill_attn.route`).
+(:func:`.prefill_attn.route`).  ``ptc_block_matmul`` has two routes: the
+per-block one for one input block and few rows (the IC/PM probes), the
+product one for every other shape (:func:`.ptc_block_matmul.route`).
 
 Each wrapper launches its CUDA kernel (``repro_torch/csrc``) on a CUDA
 tensor and runs its plain PyTorch version (:mod:`.ref`) on a CPU tensor.

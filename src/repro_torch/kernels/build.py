@@ -30,7 +30,8 @@ import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build",
-           "library", "check_status", "launch_counts", "reset_launch_counts"]
+           "library", "check_status", "launch_counts", "reset_launch_counts",
+           "sm_count"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,6 +46,7 @@ SOURCES = {"mesh_apply": "mesh_apply.cu",
 # kernel name (the launch counter's key) -> library name
 KERNELS = {"mesh_apply": "mesh_apply",
            "ptc_block_matmul": "ptc_block_matmul",
+           "ptc_block_matmul_perblock": "ptc_block_matmul",
            "sigma_grad": "sigma_grad",
            "feedback_matmul": "feedback_matmul",
            "paged_gather": "paged_kv",
@@ -56,6 +58,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
+_sms: dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -74,9 +77,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None, force: bool = False) -> dict:
@@ -125,6 +130,18 @@ def library(name: str) -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (the kernels' plans size their
+    grids by it)."""
+    import torch
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
 
 
 def check_status(name: str, status: int) -> None:

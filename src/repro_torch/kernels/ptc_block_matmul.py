@@ -1,44 +1,130 @@
 """Blocked PTC forward ``y_p = Σ_q U_pq(Σ_pq ⊙ (V*_pq x_q))``: the wrapper.
 
 Counterpart of ``repro/kernels/ptc_block_matmul.py`` (+ its dispatch in
-``repro/kernels/ops.py``).  On a CUDA tensor it launches the hand-written
-kernel in ``csrc/ptc_block_matmul.cu``; on a CPU tensor it runs the plain
-PyTorch version (:func:`repro_torch.kernels.ref.ptc_block_matmul_ref`).
+``repro/kernels/ops.py``).  On a CUDA tensor it launches one of the two
+routes of ``csrc/ptc_block_matmul.cu``, picked by :func:`route` from the
+shapes alone, each counting its launches under its own name:
+
+* ``"product"`` (counter ``ptc_block_matmul``): each block composed once,
+  ``W_pq = U_pq diag(s_pq) V*_pq``, into scratch this wrapper allocates, then
+  the register-tiled fp32 product ``y = x Wᵀ``, its K range split across CTAs
+  where the output tiles cannot fill the card (:func:`plan`), and the splits
+  added in a fixed order;
+* ``"per_block"`` (counter ``ptc_block_matmul_perblock``): Q = 1 and few
+  rows, as the IC/PM probes send (the eye through every block), where the
+  output is the composed blocks themselves and the work is bytes.
+
+On a CPU tensor it runs the plain PyTorch version
+(:func:`repro_torch.kernels.ref.ptc_block_matmul_ref`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from .ref import ptc_block_matmul_ref
 
-__all__ = ["ptc_block_matmul", "MAX_K"]
+__all__ = ["ptc_block_matmul", "route", "plan", "Plan", "kernel_k",
+           "MAX_K", "PER_BLOCK_MAX_T", "ROUTES", "K_STAGE"]
 
-NAME = "ptc_block_matmul"
+LIB = "ptc_block_matmul"
+NAME = "ptc_block_matmul"                 # launch counter, product route
+NAME_PER_BLOCK = "ptc_block_matmul_perblock"
+ROUTES = {"product": NAME, "per_block": NAME_PER_BLOCK}
 MAX_K = 32
+# the per-block route takes Q = 1 up to this many rows.  Measured on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's crossover line), ms
+# per call, per-block against product: P = 57: T 64 0.0111 / 0.0178, T 128
+# 0.0176 / 0.0244, T 256 0.0310 / 0.0244, T 1024 0.1107 / 0.0279; P =
+# 25,992: per-block faster at every T to 1024 (0.4549 / 2.7372).  Its grid
+# spans P alone, so the smaller P sets the crossover: 128, the last T where
+# it won at both.
+PER_BLOCK_MAX_T = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ROW_TILES = 65535   # grid.y limit; row tiles are 128 rows
+_KERNEL_K = (4, 8, 9, 16, 32)
+K_STAGE = 32                    # K columns per ring stage of the product
+_MAX_GRID_Y = 65535
 
 
-def _lib():
-    lib = build.library(NAME)
-    fn = lib.ptc_block_matmul
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def kernel_k(k: int) -> int:
+    """The k the kernels are compiled for: the least of 4, 8, 9, 16, 32
+    that holds k."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"ptc_block_matmul: k = {k} outside 1..{MAX_K}")
+    return next(c for c in _KERNEL_K if c >= k)
+
+
+def route(t: int, p: int, q: int, k: int) -> str:
+    """``"per_block"`` for one input block (Q = 1) and at most
+    :data:`PER_BLOCK_MAX_T` rows, ``"product"`` for every other shape.  The
+    rule reads nothing but its arguments."""
+    return "per_block" if q == 1 and t <= PER_BLOCK_MAX_T else "product"
+
+
+class Plan(NamedTuple):
+    """The product route's launch: compiled k, warps along N (1 or 2), rows
+    and output blocks per CTA, the K splits and the columns in each."""
+    kt: int
+    wn: int
+    bm: int
+    nblk: int
+    splits: int
+    kc: int
+
+    @property
+    def kp(self) -> int:
+        """The composed scratch's width per block (kt to a multiple of 4)."""
+        return -(-self.kt // 4) * 4
+
+
+def plan(t: int, p: int, q: int, k: int, sms: int = 132) -> Plan:
+    """The product route's tiling for x (T, Q·k) through a P × Q grid.
+
+    A CTA owns ``bm`` rows × ``nblk`` output blocks: 256 rows × 8 blocks
+    where P is at most 8 blocks (so VGG-8's P = 8 convolutions waste no
+    column), else 128 rows × 16 blocks (k <= 9; 8 of 16, 4 of 32).  Where
+    the output tiles would leave more than half of the ``sms`` SMs idle,
+    the K range (Q·k columns) is cut into ``splits`` of ``kc`` columns (a
+    multiple of :data:`K_STAGE`), about one CTA per SM: on an H100 that
+    beat two per SM at every VGG-8 shape and at serve W1 (the partials'
+    round trip and the second pass cost more than the second CTA gains;
+    PERF.md)."""
+    kt = kernel_k(k)
+    wb = 8 if kt <= 9 else (4 if kt == 16 else 2)
+    wn = 1 if p <= wb else 2
+    bm, nblk = 256 // wn, wn * wb
+    tiles = -(-t // bm) * -(-p // nblk)
+    ktiles = max(1, -(-(q * k) // K_STAGE))
+    splits = max(1, min(sms // max(tiles, 1), ktiles))
+    kc_tiles = -(-ktiles // splits)
+    return Plan(kt, wn, bm, nblk, -(-ktiles // kc_tiles), kc_tiles * K_STAGE)
+
+
+def _fns():
+    lib = build.library(LIB)
+    if lib.ptc_block_matmul_product.argtypes is None:
+        lib.ptc_block_matmul_product.argtypes = \
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.ptc_block_matmul_product.restype = ctypes.c_int
+        lib.ptc_block_matmul_perblock.argtypes = \
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ptc_block_matmul_perblock.restype = ctypes.c_int
+    return lib
 
 
 def ptc_block_matmul(x: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
+                     v: torch.Tensor, *, force_route: str | None = None,
+                     force_plan: Plan | None = None) -> torch.Tensor:
     """x: (T, Q·k), u/v: (P, Q, k, k), s: (P, Q, k) → y: (T, P·k), x.dtype.
 
     fp32 or bf16 (all four alike), contiguous, on one device; accumulates
-    in fp32 either way.
+    in fp32 either way.  ``force_route`` and ``force_plan`` override
+    :func:`route` and :func:`plan` (for measuring and testing the routes
+    and splits; the callers in the port pass neither).
     """
     if x.dim() != 2 or u.dim() != 4 or v.shape != u.shape \
             or s.shape != u.shape[:3] or u.shape[2] != u.shape[3]:
@@ -62,18 +148,34 @@ def ptc_block_matmul(x: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         return ptc_block_matmul_ref(x, u, s, v)
     if x.device.type != "cuda":
         raise ValueError(f"ptc_block_matmul: unsupported device {x.device}")
-    if k > MAX_K:
-        raise ValueError(f"ptc_block_matmul: k = {k} > {MAX_K}")
+    which = force_route or route(t, p, q, k)
+    if which not in ROUTES or (which == "per_block" and q != 1):
+        raise ValueError(f"ptc_block_matmul: no route {which!r} for Q = {q}")
+    kernel_k(k)
     y = torch.empty((t, p * k), dtype=x.dtype, device=x.device)
-    if t == 0 or p == 0:
+    if t == 0 or p == 0 or q == 0:
         return y.zero_()
-    if -(-t // 128) > _MAX_ROW_TILES or p >= 2 ** 31:
-        raise ValueError(f"ptc_block_matmul: grid too large (T={t}, P={p})")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = _lib()(x.data_ptr(), u.data_ptr(), s.data_ptr(),
-                        v.data_ptr(), y.data_ptr(), t, p, q, k,
-                        _DTYPES[x.dtype], stream)
-    build.check_status(NAME, status)
-    build.launch_counts[NAME] += 1
+        lib = _fns()
+        if which == "per_block":
+            status = lib.ptc_block_matmul_perblock(
+                x.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                y.data_ptr(), t, p, k, _DTYPES[x.dtype], stream)
+        else:
+            pl = force_plan or plan(t, p, q, k, build.sm_count(x.device))
+            if max(-(-t // pl.bm), pl.splits, q) > _MAX_GRID_Y:
+                raise ValueError(f"ptc_block_matmul: grid too large "
+                                 f"(T={t}, Q={q})")
+            wt = torch.empty((q * k, p * pl.kp), dtype=torch.float32,
+                             device=x.device)
+            part = torch.empty((pl.splits, t, p * k) if pl.splits > 1
+                               else (0,), dtype=torch.float32,
+                               device=x.device)
+            status = lib.ptc_block_matmul_product(
+                x.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                wt.data_ptr(), part.data_ptr(), y.data_ptr(), t, p, q, k,
+                _DTYPES[x.dtype], pl.wn, pl.kc, pl.splits, stream)
+    build.check_status(LIB, status)
+    build.launch_counts[ROUTES[which]] += 1
     return y

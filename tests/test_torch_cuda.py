@@ -20,6 +20,16 @@ package, so the repository's conftest is not needed)::
 * ``feedback_matmul`` against ``ref.feedback_matmul_ref`` at masks of
   density 0, 0.5, 1 and btopk 0.6, k in 4, 8, 9, 13, 16, 32: 1e-4 of the
   largest |dx|, density 0 an exact zero, reruns bitwise equal.
+* ``ptc_block_matmul`` on both routes (the per-block route wherever
+  Q = 1) against ``ref.ptc_block_matmul_ref`` at k in 4, 8, 9, 13, 16,
+  32, fp32 (1e-4 of the largest |y|) and bf16 (6e-2), rows of x and y
+  that are not 16-byte aligned (Q·k 27 and 513, P·k 135, 261 and 513)
+  and ragged T; reruns bitwise; the crossover at ``PER_BLOCK_MAX_T``;
+  split-K plans rerun bitwise and agree with the unsplit product; the
+  kernel's tile is the wrapper plan's.
+* ``sigma_grad`` against ``ref.sigma_grad_ref`` and against
+  ``torch.autograd`` of the plain forward (1e-4 of the largest |ds|) at
+  the same k, widths and ragged T; split-T plans rerun bitwise.
 """
 
 import os
@@ -31,8 +41,14 @@ import pytest
 import torch
 
 from repro_torch.core.sparsity import SparsityConfig, feedback_mask
-from repro_torch.kernels import build, feedback_matmul, prefill_attention, ref
+from repro_torch.kernels import (build, feedback_matmul, prefill_attention,
+                                 ptc_block_matmul, ref, sigma_grad)
 from repro_torch.kernels.prefill_attn import NAME, NAME_CUDA_CORES
+from repro_torch.kernels.ptc_block_matmul import (K_STAGE, PER_BLOCK_MAX_T,
+                                                  ROUTES, Plan, route)
+from repro_torch.kernels.ptc_block_matmul import plan as product_plan
+from repro_torch.kernels.sigma_grad import Plan as SigmaPlan
+from repro_torch.kernels.sigma_grad import plan as sigma_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +198,115 @@ def test_feedback_matmul_matches_plain_version(card, t, p, q, k, density):
         assert int(torch.count_nonzero(dx)) == 0
     else:
         assert _rel(dx, want) < 1e-4
+
+
+# (T, P, Q, k): every compiled k (13 runs in the 16 kernel), rows of x
+# (Q·k 27, 513) and y (P·k 135, 261, 513) off 16-byte alignment, ragged T,
+# Q = 1 shapes for the per-block route
+_PTC = [(100, 2, 3, 4), (16, 3, 2, 8), (37, 3, 5, 9), (1000, 3, 5, 13),
+        (64, 4, 4, 16), (129, 2, 2, 32), (300, 8, 3, 9), (129, 15, 3, 9),
+        (70, 29, 5, 9), (33, 57, 6, 9), (32, 2, 57, 9), (9, 500, 1, 9),
+        (13, 40, 1, 13), (33, 64, 1, 4), (9, 30, 1, 32), (5, 33, 1, 16)]
+
+
+def _ptc_inputs(t, p, q, k, dtype=torch.float32, seed=0):
+    gen = torch.Generator("cuda").manual_seed(seed + t + p + q + k)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((t, q * k), (p, q, k, k), (p, q, k), (p, q, k, k))]
+
+
+@pytest.mark.parametrize("t,p,q,k", _PTC)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6e-2)])
+def test_ptc_block_matmul_routes_match_plain_version(card, t, p, q, k, dtype,
+                                                     tol):
+    x, u, s, v = _ptc_inputs(t, p, q, k, dtype)
+    want = ref.ptc_block_matmul_ref(x, u, s, v)
+    for which in ROUTES if q == 1 else ("product",):
+        before = build.launch_counts[ROUTES[which]]
+        y = ptc_block_matmul(x, u, s, v, force_route=which)
+        again = ptc_block_matmul(x, u, s, v, force_route=which)
+        torch.cuda.synchronize()
+        assert build.launch_counts[ROUTES[which]] - before == 2
+        assert y.dtype == dtype and torch.equal(y, again)
+        assert _rel(y, want) < tol, which
+
+
+@pytest.mark.parametrize("t", [PER_BLOCK_MAX_T - 1, PER_BLOCK_MAX_T,
+                               PER_BLOCK_MAX_T + 1])
+def test_ptc_block_matmul_crossover_launches_the_route_the_rule_names(card,
+                                                                      t):
+    x, u, s, v = _ptc_inputs(t, 200, 1, 9)
+    before = dict(build.launch_counts)
+    y = ptc_block_matmul(x, u, s, v)
+    which = route(t, 200, 1, 9)
+    assert which == ("per_block" if t <= PER_BLOCK_MAX_T else "product")
+    for name, counter in ROUTES.items():
+        assert build.launch_counts[counter] - before[counter] \
+            == (name == which)
+    assert _rel(y, ref.ptc_block_matmul_ref(x, u, s, v)) < 1e-4
+
+
+@pytest.mark.parametrize("t,p,q,k", [(32, 57, 456, 9), (1024, 57, 456, 9),
+                                     (40, 3, 20, 13), (40, 3, 20, 32)])
+def test_ptc_block_matmul_split_k_plans_rerun_bitwise(card, t, p, q, k):
+    x, u, s, v = _ptc_inputs(t, p, q, k)
+    want = ref.ptc_block_matmul_ref(x, u, s, v)
+    base = product_plan(t, p, q, k)
+    ktiles = -(-(q * k) // K_STAGE)
+    for splits in (1, 3, base.splits, ktiles):
+        kt = -(-ktiles // splits)
+        pl = base._replace(splits=-(-ktiles // kt), kc=K_STAGE * kt)
+        y = ptc_block_matmul(x, u, s, v, force_plan=pl)
+        assert torch.equal(y, ptc_block_matmul(x, u, s, v, force_plan=pl))
+        assert _rel(y, want) < 1e-4, pl
+
+
+def test_ptc_block_matmul_kernel_tile_is_the_plan(card):
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    lib = build.library("ptc_block_matmul")
+    for k in (1, 4, 5, 8, 9, 13, 16, 17, 32):
+        for p in (1, 2, 8, 9, 57):
+            pl = product_plan(64, p, 3, k)
+            assert isinstance(pl, Plan)
+            assert lib.ptc_block_matmul_tile(k, pl.wn, out) == 0
+            assert tuple(out) == (pl.bm, pl.nblk, K_STAGE)
+
+
+_SIGMA = [(100, 2, 3, 4), (16, 3, 2, 8), (37, 3, 5, 9), (1000, 3, 5, 13),
+          (64, 4, 4, 16), (129, 2, 2, 32), (300, 8, 3, 9), (129, 15, 3, 9),
+          (70, 29, 5, 9), (33, 57, 6, 9), (32, 2, 57, 9), (17, 9, 17, 9),
+          (4096, 8, 64, 9)]
+
+
+def _sigma_inputs(t, p, q, k, seed=0):
+    gen = torch.Generator("cuda").manual_seed(seed + t + p + q + k)
+    return [torch.randn(shape, generator=gen, device="cuda")
+            for shape in ((t, p * k), (t, q * k), (p, q, k, k), (p, q, k),
+                          (p, q, k, k))]
+
+
+@pytest.mark.parametrize("t,p,q,k", _SIGMA)
+def test_sigma_grad_matches_plain_version_and_autograd(card, t, p, q, k):
+    dy, x, u, s, v = _sigma_inputs(t, p, q, k)
+    ds = sigma_grad(dy, x, u, v)
+    assert torch.equal(ds, sigma_grad(dy, x, u, v))
+    assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v)) < 1e-4
+    s = s.clone().requires_grad_()
+    (ref.ptc_block_matmul_ref(x, u, s, v) * dy).sum().backward()
+    assert _rel(ds, s.grad) < 1e-4
+
+
+@pytest.mark.parametrize("t,p,q,k", [(4096, 8, 64, 9), (1000, 3, 5, 13),
+                                     (517, 2, 3, 32), (300, 20, 40, 4)])
+def test_sigma_grad_split_t_plans_rerun_bitwise(card, t, p, q, k):
+    dy, x, u, _, v = _sigma_inputs(t, p, q, k, seed=1)
+    want = ref.sigma_grad_ref(dy, x, u, v)
+    base = sigma_plan(t, p, q, k)
+    for chunk in (16, 48, 256, -(-t // 16) * 16):
+        pl = base._replace(splits=-(-t // chunk), chunk_rows=chunk)
+        assert isinstance(pl, SigmaPlan)
+        ds = sigma_grad(dy, x, u, v, force_plan=pl)
+        assert torch.equal(ds, sigma_grad(dy, x, u, v, force_plan=pl))
+        assert _rel(ds, want) < 1e-4, pl
