@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases kernels     # build + kernel checks only
+    python3 chip_smoke.py --phases kernels,blocked_lm
+                                               # the k = 128 blocked path
     python3 chip_smoke.py --phases kernels,vgg8 --parent DIR
                                                # + an earlier tree's PTC
+                                               # and CUDA-core prefill
                                                # kernels timed beside
 
 Phases:
@@ -13,16 +16,20 @@ Phases:
    kernels of all seven TPU kernels from ``src/repro_torch/csrc`` (one
    nvcc per source, all in parallel; prefill attention has two routes,
    the tensor-core kernel for bf16 at head dims 64 and 128 and the
-   CUDA-core kernel for the rest; ``ptc_block_matmul`` two, the product
-   route and the per-block route for Q = 1 and few rows, each checked at
-   every shape it can take), and hold each against its plain
+   CUDA-core kernel for the rest; ``ptc_block_matmul`` three, the product
+   route, the per-block route for Q = 1 and few rows, and the wide route
+   for k > 32, each checked at every shape it can take; ``sigma_grad``,
+   ``feedback_matmul`` and ``mesh_apply`` each a wide route for k > 32),
+   and hold each against its plain
    PyTorch version on the card: the reference package's kernel-test
    geometries, ragged row counts, feedback masks of density 0, 0.5, 1
-   and btopk, duplicate scatter targets, the prefill (blk, window, cap)
+   and btopk, k of 33, 64, 100 and 128 in fp32 and bf16, duplicate
+   scatter targets, the prefill (blk, window, cap)
    sweep on both routes, and the full-width shapes of the main paths,
    where each is also timed beside its bound, its plain version and a
    PyTorch yardstick (and, with ``--parent``, the earlier tree's
-   ``ptc_block_matmul`` and ``sigma_grad``).
+   ``ptc_block_matmul``, ``sigma_grad`` and CUDA-core
+   ``prefill_attention``).
 2. ``parity`` — the reference quickstart's geometry (18 → 18 → 9, k = 9):
    dense pre-training, IC, PM, serving, subspace learning (SL) and serving
    with the trained Σ; metrics against the reference run and the served
@@ -36,7 +43,15 @@ Phases:
    AdamW steps on Σ and biases through ``build_cnn_train_step`` with
    feedback and column sampling, on a fixed batch of 32; one step's
    gradients held against the same step through the plain versions.
-5. ``gateway`` — qwen3-4b at full width (36 layers, d_model 2560, k = 128
+5. ``blocked_lm`` — olmo-1b's seven PTC linears of one decoder layer
+   (q, k, v, o 2048 → 2048; gate, up 2048 → 8192; down 8192 → 2048) in
+   blocked mode at k = 128 with bf16 bases, T = 4096: one step, forward
+   and autograd through ``apply_ptc_linear`` with feedback and column
+   sampling, on the three wide PTC routes alone, held against the same
+   step through the plain versions; then the up projection's 1,024
+   blocks realized through ``realized_unitaries`` (2,048 reck meshes of
+   k = 128 on the wide mesh route).
+6. ``gateway`` — qwen3-4b at full width (36 layers, d_model 2560, k = 128
    fused PTC with bf16 bases) serving 16 seeded Poisson requests through
    the continuous-batching gateway with paged KV and chunked prefill
    (chunk 64); every busy step must launch the gather, the scatter and
@@ -51,9 +66,11 @@ The last two lines are a ``{"kernels": [...]}`` JSON summary and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there are
 counted over its main path with every count set to 0 just before it: the
 PTC kernels over the last quickstart path driven (full width, else
-parity), the serving kernels over the gateway's qwen3-4b run, the
-CUDA-core prefill route (which that bf16 run never takes) over the
-smoke-width fp32 gateways; they are null when that path did not run.  Any failed check raises (exit code not
+parity), their wide routes over the blocked_lm step and the wide mesh
+route over its realization, the serving kernels over the gateway's
+qwen3-4b run, the CUDA-core prefill route (which that bf16 run never
+takes) over the smoke-width fp32 gateways; they are null when that path
+did not run.  Any failed check raises (exit code not
 0).  Without a CUDA device, or without the repository beside this script,
 it exits with code 2 and prints no result.
 """
@@ -68,7 +85,7 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "parity", "full", "vgg8", "gateway")
+PHASES = ("kernels", "parity", "full", "vgg8", "blocked_lm", "gateway")
 # the kernels each stage of quickstart.run launches, and each busy step of
 # serving gateway.  ptc_block_matmul has two routes, each counted under its
 # own name: the IC/PM probes take the per-block route
@@ -101,7 +118,11 @@ REPLACES = {"ptc_block_matmul": "src/repro/kernels/ptc_block_matmul.py:46",
             "paged_scatter": "src/repro/kernels/paged_kv.py:79",
             "prefill_attention": "src/repro/kernels/prefill_attn.py:88",
             "prefill_attention_cudacore":
-                "src/repro/kernels/prefill_attn.py:88"}
+                "src/repro/kernels/prefill_attn.py:88",
+            "ptc_block_matmul_wide": "src/repro/kernels/ptc_block_matmul.py:46",
+            "sigma_grad_wide": "src/repro/kernels/sigma_grad.py:43",
+            "feedback_matmul_wide": "src/repro/kernels/feedback_matmul.py:48",
+            "mesh_apply_wide": "src/repro/kernels/mesh_apply.py:45"}
 # the port's kernels by their device function names (a wrapper may launch
 # several), for the profiles' per-kernel sums
 KERNEL_FAMILIES = {
@@ -299,7 +320,8 @@ def kernel_phase(torch, parent=None) -> dict:
                                  library_ms=None, bound_ms=b_ms,
                                  bound_by=b_by)
     summary.update(backward_kernels(torch, gen, parent))
-    summary.update(serving_kernels(torch, gen))
+    summary.update(wide_kernels(torch, gen))
+    summary.update(serving_kernels(torch, gen, parent))
     return summary
 
 
@@ -334,8 +356,9 @@ def ptc_kernels(torch, gen, parent=None) -> dict:
             return torch.randn(shape, generator=gen, device=dev).to(dtype)
         return mk(t, q * k), mk(p, q, k, k), mk(p, q, k), mk(p, q, k, k)
 
-    worst = {r: [0.0, 0.0] for r in ROUTES}        # rel, abs (fp32)
-    n_checked = {r: 0 for r in ROUTES}
+    narrow = ("product", "per_block")              # the k <= 32 routes
+    worst = {r: [0.0, 0.0] for r in narrow}        # rel, abs (fp32)
+    n_checked = {r: 0 for r in narrow}
     shapes = [(8, 2, 3, 8), (64, 4, 4, 16), (32, 1, 1, 9), (16, 3, 2, 4),
               (128, 2, 2, 32),                      # reference test sweep
               (1000, 3, 5, 9), (37, 2, 3, 13),      # ragged T
@@ -361,7 +384,7 @@ def ptc_kernels(torch, gen, parent=None) -> dict:
             x, u, s, v = ptc_inputs(t, p, q, k, dtype)
             yr = ref.ptc_block_matmul_ref(x, u, s, v)
             picked = route(t, p, q, k)
-            for which in ROUTES if q == 1 else ("product",):
+            for which in narrow if q == 1 else ("product",):
                 before = dict(build.launch_counts)
                 y = ptc_block_matmul(x, u, s, v, force_route=which)
                 again = ptc_block_matmul(x, u, s, v, force_route=which)
@@ -399,7 +422,7 @@ def ptc_kernels(torch, gen, parent=None) -> dict:
               and rel_err(y, yr)[1] < 1e-4,
               f"ptc_block_matmul FC W1 at T 32, {pl.splits} K splits: wrong "
               f"or not deterministic")
-    for which in ROUTES:
+    for which in narrow:
         print(f"[check] ptc_block_matmul {which} route ({ROUTES[which]}): "
               f"{n_checked[which]} cases (fp32 + bf16), deterministic, max "
               f"rel err {worst[which][0]:.2e} (tol 1e-4 fp32, 6e-2 bf16), "
@@ -449,7 +472,7 @@ def ptc_kernels(torch, gen, parent=None) -> dict:
         for t in (9, 32, 64, 128, 256, 1024):
             x, u, s, v = ptc_inputs(t, p, 1, 9, torch.float32)
             by_route = {r: cuda_ms(lambda: ptc_block_matmul(
-                x, u, s, v, force_route=r), 20) for r in ROUTES}
+                x, u, s, v, force_route=r), 20) for r in narrow}
             line.append(f"T {t}: " + ", ".join(
                 f"{r} {m:.4f}" for r, m in by_route.items()))
         print(f"[time] ptc_block_matmul at Q = 1, P = {p}, k = 9, ms by "
@@ -470,15 +493,21 @@ def ptc_kernels(torch, gen, parent=None) -> dict:
     return summary
 
 
-def parent_library(torch, parent, name):
+def parent_library(torch, parent, name, marker):
     """An earlier tree's ``csrc/<name>.cu`` built into ``build/parent/``
-    and loaded, or None without a parent tree."""
+    and loaded, or None without a parent tree or where that source lacks
+    ``marker``, a piece of the C interface the caller knows how to call
+    (elsewhere the kernel was not redesigned since)."""
     import ctypes
     import os
     from repro_torch.kernels import build
     if parent is None:
         return None
     src = Path(parent) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+    if marker not in src.read_text():
+        print(f"[build] the parent tree's {name}.cu has this tree's "
+              f"interface (not redesigned since): not timed")
+        return None
     out = build.BUILD_DIR.parent / "parent" / f"lib{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
@@ -496,7 +525,8 @@ def parent_ptc(torch, parent):
     kernel, ``(x, u, s, v, y, T, P, Q, k, dtype, stream)``) as a callable
     on fp32 inputs, or None."""
     import ctypes
-    lib = parent_library(torch, parent, "ptc_block_matmul")
+    lib = parent_library(torch, parent, "ptc_block_matmul",
+                         "int ptc_block_matmul(")
     if lib is None:
         return None
     fn = lib.ptc_block_matmul
@@ -518,7 +548,8 @@ def parent_sigma(torch, parent):
     """The earlier tree's ``sigma_grad`` (its C interface: the row chunks
     from ``sigma_grad_chunks``) as a callable, or None."""
     import ctypes
-    lib = parent_library(torch, parent, "sigma_grad")
+    lib = parent_library(torch, parent, "sigma_grad",
+                         "int sigma_grad_chunks(")
     if lib is None:
         return None
     lib.sigma_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
@@ -713,6 +744,250 @@ def backward_kernels(torch, gen, parent=None) -> dict:
             for name in ("sigma_grad", "feedback_matmul")}
 
 
+# olmo-1b's PTC linears at full width (src/repro_torch/configs/olmo_1b.py:
+# d_model 2048, d_ff 8192; k = 128): (name, d_in, d_out)
+OLMO_LINEARS = (("q", 2048, 2048), ("k", 2048, 2048), ("v", 2048, 2048),
+                ("o", 2048, 2048), ("gate", 2048, 8192), ("up", 2048, 8192),
+                ("down", 8192, 2048))
+BLOCKED_LM_T = 4096     # one train_4k sequence (src/repro/configs/common.py:53)
+WIDE_KERNELS = ("ptc_block_matmul_wide", "sigma_grad_wide",
+                "feedback_matmul_wide")
+NARROW_PTC = ("ptc_block_matmul", "ptc_block_matmul_perblock", "sigma_grad",
+              "feedback_matmul")
+
+
+def wide_kernels(torch, gen) -> dict:
+    """The k > 32 routes of the three PTC kernels and of ``mesh_apply``
+    against their plain versions (k 33, 64, 100, 128; fp32 and bf16; T at
+    the 128-row tile's edges; feedback masks of density 0, 0.5, 1 and
+    btopk; reruns bitwise), then each timed at olmo-1b's up projection
+    (2048 → 8192, T 4096, bf16 operands) and at 2,048 reck meshes of
+    k = 128."""
+    import ctypes
+    from repro_torch.core import unitary as un
+    from repro_torch.core.ptc import PTCParams, compose_weight, unblockize
+    from repro_torch.core.sparsity import SparsityConfig, feedback_mask
+    from repro_torch.kernels import (build, feedback_matmul, mesh_apply_plain,
+                                     ptc_block_matmul, ref, sigma_grad)
+    from repro_torch.kernels.mesh_apply import mesh_apply_batched
+    from repro_torch.kernels.ptc_block_matmul import WIDE_TILE, wide_lib
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = (ctypes.c_int * 3)()
+    check(wide_lib().ptc_wide_tile(out) == 0 and tuple(out) == WIDE_TILE,
+          f"ptc_wide: the kernel's tile {tuple(out)} is not the plan's "
+          f"{WIDE_TILE}")
+
+    def mk(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def masks(q, p):
+        for dens in (0.0, 0.5, 1.0):
+            keep = torch.rand((q, p), generator=gen, device=dev) < dens
+            yield f"density {dens}", keep.float() * 2.0
+        yield "btopk 0.6", feedback_mask(
+            gen, torch.rand((p, q), generator=gen, device=dev),
+            SparsityConfig(alpha_w=0.6, feedback_mode="btopk"))
+
+    # fp32: 1e-4 of the largest entry (sums in another order); bf16
+    # outputs (y, dx) are rounded to bf16 on both sides, so two fp32 sums
+    # that agree to 1e-6 may round one bf16 ulp apart: 2^-7 of the largest
+    # entry; ds is fp32 whatever the operands
+    worst = {n: [0.0, 0.0] for n in WIDE_KERNELS}      # rel, abs
+    n_cases = dict.fromkeys(WIDE_KERNELS, 0)
+
+    def record(name, what, got, want, tol):
+        diff, rel = rel_err(got, want)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} {what}: bad output")
+        check(rel < tol, f"{name} {what}: rel err {rel:.2e} >= {tol}")
+        worst[name] = [max(worst[name][0], rel), max(worst[name][1], diff)]
+        n_cases[name] += 1
+
+    before = dict(build.launch_counts)
+    for (t, p, q, k) in ((37, 2, 3, 33), (64, 2, 2, 64), (129, 3, 2, 100),
+                         (127, 3, 3, 128), (128, 2, 3, 128), (129, 3, 2, 128),
+                         (1, 1, 1, 128), (300, 1, 2, 128)):
+        for dtype in (f32, bf16):
+            tol = 1e-4 if dtype == f32 else 2 ** -7
+            x, dy = mk(t, q * k, dtype=dtype), mk(t, p * k, dtype=dtype)
+            u, s, v = mk(p, q, k, k, dtype=dtype), mk(p, q, k, dtype=dtype), \
+                mk(p, q, k, k, dtype=dtype)
+            what = f"{(t, p, q, k)} {dtype}"
+            y = ptc_block_matmul(x, u, s, v)
+            record("ptc_block_matmul_wide", what, y,
+                   ref.ptc_block_matmul_ref(x, u, s, v), tol)
+            check(torch.equal(y, ptc_block_matmul(x, u, s, v)),
+                  f"ptc_block_matmul_wide {what}: two runs differ")
+            ds = sigma_grad(dy, x, u, v)
+            record("sigma_grad_wide", what, ds,
+                   ref.sigma_grad_ref(dy, x, u, v), 1e-4)
+            check(torch.equal(ds, sigma_grad(dy, x, u, v)),
+                  f"sigma_grad_wide {what}: two runs differ")
+            # a column scale off bf16's grid, applied in fp32
+            col = (torch.rand((t,), generator=gen, device=dev) < 0.6) \
+                .float() / 0.6
+            ds = sigma_grad(dy, x, u, v, col)
+            record("sigma_grad_wide", f"{what} col", ds,
+                   ref.sigma_grad_ref(dy, x, u, v, col), 1e-4)
+            check(torch.equal(ds, sigma_grad(dy, x, u, v, col)),
+                  f"sigma_grad_wide {what} col: two runs differ")
+            for label, mask in masks(q, p):
+                dx = feedback_matmul(dy, u, s, v, mask)
+                record("feedback_matmul_wide", f"{what} {label}", dx,
+                       ref.feedback_matmul_ref(dy, u, s, v, mask), tol)
+                check(torch.equal(dx, feedback_matmul(dy, u, s, v, mask)),
+                      f"feedback_matmul_wide {what} {label}: two runs "
+                      f"differ")
+                if label == "density 0.0":
+                    check(int(torch.count_nonzero(dx)) == 0,
+                          f"feedback_matmul_wide {what}: density 0 is not "
+                          f"an exact zero")
+    torch.cuda.synchronize()
+    for name in WIDE_KERNELS:
+        check(build.launch_counts[name] - before[name] == 2 * n_cases[name],
+              f"{name}: not every call took the wide route")
+    check(all(build.launch_counts[n] == before[n] for n in NARROW_PTC),
+          "a k > 32 call took a k <= 32 route")
+    print(f"[check] wide PTC routes, k 33/64/100/128, fp32 + bf16, T at "
+          f"the 128-row tile's edges: " + ", ".join(
+              f"{n} {n_cases[n]} cases, max rel err {worst[n][0]:.2e}"
+              for n in WIDE_KERNELS)
+          + " (tol 1e-4 fp32 and ds; 2^-7 for bf16 y and dx: one bf16 "
+            "rounding); ds also under a column scale of 1/0.6 (fp32); "
+            "feedback masks of density 0, 0.5, 1 and btopk 0.6 "
+            "(density 0 an exact zero); reruns bitwise")
+
+    # mesh_apply's wide route: build_unitary (the shared identity, output
+    # transposed) and rows of their own, both mesh kinds
+    mesh_worst, mesh_before = 0.0, build.launch_counts["mesh_apply_wide"]
+    for k in (33, 64, 100, 128):
+        for kind in ("reck", "clements"):
+            spec = un.mesh_spec(k, kind)
+            ph = mk(37, spec.n_rot) * 3
+            d = torch.where(mk(37, k) < 0, -1.0, 1.0)
+            uu = un.build_unitary(spec, ph, d)
+            mesh_worst = max(mesh_worst, float((uu - mesh_apply_plain(
+                spec, ph, torch.eye(k, device=dev)[None], d,
+                transpose_out=True)).abs().max()))
+            xr = mk(37, 70, k)
+            mesh_worst = max(mesh_worst, float((mesh_apply_batched(
+                spec, ph, xr, d) - mesh_apply_plain(spec, ph, xr, d))
+                .abs().max()))
+    torch.cuda.synchronize()
+    check(mesh_worst < 1e-5, f"mesh_apply_wide: max abs err "
+                             f"{mesh_worst:.2e} >= 1e-5")
+    check(build.launch_counts["mesh_apply_wide"] - mesh_before == 16,
+          "mesh_apply: a k > 32 call did not take the wide route")
+
+    summary = {}
+    # olmo-1b's up projection, bf16 operands as the blocked LM passes them
+    t, p, q, k = BLOCKED_LM_T, 64, 16, 128
+    x, dy = mk(t, q * k, dtype=bf16), mk(t, p * k, dtype=bf16)
+    u, s, v = mk(p, q, k, k, dtype=bf16), mk(p, q, k, dtype=bf16), \
+        mk(p, q, k, k, dtype=bf16)
+    mask = feedback_mask(gen, torch.rand((p, q), generator=gen, device=dev),
+                         SparsityConfig(alpha_w=0.6))
+    kept = int(torch.count_nonzero(mask))
+    w32 = unblockize(compose_weight(PTCParams(u.float(), s.float(),
+                                              v.float())))
+    wm32 = unblockize(compose_weight(PTCParams(u.float(), s.float(),
+                                               v.float()))
+                      * mask.T[:, :, None, None])
+    x32, dy32 = x.float(), dy.float()
+    eb = 2                                   # bytes of a bf16 operand
+    ops_in = {
+        # (kernel, plain, library: one fp32 PyTorch call on the widened
+        # operands with W composed outside the timing, flops, bytes)
+        "ptc_block_matmul_wide": (
+            lambda: ptc_block_matmul(x, u, s, v),
+            lambda: ref.ptc_block_matmul_ref(x, u, s, v),
+            lambda: x32 @ w32.T, "x @ composed unblockize(W).T",
+            2 * k * k * t * p * q + (2 * k ** 3 + k * k) * p * q,
+            eb * (x.numel() + u.numel() + s.numel() + v.numel() + t * p * k)),
+        "sigma_grad_wide": (
+            lambda: sigma_grad(dy, x, u, v),
+            lambda: ref.sigma_grad_ref(dy, x, u, v),
+            lambda: torch.einsum("tpi,tqj,pqik,pqkj->pqk",
+                                 dy32.view(t, p, k), x32.view(t, q, k),
+                                 u.float(), v.float()), "one torch.einsum",
+            2 * k * k * t * p * q + (2 * k ** 3 + 2 * k * k) * p * q,
+            eb * (dy.numel() + x.numel() + u.numel() + v.numel())
+            + 4 * p * q * k),
+        "feedback_matmul_wide": (
+            lambda: feedback_matmul(dy, u, s, v, mask),
+            lambda: ref.feedback_matmul_ref(dy, u, s, v, mask),
+            lambda: dy32 @ wm32, "dy @ masked composed unblockize(W)",
+            kept * (2 * k * k * t + 2 * k ** 3 + k * k),
+            eb * (dy.numel() + kept * (2 * k * k + k) + t * q * k)
+            + 4 * mask.numel()),
+    }
+    for name, (fn, plain_fn, lib_fn, lib_what, flops, nbytes) in \
+            ops_in.items():
+        got, want = fn(), plain_fn()
+        tol = 1e-4 if name == "sigma_grad_wide" else 2 ** -7
+        record(name, "olmo-1b up projection bf16", got, want, tol)
+        _, lib_rel = rel_err(lib_fn(), want)
+        del got, want
+        ms = cuda_ms(fn, 5)
+        plain = cuda_ms(plain_fn, 2)
+        lib = cuda_ms(lib_fn, 5)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        split = device_split(fn, 3)
+        print(f"[time] {name} olmo-1b up projection (T={t}, P={p}, Q={q}, "
+              f"k={k}, bf16"
+              + (f", btopk 0.6: {kept} of {p * q} blocks" if "feedback" in
+                 name else "")
+              + f"): kernel {ms:.4f} ms ({100 * b_ms / ms:.0f}% of the "
+              f"bound; by launch " + ", ".join(f"{n} {m:.4f}" for n, m in
+                                               split)
+              + f"), plain {plain:.4f} ms, library {lib_what} on the fp32 "
+              f"widened operands (rel err {lib_rel:.1e}) {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+        summary[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    del w32, wm32, x32, dy32
+    for name in WIDE_KERNELS:
+        summary[name]["max_abs_err"] = worst[name][1]
+
+    # mesh_apply's wide route at the realization's shape: 2,048 reck
+    # meshes of k = 128 (the up projection's U and V* meshes)
+    k, nm = 128, 2048
+    spec = un.mesh_spec(k, "reck")
+    ph = torch.rand(nm, spec.n_rot, generator=gen, device=dev) * 4 * torch.pi
+    d = torch.where(torch.rand(nm, k, generator=gen, device=dev) < 0.5,
+                    1.0, -1.0)
+    eye = torch.eye(k, device=dev)[None]
+    uu = un.build_unitary(spec, ph, d)
+    err = float((uu - mesh_apply_plain(spec, ph, eye, d, transpose_out=True))
+                .abs().max())
+    check(err < 1e-5, f"mesh_apply_wide 2048 reck meshes: max abs err "
+                      f"{err:.2e} >= 1e-5")
+    mesh_worst = max(mesh_worst, err)
+    ms = cuda_ms(lambda: un.build_unitary(spec, ph, d), 5)
+    plain = cuda_ms(lambda: mesh_apply_plain(spec, ph, eye, d,
+                                             transpose_out=True), 2)
+    t_rot, layers = spec.n_rot, spec.n_layers
+    flops = nm * (2 * t_rot + k * (6 * t_rot + k))
+    nbytes = 4 * (nm * t_rot + nm * k + k * k + nm * k * k) \
+        + 4 * (2 * t_rot + layers + 1)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    print(f"[check] mesh_apply_wide: k 33/64/100/128 x reck/clements, "
+          f"build_unitary and 70 rows of their own, and {nm} reck meshes "
+          f"of k = {k}: max abs err {mesh_worst:.2e} (tol 1e-5)")
+    print(f"[time] mesh_apply_wide build_unitary ({nm} reck meshes x {k} "
+          f"rows, {t_rot} phases in {layers} layers): kernel {ms:.4f} ms "
+          f"({100 * b_ms / ms:.0f}% of the bound), plain {plain:.4f} ms, no "
+          f"one-call yardstick, bound {b_ms:.4f} ms ({b_by}; "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    summary["mesh_apply_wide"] = dict(max_abs_err=mesh_worst, ms=ms,
+                                      plain_ms=plain, library_ms=None,
+                                      bound_ms=b_ms, bound_by=b_by)
+    return summary
+
+
 def engine_scatter_idx(n_periods: int, slots: int, chunk: int,
                        n_pages: int, page_size: int, pages_per_slot: int,
                        lens, take):
@@ -732,7 +1007,32 @@ def engine_scatter_idx(n_periods: int, slots: int, chunk: int,
         [[p * stripe, 0]], np.int32) for p in range(n_periods)])
 
 
-def serving_kernels(torch, gen) -> dict:
+def parent_prefill(torch, parent):
+    """The earlier tree's CUDA-core ``prefill_attention`` (its C
+    interface: key tiles of ``T`` keys, the largest divisor of ``blk`` up
+    to 32) as a callable on fp32 inputs, or None."""
+    import ctypes
+    lib = parent_library(torch, parent, "prefill_attn", "int T, int window")
+    if lib is None:
+        return None
+    fn = lib.prefill_attention
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+    def call(lens, q, k, v, blk):
+        b, c, h, hd = q.shape
+        s, hkv = k.shape[1], k.shape[2]
+        tile = next(t for t in range(min(blk, 32), 0, -1) if blk % t == 0)
+        out = torch.empty_like(q)
+        status = fn(lens.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), b, c, h, hkv, hd, s, tile, 0, 0.0,
+                    hd ** -0.5, 0, 0, torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"parent prefill_attention: CUDA error {status}")
+        return out
+    return call
+
+
+def serving_kernels(torch, gen, parent=None) -> dict:
     """``paged_gather``, ``paged_scatter`` and ``prefill_attention`` against
     their plain versions (bitwise for the two copies), then timed at the
     qwen3-4b gateway's full-width shapes."""
@@ -742,7 +1042,6 @@ def serving_kernels(torch, gen) -> dict:
                                      prefill_attention, ref)
     from repro_torch.kernels.prefill_attn import NAME, NAME_CUDA_CORES
     from repro_torch.kernels.prefill_attn import _fn as prefill_fn_cc
-    from repro_torch.kernels.prefill_attn import _tile as prefill_tile
 
     NAME_CC = NAME_CUDA_CORES
     dev = torch.device("cuda")
@@ -997,7 +1296,7 @@ def serving_kernels(torch, gen) -> dict:
         o = torch.empty_like(q)
         status = prefill_fn_cc()(
             lens.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), b, c, h, hkv, hd, s, prefill_tile(blk), 0, 0.0,
+            o.data_ptr(), b, c, h, hkv, hd, s, 0, 0.0,
             hd ** -0.5, 1, 1, torch.cuda.current_stream().cuda_stream)
         build.check_status("prefill_attn", status)
         return o
@@ -1055,9 +1354,23 @@ def serving_kernels(torch, gen) -> dict:
                 v32t.repeat_interleave(h // hkv, 1), attn_mask=mask)
     lib32 = cuda_ms(library32, 20)
     b_ms32, b_by32 = bound_ms(flops, 2 * nbytes - 4 * b)
+    old = parent_prefill(torch, parent)
+    par = ""
+    if old is not None:       # the parent tree's kernel, in turns with this
+        want32 = ref.prefill_attention_ref(lens, q32, k32, v32)
+        old_err = float((old(lens, q32, k32, v32, blk) - want32).abs().max())
+        turns = [cuda_ms(lambda: old(lens, q32, k32, v32, blk), 20),
+                 cuda_ms(lambda: prefill_attention(lens, q32, k32, v32,
+                                                   blk=blk), 20),
+                 cuda_ms(lambda: prefill_attention(lens, q32, k32, v32,
+                                                   blk=blk), 20),
+                 cuda_ms(lambda: old(lens, q32, k32, v32, blk), 20)]
+        par = (f", the parent tree's kernel {turns[0]:.4f} and "
+               f"{turns[3]:.4f} ms in turns with this one's {turns[1]:.4f} "
+               f"and {turns[2]:.4f} (parent max abs err {old_err:.1e})")
     print(f"[time] prefill_attention CUDA-core route, the same shape at "
           f"fp32: kernel {ms_cc32:.4f} ms ({100 * b_ms32 / ms_cc32:.0f}% of "
-          f"the bound), plain {plain_cc32:.4f} ms, library "
+          f"the bound){par}, plain {plain_cc32:.4f} ms, library "
           f"scaled_dot_product_attention on the fp32 inputs {lib32:.4f} ms, "
           f"bound {b_ms32:.4f} ms ({b_by32}; {flops / 1e9:.2f} GFLOP at the "
           f"fp32 peak, {(2 * nbytes - 4 * b) / 1e6:.1f} MB)")
@@ -1312,7 +1625,188 @@ def vgg8_phase(torch, steps: int = 30, batch: int = 32) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the LM serving gateway
+# phase 5: the blocked PTC path at LM width
+# ---------------------------------------------------------------------------
+
+
+# the step's kernel-vs-plain limit, of the largest entry: y, dx and the
+# Σ-gradient leave the step rounded to bf16 (the reference's dtypes), and
+# two fp32 sums that agree to 1e-6 can round one bf16 ulp apart, up to
+# 2^-7 of the largest entry (the kernels themselves are held to 1e-4 in
+# fp32, and ds before its rounding, in the kernels phase)
+BLOCKED_LM_TOL = 2 ** -7
+
+
+def blocked_lm_phase(torch) -> dict:
+    """olmo-1b's seven PTC linears of one decoder layer in blocked mode at
+    full width (k = 128, bf16 bases): one step, forward and autograd
+    through ``models/layers.py::apply_ptc_linear`` with sampled feedback
+    and column masks, held against the same step through the plain
+    versions; then the up projection's 1,024 blocks realized through
+    ``hw/device.py::realized_unitaries`` (2,048 reck meshes of k = 128).
+    Returns the wide routes' launches: the PTC kernels' over the step,
+    ``mesh_apply_wide``'s over the realization."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import subspace
+    from repro_torch.core import unitary as un
+    from repro_torch.core.noise import NoiseModel, apply_phase_noise
+    from repro_torch.core.ptc import PTCParams
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.hw.device import realized_unitaries, sample_device
+    from repro_torch.kernels import build, mesh_apply_plain, ref
+    from repro_torch.models.layers import (PTCLinearCfg, apply_ptc_linear,
+                                           init_ptc_linear)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    arch = get_config("olmo-1b")
+    check((arch.d_model, arch.d_ff) == (2048, 8192),
+          f"blocked_lm: olmo-1b is {arch.d_model} / {arch.d_ff} wide")
+    cfg = PTCLinearCfg(k=128, mode="blocked", base_dtype=torch.bfloat16)
+    t = BLOCKED_LM_T
+    scfg = SparsityConfig(alpha_w=0.6, alpha_c=0.6)
+    t0 = time.perf_counter()
+    layers = {name: init_ptc_linear(gen, d_in, d_out, cfg)
+              for name, d_in, d_out in OLMO_LINEARS}
+    # the layer's inputs: q, k, v read the attention input, gate and up
+    # the FFN input, o and down their own
+    reads = {"q": "attn", "k": "attn", "v": "attn", "o": "o", "gate": "ffn",
+             "up": "ffn", "down": "down"}
+    widths = {"attn": 2048, "o": 2048, "ffn": 2048, "down": 8192}
+    xs = {n: torch.randn((t, w), generator=gen, device=dev)
+          for n, w in widths.items()}
+    masks = {name: subspace.sample_masks(
+        gen, PTCParams(p["u"], p["s"].to(p["u"].dtype), p["v"]), t, scfg)
+        for name, p in layers.items()}
+    dys = {name: torch.randn((t, d_out), generator=gen, device=dev)
+           .to(torch.bfloat16) for name, _, d_out in OLMO_LINEARS}
+    torch.cuda.synchronize()
+    print(f"[blocked_lm] olmo-1b, one decoder layer's PTC linears in blocked"
+          f" mode, k = {cfg.k}, bases {cfg.base_dtype}: " + ", ".join(
+              f"{n} {p['s'].shape[1] * cfg.k}->{p['s'].shape[0] * cfg.k} "
+              f"(P {p['s'].shape[0]}, Q {p['s'].shape[1]}, feedback keeps "
+              f"{int(torch.count_nonzero(masks[n].feedback))})"
+              for n, p in layers.items())
+          + f"; T = {t} (one train_4k sequence), alpha_w 0.6, alpha_c 0.6; "
+          f"cuts: depth 16 -> 1 layer, batch 256 -> 1 sequence; init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def step():
+        s_leaf = {n: p["s"].detach().clone().requires_grad_()
+                  for n, p in layers.items()}
+        x_leaf = {n: x.detach().clone().requires_grad_()
+                  for n, x in xs.items()}
+        ys = {n: apply_ptc_linear(dict(p, s=s_leaf[n]), x_leaf[reads[n]],
+                                  cfg, masks[n]) for n, p in layers.items()}
+        names = list(layers)
+        grads = torch.autograd.grad(
+            [ys[n] for n in names], [s_leaf[n] for n in names]
+            + [x_leaf[n] for n in widths], [dys[n] for n in names])
+        out = {f"y.{n}": ys[n].detach() for n in names}
+        out.update({f"ds.{n}": g for n, g in zip(names, grads)})
+        out.update({f"dx.{n}": g for n, g in zip(widths, grads[len(names):])})
+        return out
+
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {k: build.launch_counts[k] for k in WIDE_KERNELS}
+    narrow = {k: build.launch_counts[k] for k in NARROW_PTC}
+    print(f"[blocked_lm] step (7 forwards, 7 Σ-gradients, 7 feedbacks): "
+          f"wall {1e3 * step_s:.1f} ms, first call; launches "
+          + ", ".join(f"{k}={v}" for k, v in {**launches, **narrow}.items()))
+    for kernel in WIDE_KERNELS:
+        check(launches[kernel] == len(OLMO_LINEARS),
+              f"blocked_lm: {kernel} launched {launches[kernel]} times, not "
+              f"once per linear")
+    check(not any(narrow.values()),
+          f"blocked_lm: a k <= 32 route was launched: {narrow}")
+    for name, g in got.items():
+        check(bool(torch.isfinite(g).all()), f"blocked_lm: {name} is not "
+                                             f"finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    print(f"[blocked_lm] step again (warm): wall "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+
+    # the same step through the plain versions, on the same masks
+    kernels = (subspace.ptc_block_matmul, subspace.sigma_grad,
+               subspace.feedback_matmul)
+    before = dict(build.launch_counts)
+    subspace.ptc_block_matmul = ref.ptc_block_matmul_ref
+    subspace.sigma_grad = ref.sigma_grad_ref
+    subspace.feedback_matmul = ref.feedback_matmul_ref
+    try:
+        want = step()
+    finally:
+        (subspace.ptc_block_matmul, subspace.sigma_grad,
+         subspace.feedback_matmul) = kernels
+    torch.cuda.synchronize()
+    check(build.launch_counts == before,
+          "blocked_lm: the plain-version step launched a kernel")
+    errs = {}
+    for name in got:
+        check(got[name].shape == want[name].shape
+              and got[name].dtype == want[name].dtype,
+              f"blocked_lm: {name} shape or dtype differs from the plain "
+              f"step's")
+        errs[name] = rel_err(got[name], want[name])[1]
+        check(errs[name] < BLOCKED_LM_TOL,
+              f"blocked_lm: {name} rel err {errs[name]:.2e} >= 2^-7 against "
+              f"the plain versions")
+    print(f"[blocked_lm] kernels vs plain versions, same masks: max |err| "
+          f"over the largest entry " + ", ".join(
+              f"{n} {e:.1e}" for n, e in errs.items())
+          + f" (tol 2^-7: one bf16 rounding of y, ds and dx)")
+    del got, want
+
+    # realize the up projection's blocks: U and V* meshes of every block
+    spec = un.mesh_spec(cfg.k, "reck")
+    p, q = layers["up"]["s"].shape[:2]
+    model = NoiseModel()
+    real = sample_device(gen, (p * q,), cfg.k, model, kind="reck")
+    phi = [torch.rand((p * q, spec.n_rot), generator=gen, device=dev)
+           * 2 * torch.pi for _ in range(2)]
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, v = realized_unitaries(spec, phi[0], phi[1], real, model)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    mesh = {k: build.launch_counts[k] for k in ("mesh_apply",
+                                                "mesh_apply_wide")}
+    check(mesh == {"mesh_apply": 0, "mesh_apply_wide": 2},
+          f"blocked_lm: the realization launched {mesh}, not the wide mesh "
+          f"route twice")
+    eye = torch.eye(cfg.k, device=dev)[None]
+    err = 0.0
+    for got_u, ph, noise, d in ((u, phi[0], real.noise_u, real.d_u),
+                                (v, phi[1], real.noise_v, real.d_v)):
+        want_u = mesh_apply_plain(spec, apply_phase_noise(spec, ph, noise,
+                                                          model),
+                                  eye, d, transpose_out=True)
+        err = max(err, float((got_u - want_u).abs().max()))
+    orth = float((u[0] @ u[0].T - eye[0]).abs().max())
+    check(err < 1e-5, f"blocked_lm: realized unitaries max abs err "
+                      f"{err:.2e} >= 1e-5 against the plain version")
+    check(orth < 1e-4, f"blocked_lm: a realized U is not orthogonal "
+                       f"({orth:.2e})")
+    print(f"[blocked_lm] up projection realized: {2 * p * q} reck meshes "
+          f"of k = {cfg.k} ({spec.n_rot} phases, {spec.n_layers} layers) in "
+          f"{real_s * 1e3:.1f} ms wall, launches mesh_apply_wide="
+          f"{mesh['mesh_apply_wide']}, mesh_apply={mesh['mesh_apply']}; "
+          f"max abs err {err:.2e} against the plain version (tol 1e-5); "
+          f"U U^T - I {orth:.1e}")
+    return dict(launches, mesh_apply_wide=mesh["mesh_apply_wide"])
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the LM serving gateway
 # ---------------------------------------------------------------------------
 
 
@@ -1607,9 +2101,10 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--parent", default=None,
                     help="an earlier checkout (say a git archive of the "
-                         "parent commit): its ptc_block_matmul.cu and "
-                         "sigma_grad.cu are built and timed beside this "
-                         "tree's kernels in the kernels phase")
+                         "parent commit): its ptc_block_matmul.cu, "
+                         "sigma_grad.cu and prefill_attn.cu are built and "
+                         "timed beside this tree's kernels in the kernels "
+                         "phase")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in PHASES for p in phases):
@@ -1636,7 +2131,8 @@ def main(argv=None) -> int:
         else {}
     # launches of each kernel on its main path in this run: the last
     # quickstart path driven (full width, else parity) for the PTC kernels,
-    # the gateway for the serving kernels; null where none was driven
+    # the blocked_lm step and realization for the wide routes, the gateway
+    # for the serving kernels; null where none was driven
     launches = dict.fromkeys(build.KERNELS)
 
     if "parity" in phases:
@@ -1685,6 +2181,9 @@ def main(argv=None) -> int:
 
     if "vgg8" in phases:
         vgg8_phase(torch)
+
+    if "blocked_lm" in phases:
+        launches.update(blocked_lm_phase(torch))
 
     if "gateway" in phases:
         launches.update(gateway_phase(torch))

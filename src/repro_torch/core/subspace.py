@@ -89,8 +89,7 @@ class _PTCLinear(torch.autograd.Function):
                 dx = (dy @ unblockize(w)).to(x.dtype)
         else:
             if need_ds:
-                dyc = dy if col is None else (dy * col[:, None]).contiguous()
-                ds = sigma_grad(dyc, x, u, v).to(s.dtype)
+                ds = sigma_grad(dy, x, u, v, col).to(s.dtype)
             if need_dx:
                 mask = fb.contiguous() if fb is not None else torch.ones(
                     (u.shape[1], u.shape[0]), dtype=torch.float32,
@@ -106,7 +105,8 @@ def ptc_linear(x: torch.Tensor, params: PTCParams,
 
     ``x``'s last dim must equal Q·k (pad in the layer wrapper); the output
     is (..., P·k).  ``mode``: "fused" or "blocked" (the kernels' dataflow;
-    fp32 only).  Only ``x`` and ``params.s`` receive gradients.
+    fp32 or bf16, any k; the gradients come back in x's and s's dtypes).
+    Only ``x`` and ``params.s`` receive gradients.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode: {mode!r}")

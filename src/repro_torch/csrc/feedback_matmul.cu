@@ -5,7 +5,10 @@
 // Replaces the TPU kernel repro/kernels/feedback_matmul.py::feedback_matmul
 // (dispatched by repro/kernels/ops.py::feedback_matmul).  Shapes: dy
 // (T, P*k), u and v (P, Q, k, k) with v holding V*, s (P, Q, k), mask (Q, P)
-// already scaled by its normalizer  ->  dx (T, Q*k); fp32 throughout.
+// already scaled by its normalizer  ->  dx (T, Q*k); dy, u, s, v and dx fp32
+// or bf16 (all alike; the mask fp32), widened to fp32 by the pre-passes,
+// every product and sum fp32.  k <= 32; larger k take the wide route
+// (ptc_wide.cu).
 //
 // What bounds it on an H100: arithmetic.  Composed, a kept block costs
 // 2k^2 flops per row; at the widest shape of the training path (FC 4096 ->
@@ -50,8 +53,7 @@
 //    runs give the same bits.  Launches on the caller's stream, allocates
 //    nothing, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ptc_common.cuh"
 
 namespace {
 
@@ -126,10 +128,10 @@ __device__ __forceinline__ void consumers_sync() {
 // for kept blocks (zero past column k); masked blocks are left unwritten.
 // A CTA stages 128 / K consecutive blocks' U, s and V* in shared memory
 // (coalesced), then one thread composes one row l of one block.
-template <int K>
+template <int K, typename Tv>
 __global__ void __launch_bounds__(128)
-compose_kernel(const float* __restrict__ u, const float* __restrict__ s,
-               const float* __restrict__ v, const float* __restrict__ mask,
+compose_kernel(const Tv* __restrict__ u, const Tv* __restrict__ s,
+               const Tv* __restrict__ v, const float* __restrict__ mask,
                float* __restrict__ wt, int P, int Q, int k) {
   constexpr int KP = padded(K), B = 128 / K;
   __shared__ float us[B * K * K], vs[B * K * K], ss[B * K], ms[B];
@@ -137,10 +139,10 @@ compose_kernel(const float* __restrict__ u, const float* __restrict__ s,
   const int nb = (int)min((long long)B, (long long)P * Q - blk0);
   const int tid = threadIdx.x, kk = k * k;
   for (int i = tid; i < nb * kk; i += 128) {
-    us[i] = u[blk0 * kk + i];
-    vs[i] = v[blk0 * kk + i];
+    us[i] = ptc::to_f32(u[blk0 * kk + i]);
+    vs[i] = ptc::to_f32(v[blk0 * kk + i]);
   }
-  for (int i = tid; i < nb * k; i += 128) ss[i] = s[blk0 * k + i];
+  for (int i = tid; i < nb * k; i += 128) ss[i] = ptc::to_f32(s[blk0 * k + i]);
   if (tid < nb) {
     const long long blk = blk0 + tid;  // p * Q + q
     ms[tid] = mask[(blk % Q) * P + blk / Q];
@@ -175,14 +177,16 @@ compose_kernel(const float* __restrict__ u, const float* __restrict__ s,
 // dyt (P*k, T_pad) = dy (T, P*k) transposed, zero past row T: each
 // (block, column l)'s rows are contiguous, so one bulk copy moves a row
 // tile of it
-__global__ void transpose_kernel(const float* __restrict__ dy,
+template <typename Tv>
+__global__ void transpose_kernel(const Tv* __restrict__ dy,
                                  float* __restrict__ dyt, int T, int T_pad,
                                  int N) {
   __shared__ float tile[32][33];
   const int c0 = blockIdx.x * 32, t0 = blockIdx.y * 32;
   for (int i = threadIdx.y; i < 32; i += blockDim.y) {
     const int t = t0 + i, c = c0 + threadIdx.x;
-    tile[i][threadIdx.x] = (t < T && c < N) ? dy[(long long)t * N + c] : 0.f;
+    tile[i][threadIdx.x] =
+        (t < T && c < N) ? ptc::to_f32(dy[(long long)t * N + c]) : 0.f;
   }
   __syncthreads();
   for (int i = threadIdx.y; i < 32; i += blockDim.y) {
@@ -191,12 +195,12 @@ __global__ void transpose_kernel(const float* __restrict__ dy,
   }
 }
 
-template <int K, int RT>
+template <int K, int RT, typename To>
 __global__ void __launch_bounds__(kThreads, 2)
 feedback_matmul_kernel(const float* __restrict__ dyt,
                        const float* __restrict__ wt,
                        const float* __restrict__ mask,
-                       float* __restrict__ dx, int T, int T_pad, int P,
+                       To* __restrict__ dx, int T, int T_pad, int P,
                        int Q, int k) {
   using L = Ring<K, RT>;
   constexpr int KP = L::KP, TR = L::TR, NB = L::NB;
@@ -339,21 +343,22 @@ feedback_matmul_kernel(const float* __restrict__ dyt,
     for (int rr = warp; rr < RR; rr += kGroup) {
       const long long t = t0 + RR * h + rr;
       if (t >= T) break;
-      float* row = dx + t * ((long long)Q * k) + (long long)q0 * k;
-      for (int cc = lane; cc < width; cc += 32) row[cc] = os[rr * OS + cc];
+      To* row = dx + t * ((long long)Q * k) + (long long)q0 * k;
+      for (int cc = lane; cc < width; cc += 32)
+        row[cc] = ptc::from_f32<To>(os[rr * OS + cc]);
     }
     consumers_sync();
   }
 }
 
-template <int K, int RT>
+template <int K, int RT, typename To>
 cudaError_t launch_main(const float* dyt, const float* wt, const float* mask,
-                        float* dx, int T, int T_pad, int P, int Q, int k,
+                        To* dx, int T, int T_pad, int P, int Q, int k,
                         cudaStream_t st) {
   using L = Ring<K, RT>;
   const size_t smem =
       sizeof(float) * L::FLOATS + 16 * L::NB + 2 * sizeof(int) * P;
-  auto kern = feedback_matmul_kernel<K, RT>;
+  auto kern = feedback_matmul_kernel<K, RT, To>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -364,43 +369,68 @@ cudaError_t launch_main(const float* dyt, const float* wt, const float* mask,
   return cudaGetLastError();
 }
 
-template <int K>
+template <int K, typename To>
 cudaError_t by_rows(int rt, const float* dyt, const float* wt,
-                    const float* mask, float* dx, int T, int T_pad, int P,
+                    const float* mask, To* dx, int T, int T_pad, int P,
                     int Q, int k, cudaStream_t st) {
   switch (rt) {
-    case 1: return launch_main<K, 1>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
-    case 2: return launch_main<K, 2>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+    case 1:
+      return launch_main<K, 1, To>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+    case 2:
+      return launch_main<K, 2, To>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
     case 4:
       if constexpr (K <= 16)
-        return launch_main<K, 4>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+        return launch_main<K, 4, To>(dyt, wt, mask, dx, T, T_pad, P, Q, k,
+                                     st);
       break;
     case 8:
       if constexpr (K <= 9)
-        return launch_main<K, 8>(dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+        return launch_main<K, 8, To>(dyt, wt, mask, dx, T, T_pad, P, Q, k,
+                                     st);
       break;
   }
   return cudaErrorInvalidValue;
 }
 
 // the two pre-passes (compose, transpose), then the product
-template <int K>
-cudaError_t launch(int rt, const float* dy, const float* u, const float* s,
-                   const float* v, const float* mask, float* wt, float* dyt,
-                   float* dx, int T, int P, int Q, int k, cudaStream_t st) {
+template <int K, typename Tv>
+cudaError_t launch(int rt, const Tv* dy, const Tv* u, const Tv* s,
+                   const Tv* v, const float* mask, float* wt, float* dyt,
+                   Tv* dx, int T, int P, int Q, int k, cudaStream_t st) {
   const int tr = 32 * rt;
   const int T_pad = (T + tr - 1) / tr * tr;
   const long long rows = (long long)P * Q * k;
   if (rows > 0) {
     constexpr int B = 128 / K;  // blocks per compose CTA
-    compose_kernel<K><<<(unsigned)(((long long)P * Q + B - 1) / B), 128, 0,
+    compose_kernel<K, Tv><<<(unsigned)(((long long)P * Q + B - 1) / B), 128, 0,
                         st>>>(u, s, v, mask, wt, P, Q, k);
     const dim3 grid((P * k + 31) / 32, T_pad / 32);
-    transpose_kernel<<<grid, dim3(32, 8), 0, st>>>(dy, dyt, T, T_pad, P * k);
+    transpose_kernel<Tv><<<grid, dim3(32, 8), 0, st>>>(dy, dyt, T, T_pad,
+                                                       P * k);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return by_rows<K>(rt, dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+  return by_rows<K, Tv>(rt, dyt, wt, mask, dx, T, T_pad, P, Q, k, st);
+}
+
+template <typename Tv>
+cudaError_t by_k(int kt, int rt, const void* dy, const void* u,
+                 const void* s, const void* v, const float* m, float* w,
+                 float* d, void* dx, int T, int P, int Q, int k,
+                 cudaStream_t st) {
+  const Tv* a = static_cast<const Tv*>(dy);
+  const Tv* uu = static_cast<const Tv*>(u);
+  const Tv* ss = static_cast<const Tv*>(s);
+  const Tv* vv = static_cast<const Tv*>(v);
+  Tv* o = static_cast<Tv*>(dx);
+  switch (kt) {
+    case 4: return launch<4, Tv>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st);
+    case 8: return launch<8, Tv>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st);
+    case 9: return launch<9, Tv>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st);
+    case 16: return launch<16, Tv>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st);
+    case 32: return launch<32, Tv>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -409,33 +439,27 @@ extern "C" const char* repro_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// fp32 only.  kt: the kernel's k (4, 8, 9, 16 or 32, >= k); rt: rows per
-// lane (1, 2, 4 or 8; at most 8 for kt <= 9, 4 for 16, 2 for 32).
+// dtype: 0 = float32, 1 = bfloat16 (dy, u, s, v and dx alike; the mask
+// fp32).  kt: the kernel's k (4, 8, 9, 16 or 32, >= k); rt: rows per lane
+// (1, 2, 4 or 8; at most 8 for kt <= 9, 4 for 16, 2 for 32).
 // Scratch: wt (P, Q, k, KP) with KP = kt rounded up to a multiple of 4;
 // dyt (P*k, T_pad) with T_pad = T rounded up to a multiple of 32 * rt.
 extern "C" int feedback_matmul(const void* dy, const void* u, const void* s,
                                const void* v, const void* mask, void* wt,
                                void* dyt, void* dx, int T, int P, int Q,
-                               int k, int kt, int rt, void* stream) {
+                               int k, int kt, int rt, int dtype,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(dy);
   const float* m = static_cast<const float*>(mask);
-  const float* uu = static_cast<const float*>(u);
-  const float* ss = static_cast<const float*>(s);
-  const float* vv = static_cast<const float*>(v);
   float* w = static_cast<float*>(wt);
   float* d = static_cast<float*>(dyt);
-  float* o = static_cast<float*>(dx);
   if (k < 1 || k > kt || (kt == 32 && rt > 2) || (kt == 16 && rt > 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  switch (kt) {
-    case 4: err = launch<4>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
-    case 8: err = launch<8>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
-    case 9: err = launch<9>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
-    case 16: err = launch<16>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
-    case 32: err = launch<32>(rt, a, uu, ss, vv, m, w, d, o, T, P, Q, k, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  if (dtype == 0)
+    return static_cast<int>(by_k<float>(kt, rt, dy, u, s, v, m, w, d, dx, T,
+                                        P, Q, k, st));
+  if (dtype == 1)
+    return static_cast<int>(by_k<__nv_bfloat16>(kt, rt, dy, u, s, v, m, w, d,
+                                                 dx, T, P, Q, k, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,5 @@
-// Helpers shared by the PTC kernels (ptc_block_matmul.cu, sigma_grad.cu):
+// Helpers shared by the PTC kernels (ptc_block_matmul.cu, sigma_grad.cu,
+// feedback_matmul.cu, ptc_wide.cu) and the CUDA-core prefill attention:
 // type widening, cp.async copies into shared memory, and the fixed-order
 // sum of split partials.  Included by each .cu file, which is compiled into
 // its own library (kernels/build.py hashes this header into every library

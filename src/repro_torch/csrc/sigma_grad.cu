@@ -4,8 +4,9 @@
 //
 // Replaces the TPU kernel repro/kernels/sigma_grad.py::sigma_grad
 // (dispatched by repro/kernels/ops.py::sigma_grad).  Shapes: dy (T, P*k),
-// x (T, Q*k), u and v (P, Q, k, k) with v holding V*  ->  ds (P, Q, k), fp32
-// throughout.
+// x (T, Q*k), u and v (P, Q, k, k) with v holding V*  ->  ds (P, Q, k) fp32;
+// dy, x, u, v fp32 or bf16 (all alike), widened to fp32 on load, every sum
+// fp32.  k <= 32; larger k take the wide route (ptc_wide.cu).
 //
 // The function's least work: the dense G = dy^T x summed over all rows
 // (k^2 multiply-adds a row and block), then ds_pq[i] = sum_a U[a,i]
@@ -26,7 +27,9 @@
 //    slots' padding scatters the columns, and dy's rows (P*k = 513, 135 and
 //    261 floats on VGG-8) and x's (Q*k = 27, 513) are not 16-byte aligned.
 //    Each thread copies the same (at most two) columns every stage, so the
-//    copy addresses are computed once.  The ring starts zeroed, and
+//    copy addresses are computed once.  bf16 rows are widened by plain
+//    loads and stores into the same ring (cp.async cannot convert).  The
+//    ring starts zeroed, and
 //    positions no copy writes (padding, blocks past P or Q) stay zero; rows
 //    past the range are zero-filled.
 //  * Epilogue: G goes to shared memory (it never reaches device memory),
@@ -66,10 +69,10 @@ struct Tile {
   static constexpr int CPT = (COLS + kThreads - 1) / kThreads;
 };
 
-template <int KT>
+template <int KT, typename Tv>
 __global__ void __launch_bounds__(kThreads, 3)
-sigma_grad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
-                  const float* __restrict__ u, const float* __restrict__ v,
+sigma_grad_kernel(const Tv* __restrict__ dy, const Tv* __restrict__ x,
+                  const Tv* __restrict__ u, const Tv* __restrict__ v,
                   float* __restrict__ out, int T, int P, int Q, int k,
                   int chunk_rows, int splits) {
   using L = Tile<KT>;
@@ -96,7 +99,7 @@ sigma_grad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
 
   // this thread's copy columns: c < BMG in dy's tile, else in x's; src is
   // the column's element in row 0, or null where no copy is made
-  const float* src[L::CPT];
+  const Tv* src[L::CPT];
   int ld[L::CPT], dst[L::CPT], rs[L::CPT];
 #pragma unroll
   for (int n = 0; n < L::CPT; ++n) {
@@ -124,13 +127,16 @@ sigma_grad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
 #pragma unroll
     for (int n = 0; n < L::CPT; ++n) {
       if (src[n] == nullptr) continue;
-      const float* p = src[n] + t0 * ld[n];
+      const Tv* p = src[n] + t0 * ld[n];
 #pragma unroll
       for (int r = 0; r < kBK; ++r) {
         const bool ok = t0 + r < t_end;
-        ptc::cp_async4(base + dst[n] + r * rs[n], ok ? p + (long long)r * ld[n]
-                                                     : src[n],
-                       ok);
+        if constexpr (sizeof(Tv) == 4)
+          ptc::cp_async4(base + dst[n] + r * rs[n],
+                         ok ? p + (long long)r * ld[n] : src[n], ok);
+        else
+          base[dst[n] + r * rs[n]] =
+              ok ? ptc::to_f32(p[(long long)r * ld[n]]) : 0.f;
       }
     }
   };
@@ -202,7 +208,7 @@ sigma_grad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
     float vrow[KT];
 #pragma unroll
     for (int b = 0; b < KT; ++b)
-      vrow[b] = b < k ? __ldg(v + b0 + i * k + b) : 0.f;
+      vrow[b] = b < k ? ptc::to_f32(__ldg(v + b0 + i * k + b)) : 0.f;
     float a_sum = 0.f;
 #pragma unroll
     for (int a = 0; a < KT; ++a) {
@@ -210,7 +216,7 @@ sigma_grad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
         float gv = 0.f;
 #pragma unroll
         for (int b = 0; b < KT; ++b) gv = fmaf(gb[a * L::GS + b], vrow[b], gv);
-        a_sum = fmaf(__ldg(u + b0 + a * k + i), gv, a_sum);
+        a_sum = fmaf(ptc::to_f32(__ldg(u + b0 + a * k + i)), gv, a_sum);
       }
     }
     const long long o = ((long long)p * Q + q) * k + i;
@@ -224,14 +230,13 @@ __global__ void sigma_sum_splits_kernel(const float* __restrict__ part,
   ptc::sum_splits(part, ds, n, splits);
 }
 
-template <int KT>
-cudaError_t launch(const float* dy, const float* x, const float* u,
-                   const float* v, float* part, float* ds, int T, int P,
-                   int Q, int k, int chunk_rows, int splits,
-                   cudaStream_t st) {
+template <int KT, typename Tv>
+cudaError_t launch(const Tv* dy, const Tv* x, const Tv* u, const Tv* v,
+                   float* part, float* ds, int T, int P, int Q, int k,
+                   int chunk_rows, int splits, cudaStream_t st) {
   using L = Tile<KT>;
   const size_t smem = sizeof(float) * L::FLOATS;
-  auto kern = sigma_grad_kernel<KT>;
+  auto kern = sigma_grad_kernel<KT, Tv>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -273,28 +278,20 @@ extern "C" int sigma_grad_tile(int k, int* out) {
   return 0;
 }
 
-// fp32 only.  T is cut into splits of chunk_rows rows (a multiple of 16);
-// part: (splits, P, Q, k) scratch, unused when splits == 1.
-extern "C" int sigma_grad(const void* dy, const void* x, const void* u,
-                          const void* v, void* part, void* ds, int T, int P,
-                          int Q, int k, int chunk_rows, int splits,
-                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(dy);
-  const float* b = static_cast<const float*>(x);
-  const float* c = static_cast<const float*>(u);
-  const float* d = static_cast<const float*>(v);
-  float* pt = static_cast<float*>(part);
-  float* o = static_cast<float*>(ds);
-  if (chunk_rows <= 0 || chunk_rows % kBK != 0 || splits < 1 ||
-      splits != (int)(((long long)T + chunk_rows - 1) / chunk_rows))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaErrorInvalidValue;
+namespace {
+
+template <typename Tv>
+cudaError_t by_k(const void* dy, const void* x, const void* u, const void* v,
+                 float* pt, float* o, int T, int P, int Q, int k,
+                 int chunk_rows, int splits, cudaStream_t st) {
+  const Tv* a = static_cast<const Tv*>(dy);
+  const Tv* b = static_cast<const Tv*>(x);
+  const Tv* c = static_cast<const Tv*>(u);
+  const Tv* d = static_cast<const Tv*>(v);
   switch (ptc::kernel_k(k)) {
-#define REPRO_SIGMA(KT)                                                  \
-  case KT:                                                               \
-    err = launch<KT>(a, b, c, d, pt, o, T, P, Q, k, chunk_rows, splits, st); \
-    break
+#define REPRO_SIGMA(KT) \
+  case KT:              \
+    return launch<KT, Tv>(a, b, c, d, pt, o, T, P, Q, k, chunk_rows, splits, st)
     REPRO_SIGMA(4);
     REPRO_SIGMA(8);
     REPRO_SIGMA(9);
@@ -302,5 +299,29 @@ extern "C" int sigma_grad(const void* dy, const void* x, const void* u,
     REPRO_SIGMA(32);
 #undef REPRO_SIGMA
   }
-  return static_cast<int>(err);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (dy, x, u and v alike); ds is fp32.  T
+// is cut into splits of chunk_rows rows (a multiple of 16); part: (splits,
+// P, Q, k) scratch, unused when splits == 1.
+extern "C" int sigma_grad(const void* dy, const void* x, const void* u,
+                          const void* v, void* part, void* ds, int T, int P,
+                          int Q, int k, int chunk_rows, int splits, int dtype,
+                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
+  float* o = static_cast<float*>(ds);
+  if (chunk_rows <= 0 || chunk_rows % kBK != 0 || splits < 1 ||
+      splits != (int)(((long long)T + chunk_rows - 1) / chunk_rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return static_cast<int>(by_k<float>(dy, x, u, v, pt, o, T, P, Q, k,
+                                        chunk_rows, splits, st));
+  if (dtype == 1)
+    return static_cast<int>(by_k<__nv_bfloat16>(dy, x, u, v, pt, o, T, P, Q,
+                                                 k, chunk_rows, splits, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

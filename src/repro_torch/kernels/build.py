@@ -4,11 +4,13 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/repro_torch/`` at
 the root of the checkout, at first use; the library is loaded with
 ``ctypes``.  A library may hold several kernels (``paged_kv.cu`` holds the
-gather and the scatter), and one TPU kernel may have two routes
+gather and the scatter; ``ptc_wide.cu`` the k > 32 routes of the three
+PTC kernels), and one TPU kernel may have several routes
 (``prefill_attention`` on the tensor cores, ``prefill_attention_cudacore``
-for the pairs they do not take): :data:`KERNELS` names each kernel's
-library.  Library names carry a hash of the source and the flags, so an
-edited source is never served a stale build.  :func:`build` starts one
+for the pairs they do not take; ``mesh_apply`` and ``mesh_apply_wide``
+past k = 32): :data:`KERNELS` names each kernel's library.  Library
+names carry a hash of the source and the flags, so an edited source is
+never served a stale build.  :func:`build` starts one
 ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: a CUDA-less host imports the package and
@@ -39,16 +41,21 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"mesh_apply": "mesh_apply.cu",
            "ptc_block_matmul": "ptc_block_matmul.cu",
            "sigma_grad": "sigma_grad.cu",
+           "ptc_wide": "ptc_wide.cu",
            "feedback_matmul": "feedback_matmul.cu",
            "paged_kv": "paged_kv.cu",
            "prefill_attn": "prefill_attn.cu",
            "prefill_attn_tc": "prefill_attn_tc.cu"}
 # kernel name (the launch counter's key) -> library name
 KERNELS = {"mesh_apply": "mesh_apply",
+           "mesh_apply_wide": "mesh_apply",
            "ptc_block_matmul": "ptc_block_matmul",
            "ptc_block_matmul_perblock": "ptc_block_matmul",
+           "ptc_block_matmul_wide": "ptc_wide",
            "sigma_grad": "sigma_grad",
+           "sigma_grad_wide": "ptc_wide",
            "feedback_matmul": "feedback_matmul",
+           "feedback_matmul_wide": "ptc_wide",
            "paged_gather": "paged_kv",
            "paged_scatter": "paged_kv",
            "prefill_attention": "prefill_attn_tc",

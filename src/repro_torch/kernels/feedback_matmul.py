@@ -8,7 +8,13 @@ wrapper allocates (each kept block composed once, ``W̃_pq =
 block column is contiguous), then the register-tiled product that skips
 masked blocks whole.  On a CPU tensor it runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.feedback_matmul_ref`).  :func:`plan` picks
-the kernel's compiled k and its rows per lane.
+the kernel's compiled k and its rows per lane.  Past k = 32 it launches
+the wide route instead (counter ``feedback_matmul_wide``,
+``csrc/ptc_wide.cu``): each block composed once by a batched block
+product into a (P·k, Q·k) scratch scaled by its mask entry, then one
+register-tiled product of 128 × 128 tiles that skips every reduction step
+whose blocks the tile's q range all masked.  Both routes take fp32 or bf16
+operands (all four alike; the mask fp32), widened on load.
 """
 
 from __future__ import annotations
@@ -18,12 +24,14 @@ import ctypes
 import torch
 
 from . import build
+from .ptc_block_matmul import LIB_WIDE, MAX_K, wide_lib, wide_plan
 from .ref import feedback_matmul_ref
 
-__all__ = ["feedback_matmul", "plan", "MAX_K"]
+__all__ = ["feedback_matmul", "route", "plan", "MAX_K"]
 
-NAME = "feedback_matmul"
-MAX_K = 32
+NAME = "feedback_matmul"            # launch counter, k <= MAX_K
+NAME_WIDE = "feedback_matmul_wide"  # launch counter, k > MAX_K
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROW_TILES = 65535   # grid.y limit (the transpose's tiles are 32 rows)
 # the k the kernel is compiled for, and its most rows per lane (acc regs)
 _KERNEL_K = (4, 8, 9, 16, 32)
@@ -46,10 +54,16 @@ def plan(t: int, k: int) -> tuple[int, int, int]:
     return kt, -(-kt // 4) * 4, rt
 
 
+def route(k: int) -> str:
+    """``"narrow"`` (the k <= 32 kernel) or ``"wide"`` (every larger k).
+    Reads nothing but its argument."""
+    return "wide" if k > MAX_K else "narrow"
+
+
 def _lib():
     fn = build.library(NAME).feedback_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -58,10 +72,11 @@ def _lib():
 def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
                     v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """dy: (T, P·k), u/v: (P, Q, k, k), s: (P, Q, k), mask: (Q, P) scaled
-    → dx: (T, Q·k).
+    → dx: (T, Q·k), dy's dtype.
 
-    All fp32, contiguous, on one device.  Blocks whose mask entry is 0 are
-    skipped; a row of the mask with no kept block gives an exact zero.
+    dy, u, s, v all fp32 or all bf16, the mask fp32; contiguous, on one
+    device; accumulated in fp32.  Blocks whose mask entry is 0 are skipped;
+    a row of the mask with no kept block gives an exact zero.
     """
     if dy.dim() != 2 or u.dim() != 4 or v.shape != u.shape \
             or s.shape != u.shape[:3] or u.shape[2] != u.shape[3]:
@@ -74,9 +89,11 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"feedback_matmul: dy has {dy.shape[1]} columns and "
                          f"mask shape {tuple(mask.shape)}; the block grid "
                          f"needs P·k = {p * k} and (Q, P) = {(q, p)}")
-    if any(a.dtype != torch.float32 for a in (dy, u, s, v, mask)):
-        raise TypeError("feedback_matmul: dy, u, s, v, mask must be float32; "
-                        f"got {dy.dtype}, {u.dtype}, {s.dtype}, {v.dtype}, "
+    if len({a.dtype for a in (dy, u, s, v)}) != 1 \
+            or dy.dtype not in _DTYPES or mask.dtype != torch.float32:
+        raise TypeError("feedback_matmul: dy, u, s, v must share one dtype, "
+                        "float32 or bfloat16, and the mask be float32; got "
+                        f"{dy.dtype}, {u.dtype}, {s.dtype}, {v.dtype}, "
                         f"{mask.dtype}")
     if len({a.device for a in (dy, u, s, v, mask)}) != 1:
         raise ValueError("feedback_matmul: inputs lie on different devices")
@@ -86,10 +103,22 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         return feedback_matmul_ref(dy, u, s, v, mask)
     if dy.device.type != "cuda":
         raise ValueError(f"feedback_matmul: unsupported device {dy.device}")
-    kt, kp, rt = plan(t, k)
-    dx = torch.empty((t, q * k), dtype=torch.float32, device=dy.device)
+    dx = torch.empty((t, q * k), dtype=dy.dtype, device=dy.device)
     if t == 0 or q == 0:
         return dx
+    if route(k) == "wide":
+        if wide_plan(t, q * k, k).row_tiles > _MAX_ROW_TILES:
+            raise ValueError(f"feedback_matmul: grid too large (T={t})")
+        w = torch.empty((p * k, q * k), dtype=torch.float32, device=dy.device)
+        with torch.cuda.device(dy.device):
+            status = wide_lib().ptc_wide_feedback(
+                dy.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                mask.data_ptr(), w.data_ptr(), dx.data_ptr(), t, p, q, k,
+                _DTYPES[dy.dtype], torch.cuda.current_stream().cuda_stream)
+        build.check_status(LIB_WIDE, status)
+        build.launch_counts[NAME_WIDE] += 1
+        return dx
+    kt, kp, rt = plan(t, k)
     if -(-t // 32) > _MAX_ROW_TILES or q >= 2 ** 31:
         raise ValueError(f"feedback_matmul: grid too large (T={t}, Q={q})")
     rows = 32 * rt
@@ -101,7 +130,7 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         status = _lib()(dy.data_ptr(), u.data_ptr(), s.data_ptr(),
                         v.data_ptr(), mask.data_ptr(), wt.data_ptr(),
                         dyt.data_ptr(), dx.data_ptr(), t, p, q, k, kt, rt,
-                        stream)
+                        _DTYPES[dy.dtype], stream)
     build.check_status(NAME, status)
     build.launch_counts[NAME] += 1
     return dx

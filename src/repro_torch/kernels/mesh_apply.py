@@ -1,9 +1,13 @@
 """Block-batched MZI mesh application ``y_b = U(Φ_b, D_b) x_b``: the wrapper.
 
 Counterpart of ``repro/kernels/mesh_apply.py`` and the table pass of
-``repro/kernels/ops.py::mesh_apply``.  On a CUDA tensor it launches the
-hand-written kernel in ``csrc/mesh_apply.cu`` (which computes cos/sin
-itself); on a CPU tensor it runs the plain PyTorch version
+``repro/kernels/ops.py::mesh_apply``.  On a CUDA tensor it launches one of
+the two hand-written kernels in ``csrc/mesh_apply.cu`` (both compute
+cos/sin themselves), picked by :func:`route` from k alone and each
+counting its launches under its own name: ``mesh_apply`` (k <= 32, a
+row's wires in one thread's registers) and ``mesh_apply_wide`` (k > 32,
+a CTA's rows in shared memory, the rotations as a list in layer order).
+On a CPU tensor it runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.mesh_apply_ref`).
 
 ``spec`` is a :class:`repro_torch.core.unitary.MeshSpec`; only its numpy
@@ -19,14 +23,21 @@ import numpy as np
 import torch
 
 from . import build
+from .ptc_block_matmul import MAX_K
 from .ref import mesh_apply_ref
 
 __all__ = ["mesh_apply", "mesh_apply_batched", "mesh_apply_plain",
-           "layer_tables", "MAX_K"]
+           "layer_tables", "rotation_tables", "route", "MAX_K"]
 
-NAME = "mesh_apply"
-MAX_K = 32
-_MAX_ROW_TILES = 65535   # grid.y limit; row tiles are 256 rows
+NAME = "mesh_apply"                  # launch counter, k <= MAX_K
+NAME_WIDE = "mesh_apply_wide"        # launch counter, k > MAX_K
+_MAX_ROW_TILES = 65535   # grid.y limit; the narrow kernel's tiles are 256 rows
+
+
+def route(k: int) -> str:
+    """``"narrow"`` (a row's wires in registers) for k <= :data:`MAX_K`,
+    ``"wide"`` for every larger k.  Reads nothing but its argument."""
+    return "narrow" if k <= MAX_K else "wide"
 
 
 def _lib():
@@ -39,7 +50,12 @@ def _lib():
                        ctypes.c_longlong] + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        wide = lib.mesh_apply_wide_f32
+        wide.argtypes = [ctypes.c_void_p, ctypes.c_longlong] \
+            + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        wide.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=64)
@@ -53,6 +69,21 @@ def layer_tables(k: int, kind: str, device: torch.device):
     return (as_t(spec.layer_slot.astype(np.int64)),
             as_t(spec.layer_partner.astype(np.int64)),
             as_t(spec.layer_sign), as_t(up).contiguous())
+
+
+@functools.lru_cache(maxsize=64)
+def rotation_tables(k: int, kind: str, device: torch.device):
+    """The wide kernel's rotation list in layer order: each rotation's
+    upper wire and phase slot (int32), and each layer's first index into
+    them (L + 1 entries)."""
+    from ..core.unitary import mesh_spec
+    spec = mesh_spec(k, kind)
+    upper = spec.layer_sign < 0                          # (L, k)
+    wire = np.nonzero(upper)[1].astype(np.int32)         # row-major: by layer
+    slot = spec.layer_slot[upper].astype(np.int32)
+    start = np.concatenate([[0], np.cumsum(upper.sum(1))]).astype(np.int32)
+    as_t = functools.partial(torch.as_tensor, device=device)
+    return as_t(wire), as_t(slot), as_t(start)
 
 
 def mesh_apply_plain(spec, phases: torch.Tensor, x: torch.Tensor,
@@ -102,25 +133,34 @@ def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
                                 transpose_out=transpose_out)
     if x.device.type != "cuda":
         raise ValueError(f"mesh_apply: unsupported device {x.device}")
-    if k > MAX_K:
-        raise ValueError(f"mesh_apply: k = {k} > {MAX_K}")
     out = torch.empty((b, k, r) if transpose_out else (b, r, k),
                       dtype=x.dtype, device=x.device)
     if b == 0 or r == 0:
         return out
-    if -(-r // 256) > _MAX_ROW_TILES:
-        raise ValueError(f"mesh_apply: too many rows per mesh ({r})")
-    up = layer_tables(k, spec.kind, x.device)[3]
     x_bstride = x.stride(0) if x.shape[0] == b and b > 1 else 0
     y_rstride, y_wstride = (1, r) if transpose_out else (k, 1)
+    wide = route(k) == "wide"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = _lib()(x.data_ptr(), x_bstride, phases.data_ptr(),
-                        0 if d is None else d.data_ptr(), up.data_ptr(),
-                        out.data_ptr(), r * k, y_rstride, y_wstride,
-                        b, r, k, t, up.shape[0], stream)
+        lib = _lib()
+        dptr = 0 if d is None else d.data_ptr()
+        if wide:
+            wire, slot, start = rotation_tables(k, spec.kind, x.device)
+            status = lib.mesh_apply_wide_f32(
+                x.data_ptr(), x_bstride, phases.data_ptr(), dptr,
+                wire.data_ptr(), slot.data_ptr(), start.data_ptr(),
+                out.data_ptr(), r * k, y_rstride, y_wstride, b, r, k, t,
+                start.shape[0] - 1, stream)
+        else:
+            if -(-r // 256) > _MAX_ROW_TILES:
+                raise ValueError(f"mesh_apply: too many rows per mesh ({r})")
+            up = layer_tables(k, spec.kind, x.device)[3]
+            status = lib.mesh_apply_f32(
+                x.data_ptr(), x_bstride, phases.data_ptr(), dptr,
+                up.data_ptr(), out.data_ptr(), r * k, y_rstride, y_wstride,
+                b, r, k, t, up.shape[0], stream)
     build.check_status(NAME, status)
-    build.launch_counts[NAME] += 1
+    build.launch_counts[NAME_WIDE if wide else NAME] += 1
     return out
 
 

@@ -15,12 +15,12 @@ A causal chunk of C query tokens per slot, already rope'd at absolute
 positions ``lens[b] + c``, attends over the slot's page-assembled view
 with the chunk's own K/V rows spliced in, with GQA, an optional sliding
 window and an optional logit soft-cap.  The reference's online softmax
-runs over KV blocks of ``blk`` keys; the kernel walks each block in tiles
-of at most 32 keys, with the same masking discipline (finite floor
-``NEG_INF`` before the max, probabilities zeroed by the mask, so a fully
-masked tile adds exactly +0.0).  ``blk`` changes only the order of the
-sums, never the function (the tensor-core kernel's tiles are 64 keys
-whatever ``blk`` is).
+runs over KV blocks of ``blk`` keys; both kernels walk the view in tiles
+of their own (64 keys; 32 on the CUDA cores past head dim 128), with the
+same masking discipline (finite floor ``NEG_INF`` before the max,
+probabilities zeroed by the mask, so a fully masked tile adds exactly
++0.0).  ``blk`` changes only the order of the sums, never the function,
+and neither kernel reads it.
 
 Q·K products accumulate in fp32 from the inputs as given.  The Pallas
 body rounds bf16 logits to bf16 before its fp32 cast; the port does not
@@ -64,7 +64,7 @@ def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> str:
 def _fn():
     fn = build.library(LIB).prefill_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
             + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -77,11 +77,6 @@ def _fn_tc():
             + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _tile(blk: int) -> int:
-    """Keys per kernel tile: the largest divisor of ``blk`` up to 32."""
-    return next(t for t in range(min(blk, 32), 0, -1) if blk % t == 0)
 
 
 def prefill_attention(lens: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -145,7 +140,7 @@ def prefill_attention(lens: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             lib = LIB
             status = _fn()(lens.data_ptr(), q.data_ptr(), k.data_ptr(),
                            v.data_ptr(), out.data_ptr(), b, c, h, hkv, hd, s,
-                           _tile(blk), window or 0, cap or 0.0, hd ** -0.5,
+                           window or 0, cap or 0.0, hd ** -0.5,
                            int(q.dtype == torch.bfloat16),
                            int(k.dtype == torch.bfloat16), stream)
     build.check_status(lib, status)

@@ -12,7 +12,13 @@ shapes alone, each counting its launches under its own name:
   added in a fixed order;
 * ``"per_block"`` (counter ``ptc_block_matmul_perblock``): Q = 1 and few
   rows, as the IC/PM probes send (the eye through every block), where the
-  output is the composed blocks themselves and the work is bytes.
+  output is the composed blocks themselves and the work is bytes;
+* ``"wide"`` (counter ``ptc_block_matmul_wide``, ``csrc/ptc_wide.cu``):
+  every k > 32 (k = 128 in every LM config), whatever T and Q: each block
+  composed once by a batched block product into a (P·k, Q·k) scratch, the
+  same layout the feedback composes, then one register-tiled fp32 product
+  of 128 × 128 output tiles that reads it transposed
+  (:data:`WIDE_TILE`, :func:`wide_plan`).
 
 On a CPU tensor it runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.ptc_block_matmul_ref`).
@@ -29,13 +35,19 @@ from . import build
 from .ref import ptc_block_matmul_ref
 
 __all__ = ["ptc_block_matmul", "route", "plan", "Plan", "kernel_k",
-           "MAX_K", "PER_BLOCK_MAX_T", "ROUTES", "K_STAGE"]
+           "wide_plan", "WidePlan", "wide_lib", "MAX_K", "PER_BLOCK_MAX_T",
+           "ROUTES", "K_STAGE", "WIDE_TILE"]
 
 LIB = "ptc_block_matmul"
+LIB_WIDE = "ptc_wide"                     # the k > MAX_K routes of all three
 NAME = "ptc_block_matmul"                 # launch counter, product route
 NAME_PER_BLOCK = "ptc_block_matmul_perblock"
-ROUTES = {"product": NAME, "per_block": NAME_PER_BLOCK}
-MAX_K = 32
+NAME_WIDE = "ptc_block_matmul_wide"
+ROUTES = {"product": NAME, "per_block": NAME_PER_BLOCK, "wide": NAME_WIDE}
+MAX_K = 32                      # the widest block of the k <= 32 kernels
+# the wide kernels' CTA output tile (rows, columns) and reduction steps a
+# stage (csrc/ptc_wide.cu; the kernel reports its own by ptc_wide_tile)
+WIDE_TILE = (128, 128, 16)
 # the per-block route takes Q = 1 up to this many rows.  Measured on an
 # H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's crossover line), ms
 # per call, per-block against product: P = 57: T 64 0.0111 / 0.0178, T 128
@@ -52,17 +64,57 @@ _MAX_GRID_Y = 65535
 
 def kernel_k(k: int) -> int:
     """The k the kernels are compiled for: the least of 4, 8, 9, 16, 32
-    that holds k."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"ptc_block_matmul: k = {k} outside 1..{MAX_K}")
-    return next(c for c in _KERNEL_K if c >= k)
+    that holds k; past 32, k itself (the wide kernels take it at run
+    time)."""
+    if k < 1:
+        raise ValueError(f"ptc_block_matmul: k = {k} < 1")
+    return next((c for c in _KERNEL_K if c >= k), k)
 
 
 def route(t: int, p: int, q: int, k: int) -> str:
-    """``"per_block"`` for one input block (Q = 1) and at most
-    :data:`PER_BLOCK_MAX_T` rows, ``"product"`` for every other shape.  The
-    rule reads nothing but its arguments."""
+    """``"wide"`` for every k > :data:`MAX_K`; else ``"per_block"`` for one
+    input block (Q = 1) and at most :data:`PER_BLOCK_MAX_T` rows,
+    ``"product"`` for every other shape.  The rule reads nothing but its
+    arguments."""
+    if k > MAX_K:
+        return "wide"
     return "per_block" if q == 1 and t <= PER_BLOCK_MAX_T else "product"
+
+
+class WidePlan(NamedTuple):
+    """The wide kernels' grids: output tiles of the product along its rows
+    and columns, and each block's tiles along a side (the batched block
+    products: compose and project)."""
+    row_tiles: int
+    col_tiles: int
+    block_tiles: int
+
+
+def wide_plan(rows: int, cols: int, k: int) -> WidePlan:
+    """The tiling of a wide product with a (rows, cols) output over blocks
+    of size k: :data:`WIDE_TILE` tiles, the last of each side ragged (the
+    kernels size their grids the same way; the wrappers check the row
+    tiles against the grid's limit)."""
+    bm, bn, _ = WIDE_TILE
+    return WidePlan(-(-rows // bm), -(-cols // bn), -(-k // bm))
+
+
+def wide_lib():
+    """The loaded ``ptc_wide`` library (the k > 32 routes of
+    ``ptc_block_matmul``, ``sigma_grad`` and ``feedback_matmul``)."""
+    lib = build.library(LIB_WIDE)
+    if lib.ptc_wide_forward.argtypes is None:
+        lib.ptc_wide_forward.argtypes = \
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ptc_wide_sigma.argtypes = \
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ptc_wide_feedback.argtypes = \
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ptc_wide_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.ptc_wide_forward, lib.ptc_wide_sigma,
+                   lib.ptc_wide_feedback, lib.ptc_wide_tile):
+            fn.restype = ctypes.c_int
+    return lib
 
 
 class Plan(NamedTuple):
@@ -92,7 +144,10 @@ def plan(t: int, p: int, q: int, k: int, sms: int = 132) -> Plan:
     multiple of :data:`K_STAGE`), about one CTA per SM: on an H100 that
     beat two per SM at every VGG-8 shape and at serve W1 (the partials'
     round trip and the second pass cost more than the second CTA gains;
-    PERF.md)."""
+    PERF.md).  k past :data:`MAX_K` has no product plan (the wide route)."""
+    if k > MAX_K:
+        raise ValueError(f"ptc_block_matmul: the product route takes k <= "
+                         f"{MAX_K}, not {k}")
     kt = kernel_k(k)
     wb = 8 if kt <= 9 else (4 if kt == 16 else 2)
     wn = 1 if p <= wb else 2
@@ -149,20 +204,32 @@ def ptc_block_matmul(x: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ptc_block_matmul: unsupported device {x.device}")
     which = force_route or route(t, p, q, k)
-    if which not in ROUTES or (which == "per_block" and q != 1):
-        raise ValueError(f"ptc_block_matmul: no route {which!r} for Q = {q}")
-    kernel_k(k)
+    if which not in ROUTES or (which == "per_block" and q != 1) \
+            or ((which == "wide") != (k > MAX_K)):
+        raise ValueError(f"ptc_block_matmul: no route {which!r} for Q = {q},"
+                         f" k = {k}")
     y = torch.empty((t, p * k), dtype=x.dtype, device=x.device)
     if t == 0 or p == 0 or q == 0:
         return y.zero_()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        lib = _fns()
-        if which == "per_block":
-            status = lib.ptc_block_matmul_perblock(
+        if which == "wide":
+            lib = LIB_WIDE
+            if wide_plan(t, p * k, k).row_tiles > _MAX_GRID_Y:
+                raise ValueError(f"ptc_block_matmul: grid too large (T={t})")
+            w = torch.empty((p * k, q * k), dtype=torch.float32,
+                            device=x.device)
+            status = wide_lib().ptc_wide_forward(
+                x.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                w.data_ptr(), y.data_ptr(), t, p, q, k, _DTYPES[x.dtype],
+                stream)
+        elif which == "per_block":
+            lib = LIB
+            status = _fns().ptc_block_matmul_perblock(
                 x.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
                 y.data_ptr(), t, p, k, _DTYPES[x.dtype], stream)
         else:
+            lib = LIB
             pl = force_plan or plan(t, p, q, k, build.sm_count(x.device))
             if max(-(-t // pl.bm), pl.splits, q) > _MAX_GRID_Y:
                 raise ValueError(f"ptc_block_matmul: grid too large "
@@ -172,10 +239,10 @@ def ptc_block_matmul(x: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
             part = torch.empty((pl.splits, t, p * k) if pl.splits > 1
                                else (0,), dtype=torch.float32,
                                device=x.device)
-            status = lib.ptc_block_matmul_product(
+            status = _fns().ptc_block_matmul_product(
                 x.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
                 wt.data_ptr(), part.data_ptr(), y.data_ptr(), t, p, q, k,
                 _DTYPES[x.dtype], pl.wn, pl.kc, pl.splits, stream)
-    build.check_status(LIB, status)
+    build.check_status(lib, status)
     build.launch_counts[ROUTES[which]] += 1
     return y

@@ -29,14 +29,17 @@ def ptc_block_matmul_ref(x, u, s, v):
     return y.reshape(x.shape[0], p * k).to(x.dtype)
 
 
-def sigma_grad_ref(dy, x, u, v):
-    """In-situ Σ-gradient ds_pq = Σ_t (U_pqᵀ δy_p) ⊙ (V*_pq x_q), in fp32.
+def sigma_grad_ref(dy, x, u, v, col=None):
+    """In-situ Σ-gradient ds_pq = Σ_t col_t (U_pqᵀ δy_p) ⊙ (V*_pq x_q), in
+    fp32.
 
-    dy: (T, P·k); x: (T, Q·k); u,v: (P, Q, k, k)  →  ds: (P, Q, k) fp32
+    dy: (T, P·k); x: (T, Q·k); u,v: (P, Q, k, k); col: (T,) fp32 column
+    scale or None  →  ds: (P, Q, k) fp32
     """
     p, q, k, _ = u.shape
     f32 = torch.float32
-    dyb = dy.to(f32).reshape(dy.shape[0], p, k)
+    dyf = dy.to(f32) if col is None else dy.to(f32) * col[:, None]
+    dyb = dyf.reshape(dy.shape[0], p, k)
     xb = x.to(f32).reshape(x.shape[0], q, k)
     gu = torch.einsum("pqik,tpi->tpqk", u.to(f32), dyb)
     xv = torch.einsum("pqkj,tqj->tpqk", v.to(f32), xb)

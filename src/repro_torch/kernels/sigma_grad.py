@@ -6,7 +6,16 @@ kernel in ``csrc/sigma_grad.cu``: the dense ``G = δyᵀx`` per tile of
 (p-blocks × q-blocks), projected in the epilogue to ``ds_pq[i] = Σ_a
 U[a,i] (G_pq V*_pqᵀ)[a,i]``; where the tiles cannot fill the card,
 :func:`plan` splits T across CTAs and the kernel sums the splits' projected
-partials in a fixed order.  On a CPU tensor it runs the plain PyTorch
+partials in a fixed order.  Past k = 32 it launches the wide route
+instead (counter ``sigma_grad_wide``, ``csrc/ptc_wide.cu``): the dense
+``G = δyᵀx`` over all T rows by one register-tiled product of 128 × 128
+tiles into an fp32 scratch, then each block projected by a batched block
+product.  Both routes take fp32 or bf16 operands (all four alike),
+widened on load; ds is fp32.  A column mask ``col`` scales δy's rows in
+fp32: on the wide route as the kernel widens them; the k <= 32 ring
+fetches fp32 rows by ``cp.async``, which cannot scale, so there the
+wrapper forms ``col ⊙ δy`` in fp32 first (widening the other operands,
+which changes none of their values).  On a CPU tensor it runs the plain PyTorch
 version (:func:`repro_torch.kernels.ref.sigma_grad_ref`).
 """
 
@@ -18,13 +27,14 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .ptc_block_matmul import kernel_k
+from .ptc_block_matmul import LIB_WIDE, MAX_K, kernel_k, wide_lib, wide_plan
 from .ref import sigma_grad_ref
 
-__all__ = ["sigma_grad", "plan", "Plan", "MAX_K"]
+__all__ = ["sigma_grad", "route", "plan", "Plan", "MAX_K"]
 
-NAME = "sigma_grad"
-MAX_K = 32
+NAME = "sigma_grad"                 # launch counter, k <= MAX_K
+NAME_WIDE = "sigma_grad_wide"       # launch counter, k > MAX_K
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (p-blocks, q-blocks) of a CTA's G tile by compiled k: 128 threads, each a
 # 9 x 9 (k = 9) or 8 x 8 tile of G
 _TILE = {4: (16, 32), 8: (8, 16), 9: (8, 16), 16: (4, 8), 32: (2, 4)}
@@ -49,7 +59,10 @@ def plan(t: int, p: int, q: int, k: int, sms: int = 132) -> Plan:
     A CTA owns ``mp`` × ``nq`` blocks of G (8 × 16 at k = 9) over a chunk
     of ``chunk_rows`` rows (a multiple of 16).  Where the tiles are fewer
     than the ``sms`` SMs, T is cut into ``splits`` chunks, enough for two
-    CTAs per SM, each of at least 256 rows."""
+    CTAs per SM, each of at least 256 rows.  k past :data:`MAX_K` has no
+    plan here (the wide route)."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"sigma_grad: k = {k} outside 1..{MAX_K}")
     kt = kernel_k(k)
     mp, nq = _TILE[kt]
     tiles = -(-p // mp) * -(-q // nq)
@@ -61,21 +74,30 @@ def plan(t: int, p: int, q: int, k: int, sms: int = 132) -> Plan:
     return Plan(kt, mp, nq, max(1, -(-t // chunk)), chunk)
 
 
+def route(k: int) -> str:
+    """``"narrow"`` (the k <= 32 kernel) or ``"wide"`` (every larger k).
+    Reads nothing but its argument."""
+    return "wide" if k > MAX_K else "narrow"
+
+
 def _lib():
     lib = build.library(NAME)
     if lib.sigma_grad.argtypes is None:
-        lib.sigma_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+        lib.sigma_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         lib.sigma_grad.restype = ctypes.c_int
     return lib
 
 
 def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
-               v: torch.Tensor, *, force_plan: Plan | None = None
-               ) -> torch.Tensor:
-    """dy: (T, P·k), x: (T, Q·k), u/v: (P, Q, k, k) → ds: (P, Q, k) fp32.
+               v: torch.Tensor, col: torch.Tensor | None = None, *,
+               force_plan: Plan | None = None) -> torch.Tensor:
+    """dy: (T, P·k), x: (T, Q·k), u/v: (P, Q, k, k), col: (T,) fp32 column
+    scale or None → ds: (P, Q, k) fp32, the Σ-gradient of ``col ⊙ δy``.
 
-    All fp32, contiguous, on one device.  Two runs give the same bits.
+    dy, x, u, v all fp32 or all bf16, contiguous, on one device;
+    accumulated in fp32, the column scale applied in fp32.  Two runs give
+    the same bits.
     ``force_plan`` overrides :func:`plan` (for testing the splits; the
     callers in the port pass none).
     """
@@ -90,21 +112,41 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"sigma_grad: dy has {dy.shape[1]} and x "
                          f"{x.shape[1]} columns, the block grid needs "
                          f"P·k = {p * k} and Q·k = {q * k}")
-    if any(a.dtype != torch.float32 for a in (dy, x, u, v)):
-        raise TypeError("sigma_grad: dy, x, u, v must be float32; got "
-                        f"{dy.dtype}, {x.dtype}, {u.dtype}, {v.dtype}")
-    if len({a.device for a in (dy, x, u, v)}) != 1:
+    if len({a.dtype for a in (dy, x, u, v)}) != 1 or dy.dtype not in _DTYPES:
+        raise TypeError("sigma_grad: dy, x, u, v must share one dtype, "
+                        f"float32 or bfloat16; got {dy.dtype}, {x.dtype}, "
+                        f"{u.dtype}, {v.dtype}")
+    if col is not None and (col.shape != (t,) or col.dtype != torch.float32):
+        raise ValueError(f"sigma_grad: col must be ({t},) float32, got "
+                         f"{tuple(col.shape)} {col.dtype}")
+    ins = (dy, x, u, v) if col is None else (dy, x, u, v, col)
+    if len({a.device for a in ins}) != 1:
         raise ValueError("sigma_grad: inputs lie on different devices")
-    if not all(a.is_contiguous() for a in (dy, x, u, v)):
+    if not all(a.is_contiguous() for a in ins):
         raise ValueError("sigma_grad: inputs must be contiguous")
     if dy.device.type == "cpu":
-        return sigma_grad_ref(dy, x, u, v)
+        return sigma_grad_ref(dy, x, u, v, col)
     if dy.device.type != "cuda":
         raise ValueError(f"sigma_grad: unsupported device {dy.device}")
-    kernel_k(k)
     ds = torch.empty((p, q, k), dtype=torch.float32, device=dy.device)
     if t == 0 or p * q == 0:
         return ds.zero_()
+    if route(k) == "wide":
+        if wide_plan(p * k, q * k, k).row_tiles > _MAX_GRID:
+            raise ValueError(f"sigma_grad: grid too large (P={p}, k={k})")
+        g = torch.empty((p * k, q * k), dtype=torch.float32, device=dy.device)
+        with torch.cuda.device(dy.device):
+            status = wide_lib().ptc_wide_sigma(
+                dy.data_ptr(), x.data_ptr(), u.data_ptr(), v.data_ptr(),
+                0 if col is None else col.data_ptr(), g.data_ptr(),
+                ds.data_ptr(), t, p, q, k, _DTYPES[dy.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        build.check_status(LIB_WIDE, status)
+        build.launch_counts[NAME_WIDE] += 1
+        return ds
+    if col is not None:
+        dy = dy.float() * col[:, None]
+        x, u, v = x.float(), u.float(), v.float()
     pl = force_plan or plan(t, p, q, k, build.sm_count(dy.device))
     if -(-p // pl.mp) > _MAX_GRID or pl.splits > _MAX_GRID \
             or p * q * k >= 2 ** 31:
@@ -116,7 +158,7 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
         status = _lib().sigma_grad(dy.data_ptr(), x.data_ptr(), u.data_ptr(),
                                    v.data_ptr(), part.data_ptr(),
                                    ds.data_ptr(), t, p, q, k, pl.chunk_rows,
-                                   pl.splits, stream)
+                                   pl.splits, _DTYPES[dy.dtype], stream)
     build.check_status(NAME, status)
     build.launch_counts[NAME] += 1
     return ds

@@ -30,6 +30,21 @@ package, so the repository's conftest is not needed)::
 * ``sigma_grad`` against ``ref.sigma_grad_ref`` and against
   ``torch.autograd`` of the plain forward (1e-4 of the largest |ds|) at
   the same k, widths and ragged T; split-T plans rerun bitwise.
+* bf16 operands on the k <= 32 routes of ``sigma_grad`` and
+  ``feedback_matmul`` (ds fp32 at 1e-4; dx bf16 within one bf16 ulp of
+  the largest entry, 2^-7).
+* The wide routes (k > 32) of ``ptc_block_matmul``, ``sigma_grad`` and
+  ``feedback_matmul`` against their plain versions at k 33, 64, 100 and
+  128, fp32 (1e-4) and bf16 (2^-7 for the bf16 outputs y and dx; ds at
+  1e-4), T at the 128-row tile's edges, feedback masks of density 0, 0.5,
+  1 and btopk; reruns bitwise, every call on the wide route; the kernel's
+  tile is the wrapper's ``WIDE_TILE``.  ``mesh_apply``'s wide route
+  (``build_unitary`` and rows of their own, reck and clements) at 1e-5.
+* The CUDA-core ``prefill_attention`` route (fp32 q; fp32 q over bf16
+  K/V; bf16 at head dims other than 64 and 128) over the 12 (blk, window,
+  cap) cases at 2e-5, head dims 5, 96, 200 and 256, reruns bitwise; a
+  block outside the window changes no bit; every ``blk`` that divides the
+  view gives the same bits (the kernel reads none).
 """
 
 import os
@@ -45,7 +60,8 @@ from repro_torch.kernels import (build, feedback_matmul, prefill_attention,
                                  ptc_block_matmul, ref, sigma_grad)
 from repro_torch.kernels.prefill_attn import NAME, NAME_CUDA_CORES
 from repro_torch.kernels.ptc_block_matmul import (K_STAGE, PER_BLOCK_MAX_T,
-                                                  ROUTES, Plan, route)
+                                                  ROUTES, WIDE_TILE, Plan,
+                                                  route, wide_lib)
 from repro_torch.kernels.ptc_block_matmul import plan as product_plan
 from repro_torch.kernels.sigma_grad import Plan as SigmaPlan
 from repro_torch.kernels.sigma_grad import plan as sigma_plan
@@ -222,7 +238,7 @@ def test_ptc_block_matmul_routes_match_plain_version(card, t, p, q, k, dtype,
                                                      tol):
     x, u, s, v = _ptc_inputs(t, p, q, k, dtype)
     want = ref.ptc_block_matmul_ref(x, u, s, v)
-    for which in ROUTES if q == 1 else ("product",):
+    for which in ("product", "per_block") if q == 1 else ("product",):
         before = build.launch_counts[ROUTES[which]]
         y = ptc_block_matmul(x, u, s, v, force_route=which)
         again = ptc_block_matmul(x, u, s, v, force_route=which)
@@ -310,3 +326,185 @@ def test_sigma_grad_split_t_plans_rerun_bitwise(card, t, p, q, k):
         ds = sigma_grad(dy, x, u, v, force_plan=pl)
         assert torch.equal(ds, sigma_grad(dy, x, u, v, force_plan=pl))
         assert _rel(ds, want) < 1e-4, pl
+
+
+def _masks(gen, q, p, density):
+    if density == "btopk":
+        return feedback_mask(gen, torch.rand((p, q), generator=gen,
+                                             device="cuda"),
+                             SparsityConfig(alpha_w=0.6,
+                                            feedback_mode="btopk"))
+    return (torch.rand((q, p), generator=gen, device="cuda")
+            < density).float() * 2.0
+
+
+@pytest.mark.parametrize("t,p,q,k", [(100, 3, 5, 9), (129, 2, 2, 32),
+                                     (1000, 3, 5, 13)])
+@pytest.mark.parametrize("density", [0.5, "btopk"])
+def test_narrow_backward_routes_take_bf16(card, t, p, q, k, density):
+    dy, x, u, s, v = (a.to(torch.bfloat16)
+                      for a in _sigma_inputs(t, p, q, k, seed=2))
+    gen = torch.Generator("cuda").manual_seed(t)
+    mask = _masks(gen, q, p, density)
+    before = dict(build.launch_counts)
+    ds = sigma_grad(dy, x, u, v)
+    dx = feedback_matmul(dy, u, s, v, mask)
+    torch.cuda.synchronize()
+    assert build.launch_counts["sigma_grad"] - before["sigma_grad"] == 1
+    assert build.launch_counts["feedback_matmul"] \
+        - before["feedback_matmul"] == 1
+    assert ds.dtype == torch.float32 and dx.dtype == torch.bfloat16
+    assert torch.equal(ds, sigma_grad(dy, x, u, v))
+    assert torch.equal(dx, feedback_matmul(dy, u, s, v, mask))
+    assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v)) < 1e-4
+    assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < 2 ** -7
+
+
+_WIDE = [(37, 2, 3, 33), (64, 2, 2, 64), (129, 3, 2, 100), (127, 3, 3, 128),
+         (128, 2, 3, 128), (129, 3, 2, 128), (1, 1, 1, 128)]
+
+
+@pytest.mark.parametrize("t,p,q,k", _WIDE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0, "btopk"])
+def test_wide_ptc_routes_match_plain_version(card, t, p, q, k, dtype,
+                                             density):
+    dy, x, u, s, v = (a.to(dtype) for a in _sigma_inputs(t, p, q, k))
+    gen = torch.Generator("cuda").manual_seed(t + k)
+    mask = _masks(gen, q, p, density)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    before = dict(build.launch_counts)
+    y = ptc_block_matmul(x, u, s, v)
+    ds = sigma_grad(dy, x, u, v)
+    dx = feedback_matmul(dy, u, s, v, mask)
+    torch.cuda.synchronize()
+    for name in ("ptc_block_matmul_wide", "sigma_grad_wide",
+                 "feedback_matmul_wide"):
+        assert build.launch_counts[name] - before[name] == 1, name
+    for name in ("ptc_block_matmul", "ptc_block_matmul_perblock",
+                 "sigma_grad", "feedback_matmul"):
+        assert build.launch_counts[name] == before[name], name
+    assert y.dtype == dtype and dx.dtype == dtype
+    assert torch.equal(y, ptc_block_matmul(x, u, s, v))
+    assert torch.equal(ds, sigma_grad(dy, x, u, v))
+    assert torch.equal(dx, feedback_matmul(dy, u, s, v, mask))
+    assert _rel(y, ref.ptc_block_matmul_ref(x, u, s, v)) < tol
+    assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v)) < 1e-4
+    if density == 0.0:
+        assert int(torch.count_nonzero(dx)) == 0
+    else:
+        assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < tol
+
+
+@pytest.mark.parametrize("t,p,q,k", [(100, 3, 5, 9), (129, 2, 2, 32),
+                                     (37, 2, 3, 33), (129, 3, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sigma_grad_column_scale_is_fp32_on_both_routes(card, t, p, q, k,
+                                                        dtype):
+    # a normalizer off bf16's grid (column_norm "exp" at α_C = 0.6): the
+    # kernel scales δy in fp32, bit for bit as if δy came widened and
+    # scaled; the pre-scaled fp32 call is itself checked above
+    dy, x, u, _, v = (a.to(dtype) for a in _sigma_inputs(t, p, q, k))
+    gen = torch.Generator("cuda").manual_seed(t)
+    col = (torch.rand((t,), generator=gen, device="cuda") < 0.6).float() \
+        / 0.6
+    ds = sigma_grad(dy, x, u, v, col)
+    want = sigma_grad((dy.float() * col[:, None]).contiguous(), x.float(),
+                      u.float(), v.float())
+    assert torch.equal(ds, want)
+    assert torch.equal(ds, sigma_grad(dy, x, u, v, col))
+    assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v, col)) < 1e-4
+
+
+def test_wide_kernel_tile_is_the_plan(card):
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    assert wide_lib().ptc_wide_tile(out) == 0
+    assert tuple(out) == WIDE_TILE
+
+
+@pytest.mark.parametrize("k", [33, 64, 100, 128])
+@pytest.mark.parametrize("kind", ["reck", "clements"])
+def test_wide_mesh_apply_matches_plain_version(card, k, kind):
+    from repro_torch.core import unitary as un
+    from repro_torch.kernels import mesh_apply_plain
+    from repro_torch.kernels.mesh_apply import mesh_apply_batched
+    spec = un.mesh_spec(k, kind)
+    gen = torch.Generator("cuda").manual_seed(k)
+    ph = torch.randn((37, spec.n_rot), generator=gen, device="cuda") * 3
+    d = torch.where(torch.rand((37, k), generator=gen, device="cuda") < 0.5,
+                    1.0, -1.0)
+    x = torch.randn((37, 70, k), generator=gen, device="cuda")
+    before = build.launch_counts["mesh_apply_wide"]
+    u = un.build_unitary(spec, ph, d)
+    y = mesh_apply_batched(spec, ph, x, d)
+    torch.cuda.synchronize()
+    assert build.launch_counts["mesh_apply_wide"] - before == 2
+    eye = torch.eye(k, device="cuda")[None]
+    assert float((u - mesh_apply_plain(spec, ph, eye, d, transpose_out=True))
+                 .abs().max()) < 1e-5
+    assert float((y - mesh_apply_plain(spec, ph, x, d)).abs().max()) < 1e-5
+    assert torch.equal(y, mesh_apply_batched(spec, ph, x, d))
+
+
+_CC_PREFILL = [(3, 5, 4, 2, 8, 24, [0, 7, 19]),       # the reference test
+               (2, 37, 3, 3, 96, 136, [0, 99]),        # rep 1, 37 rows
+               (2, 50, 4, 2, 128, 640, [0, 590])]      # lens = S - C
+
+
+@pytest.mark.parametrize("geom", _CC_PREFILL)
+@pytest.mark.parametrize("blk", [None, 8, 4])
+@pytest.mark.parametrize("window,cap", [(None, None), (6, None), (None, 3.0),
+                                        (5, 2.0)])
+def test_cuda_core_prefill_matches_plain_version(card, geom, blk, window,
+                                                 cap):
+    lens, q, k, v = _bf16_inputs(geom, seed=3)
+    q, k, v = q.float(), k.float(), v.float()
+    kw = dict(blk=blk, window=window, cap=cap)
+    before = dict(build.launch_counts)
+    got = prefill_attention(lens, q, k, v, **kw)
+    mixed = prefill_attention(lens, q, k.bfloat16(), v.bfloat16(), **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts[NAME_CUDA_CORES] \
+        - before[NAME_CUDA_CORES] == 2
+    assert build.launch_counts[NAME] == before[NAME]
+    assert torch.equal(got, prefill_attention(lens, q, k, v, **kw))
+    want = ref.prefill_attention_ref(lens, q, k, v, window=window, cap=cap)
+    assert float((got - want).abs().max()) < 2e-5
+    want = ref.prefill_attention_ref(lens, q, k.bfloat16(), v.bfloat16(),
+                                     window=window, cap=cap)
+    assert float((mixed - want).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("hd", [5, 96, 200, 256])
+def test_cuda_core_prefill_takes_other_head_dims(card, hd):
+    lens, q, k, v = _bf16_inputs((2, 9, 4, 2, hd, 100, [0, 91]), seed=4)
+    got = prefill_attention(lens, q, k, v, window=40)   # bf16, not 64/128
+    assert _rel(got, ref.prefill_attention_ref(lens, q, k, v,
+                                               window=40)) <= 2 ** -7
+    q, k, v = q.float(), k.float(), v.float()
+    got = prefill_attention(lens, q, k, v, window=40)
+    assert float((got - ref.prefill_attention_ref(lens, q, k, v, window=40))
+                 .abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("blk", [1, 4, 8, 24, 32, 40, 64, 640])
+@pytest.mark.parametrize("hd", [128, 200])      # 64-key and 32-key tiles
+def test_cuda_core_prefill_is_the_same_at_every_block(card, blk, hd):
+    # the kernel reads no blk: every block gives the whole view's bits
+    lens, q, k, v = _bf16_inputs((2, 20, 4, 2, hd, 1920, [0, 1900]), seed=6)
+    q, k, v = q.float(), k.float(), v.float()
+    whole = prefill_attention(lens, q, k, v, window=700)
+    assert torch.equal(prefill_attention(lens, q, k, v, blk=blk, window=700),
+                       whole)
+
+
+def test_cuda_core_prefill_block_outside_the_window_changes_no_bit(card):
+    lens, q, k, v = _bf16_inputs((1, 8, 4, 2, 32, 200, [160]), seed=5)
+    q, k, v = q.float(), k.float(), v.float()
+    base = prefill_attention(lens, q, k, v, window=20)
+    k2, v2 = k.clone(), v.clone()
+    # keys 0-140 lie before every query's window (keys > 140): tiles 0 and
+    # 1 skipped, tile 2 masked inside a live tile
+    k2[:, :141], v2[:, :141] = 999.0, -999.0
+    assert torch.equal(base, prefill_attention(lens, q, k2, v2, window=20))

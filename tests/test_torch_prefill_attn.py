@@ -6,11 +6,14 @@ mode (``repro.kernels.ops.prefill_attention``).
 * fp32 queries over bf16 K/V views (the smoke LM's types) at 2e-5;
 * a block the window never sees changes no bit of the output;
 * a block that does not divide the view raises the reference's
-  ``ValueError``; the kernel's key tile never straddles a block;
+  ``ValueError``; neither kernel reads ``blk`` (their key tiles are their
+  own), so the C call takes no argument from it and ``blk`` changes no bit;
 * the wrapper's route between its two CUDA kernels is a rule on the dtypes
   and the head dim alone (bf16/bf16 at Dh 64 and 128 on the tensor cores),
   each route with its own launch counter and library.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +21,8 @@ import pytest
 import torch
 
 from repro.kernels import ops
-from repro_torch.kernels import prefill_attention
-from repro_torch.kernels.prefill_attn import _tile, route
+from repro_torch.kernels import build, prefill_attention
+from repro_torch.kernels.prefill_attn import route
 from repro_torch.kernels.ref import prefill_attention_ref
 
 
@@ -78,11 +81,33 @@ def test_prefill_rejects_indivisible_block():
                           torch.zeros((1, 10, 1, 4)), blk=4)
 
 
+def _c_params(src, name):
+    """Parameter names of ``extern "C" int <name>(...)`` in a csrc file."""
+    text = (build.CSRC / src).read_text()
+    sig = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)', text)
+    return [p.split()[-1].lstrip("*") for p in sig.group(1).split(",")]
+
+
 @pytest.mark.parametrize("blk", [1, 4, 8, 24, 32, 40, 64, 640])
-def test_kernel_tile_divides_the_block(blk):
-    t = _tile(blk)
-    assert 1 <= t <= 32 and blk % t == 0
-    assert t == min(blk, 32) or blk % 32 != 0
+def test_kernel_tile_divides_the_block(blk, monkeypatch):
+    """The CUDA-core kernel's key tile is its own (64 keys, 32 past head dim
+    128), so it need not divide ``blk``: nothing the C call receives depends
+    on ``blk``, and ``blk`` changes no bit of the result."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import prefill_attn
+    params = _c_params(build.SOURCES[prefill_attn.LIB], "prefill_attention")
+    assert not any("blk" in p.lower() or "tile" in p.lower() for p in params)
+    # the wrapper binds exactly the C entry point's parameters
+    fake = SimpleNamespace(prefill_attention=SimpleNamespace(argtypes=None))
+    monkeypatch.setattr(build, "library", lambda lib: fake)
+    assert len(prefill_attn._fn().argtypes) == len(params)
+    # a view every case divides: lcm(24, 40, 64, 640) = 1920
+    q, k, v = (torch.from_numpy(a) for a in _inputs(blk, 1, 4, 2, 1, 8, 1920))
+    lens = torch.tensor([1900], dtype=torch.int32)
+    whole = prefill_attention(lens, q, k, v, window=700)
+    assert torch.equal(prefill_attention(lens, q, k, v, blk=blk, window=700),
+                       whole)
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype,hd,want", [

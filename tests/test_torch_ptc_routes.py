@@ -3,6 +3,12 @@
 * ``ptc_block_matmul.route``: the IC/PM probe geometry (Q = 1, T = k)
   takes the per-block route, serve, the convolutions and FC at T = 32 the
   product route, and the crossover sits at ``PER_BLOCK_MAX_T``.
+* Every k > 32 goes to the wide route of all four kernels, at every T
+  and Q (the per-block route never takes it), and ``kernel_k`` names k
+  itself there; the wide plan's 128 × 128 tiles cover every row, every
+  output column and every block's rows and columns exactly once, for the
+  forward (T, P·k), the feedback (T, Q·k) and the Σ-gradient's G
+  (P·k, Q·k).
 * ``ptc_block_matmul.plan`` and ``sigma_grad.plan`` (pure functions of the
   shapes): the tiles and splits they launch cover every row, every output
   block and every reduction column exactly once, and the splits appear
@@ -22,10 +28,15 @@ import torch
 
 from repro.kernels import ops
 from repro_torch.kernels import build, ptc_block_matmul, sigma_grad
-from repro_torch.kernels.ptc_block_matmul import (K_STAGE, PER_BLOCK_MAX_T,
-                                                  ROUTES, kernel_k, route)
+from repro_torch.kernels.feedback_matmul import route as feedback_route
+from repro_torch.kernels.mesh_apply import route as mesh_route
+from repro_torch.kernels.ptc_block_matmul import (K_STAGE, MAX_K,
+                                                  PER_BLOCK_MAX_T, ROUTES,
+                                                  WIDE_TILE, kernel_k, route,
+                                                  wide_plan)
 from repro_torch.kernels.ptc_block_matmul import plan as product_plan
 from repro_torch.kernels.sigma_grad import plan as sigma_plan
+from repro_torch.kernels.sigma_grad import route as sigma_route
 
 # (T, P, Q, k): the shapes the port's paths give the two kernels
 SERVE_W1 = (1024, 57, 456, 9)
@@ -74,11 +85,58 @@ def test_serve_and_wide_inputs_take_the_product_route(shape):
     assert route(*shape) == "product"
 
 
+@pytest.mark.parametrize("k", [33, 64, 100, 128, 256])
+@pytest.mark.parametrize("t", [1, 9, PER_BLOCK_MAX_T, PER_BLOCK_MAX_T + 1,
+                               4096])
+@pytest.mark.parametrize("q", [1, 16])
+def test_every_wide_k_takes_the_wide_route(k, t, q):
+    assert route(t, 64, q, k) == "wide"
+    assert sigma_route(k) == feedback_route(k) == mesh_route(k) == "wide"
+    assert kernel_k(k) == k
+
+
+@pytest.mark.parametrize("k", [1, 4, 9, 13, 16, 32])
+def test_no_k_up_to_32_takes_the_wide_route(k):
+    assert MAX_K == 32
+    for t, q in ((9, 1), (4096, 16)):
+        assert route(t, 64, q, k) != "wide"
+    assert sigma_route(k) == feedback_route(k) == mesh_route(k) == "narrow"
+    assert kernel_k(k) in (4, 8, 9, 16, 32) and kernel_k(k) >= k
+
+
+# (T, P, Q, k): olmo-1b's linears at k = 128 (q/k/v/o, gate/up, down), the
+# widths and ragged T of the card tests
+WIDE_SHAPES = [(4096, 16, 16, 128), (4096, 64, 16, 128), (4096, 16, 64, 128),
+               (37, 2, 3, 33), (64, 2, 2, 64), (129, 3, 2, 100),
+               (127, 3, 3, 128), (1, 1, 1, 128), (300, 2, 3, 256)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_plan_covers_rows_columns_and_blocks_once(shape):
+    t, p, q, k = shape
+    bm, bn, _ = WIDE_TILE
+    for rows, cols in ((t, p * k), (t, q * k), (p * k, q * k)):
+        pl = wide_plan(rows, cols, k)
+        _assert_partition(_intervals(rows, bm, pl.row_tiles), rows)
+        _assert_partition(_intervals(cols, bn, pl.col_tiles), cols)
+        # each block's k rows and k columns, in the batched block products
+        _assert_partition(_intervals(k, bm, pl.block_tiles), k)
+        _assert_partition(_intervals(k, bn, pl.block_tiles), k)
+    # at k = 128 a product tile is one block: the tile edges are block edges
+    if k == 128:
+        assert wide_plan(t, p * k, k).col_tiles == p
+        assert wide_plan(p * k, q * k, k)[:2] == (p, q)
+
+
 def test_each_route_counts_under_its_own_name_in_one_library():
     assert ROUTES == {"product": "ptc_block_matmul",
-                          "per_block": "ptc_block_matmul_perblock"}
+                      "per_block": "ptc_block_matmul_perblock",
+                      "wide": "ptc_block_matmul_wide"}
     for name in ROUTES.values():
-        assert build.KERNELS[name] == "ptc_block_matmul"
+        # the k <= 32 routes share one library; the wide routes of the
+        # three PTC kernels share another
+        assert build.KERNELS[name] == ("ptc_wide" if name.endswith("_wide")
+                                       else "ptc_block_matmul")
         assert name in build.launch_counts
 
 

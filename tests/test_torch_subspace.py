@@ -9,6 +9,15 @@
   y, dx and ds under no masks, a feedback mask, a column mask, and both
   (the same masks handed to both packages), 1e-5 absolute (sums of 32
   rows of order-1 terms in fp32, taken in another order).
+* ``ptc_linear(mode="blocked")`` in bf16 (x, U, Σ, V* and δy) against
+  the reference under the same four mask settings: y, dx and ds within
+  6e-2 of the largest entry (the reference's bf16 limit; its einsums
+  round to bf16 between passes), in the reference's dtypes.
+* Under bf16 the column mask scales δy in fp32: ds from bf16 operands
+  with a normalizer bf16 cannot hold (``column_norm="exp"``), against the reference in fp32 on the
+  same values, 1e-5 of the largest ds (the wrapper's fp32 result), and the
+  least-squares scale of autograd's bf16 ds within 5e-4 of 1 (a bf16
+  product scales it by 1.0020).
 * The frozen bases get no gradient, and the kernel's ds is the autograd ds.
 * The feedback wrapper's plan (compiled k, scratch row width, rows per
   lane) for the shapes the training path passes.
@@ -152,6 +161,89 @@ def test_ptc_linear_matches_reference(layer, mode, which):
     for got, want in ((yt, yj), (dxt, dxj), (dst, dsj)):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["none", "fb", "col", "fb+col"])
+def test_blocked_ptc_linear_bf16_matches_reference(layer, which):
+    pj, x, dy = layer
+    mj = _masks(which, pj, x.shape[0])
+    bf = jnp.bfloat16
+    uj, vj = pj.u.astype(bf), pj.v.astype(bf)
+    yj, vjp = jax.vjp(lambda xx, ss: jsub.ptc_linear(
+        xx, jptc.PTCParams(uj, ss, vj), mj, mode="blocked"),
+        jnp.asarray(x, bf), pj.s.astype(bf))
+    dxj, dsj = vjp(jnp.asarray(dy, bf))
+
+    pt = convert.ptc_params(pj)
+    b16 = torch.bfloat16
+    xt = torch.from_numpy(x).to(b16).requires_grad_()
+    st = pt.s.to(b16).requires_grad_()
+    yt = tsub.ptc_linear(xt, tptc.PTCParams(pt.u.to(b16), st, pt.v.to(b16)),
+                         convert.subspace_masks(mj), mode="blocked")
+    dxt, dst = torch.autograd.grad(yt, (xt, st),
+                                   torch.from_numpy(dy).to(b16))
+    for got, want in ((yt, yj), (dxt, dxj), (dst, dsj)):
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        want = np.asarray(want.astype(jnp.float32))
+        err = np.abs(got.detach().float().numpy() - want).max()
+        assert err / (np.abs(want).max() + 1e-6) < 6e-2
+
+
+def test_backward_wrappers_take_bf16_operands_alike():
+    rng = np.random.default_rng(1)
+    dy, x, u, s, v = (torch.from_numpy(a).bfloat16() for a in (
+        _f32(rng, 8, 18), _f32(rng, 8, 27), _f32(rng, 2, 3, 9, 9),
+        _f32(rng, 2, 3, 9), _f32(rng, 2, 3, 9, 9)))
+    mask = torch.ones(3, 2)
+    ds = sigma_grad(dy, x, u, v)
+    assert ds.dtype == torch.float32
+    assert torch.equal(ds, ref.sigma_grad_ref(dy, x, u, v))
+    dx = feedback_matmul(dy, u, s, v, mask)
+    assert dx.dtype == torch.bfloat16
+    assert torch.equal(dx, ref.feedback_matmul_ref(dy, u, s, v, mask))
+    with pytest.raises(TypeError):           # operands alike, mask fp32
+        feedback_matmul(dy, u, s, v, mask.bfloat16())
+    with pytest.raises(TypeError):
+        sigma_grad(dy, x.float(), u, v)
+
+
+@pytest.mark.parametrize("k,p,q", [(9, 4, 3), (128, 2, 1)])
+def test_blocked_column_scale_stays_fp32_under_bf16(k, p, q):
+    """A column normalizer off bf16's grid (``column_norm="exp"``: 32/19 at
+    α_C = 0.6, T = 32) scales δy in fp32, as the reference's ``gu *
+    col_mask`` promotes; a bf16 product would scale every sampled
+    Σ-gradient by 1.0020."""
+    rng = np.random.default_rng(k)
+    bf = torch.bfloat16
+    dy, x, u, v = (torch.from_numpy(a).to(bf) for a in (
+        _f32(rng, 32, p * k), _f32(rng, 32, q * k), _f32(rng, p, q, k, k),
+        _f32(rng, p, q, k, k)))
+    s = torch.from_numpy(_f32(rng, p, q, k)).to(bf)
+    pj = jptc.PTCParams(*(jnp.asarray(a.float().numpy(), jnp.float32)
+                          for a in (u, s, v)))
+    mj = jsub.sample_masks(jax.random.PRNGKey(5), pj, 32,
+                           JSparsityConfig(alpha_w=1.0, alpha_c=0.6,
+                                           column_norm="exp"))
+    col = torch.tensor(np.asarray(mj.column), dtype=torch.float32)
+    scale = float(col.max())
+    assert float(torch.tensor(scale).to(bf)) != scale
+    # the reference in fp32 on the same bf16 values
+    _, vjp = jax.vjp(lambda ss: jsub.ptc_linear(
+        jnp.asarray(x.float().numpy()), jptc.PTCParams(pj.u, ss, pj.v), mj,
+        mode="blocked"), pj.s)
+    (dsj,) = vjp(jnp.asarray(dy.float().numpy()))
+    dsj = np.asarray(dsj, np.float32)
+    ds = sigma_grad(dy, x, u, v, col)
+    assert np.abs(ds.numpy() - dsj).max() / np.abs(dsj).max() < 1e-5
+    # through autograd: ds comes back in Σ's bf16, one rounding of it
+    st = s.clone().requires_grad_()
+    yt = tsub.ptc_linear(x, tptc.PTCParams(u, st, v),
+                         tsub.SubspaceMasks(None, col), mode="blocked")
+    (dst,) = torch.autograd.grad(yt, (st,), dy)
+    assert torch.equal(dst, ds.to(bf))
+    got = dst.float().numpy().ravel()
+    ratio = float(got @ dsj.ravel() / (dsj.ravel() @ dsj.ravel()))
+    assert abs(ratio - 1.0) < 5e-4
 
 
 @pytest.mark.parametrize("mode", ["blocked", "fused"])
