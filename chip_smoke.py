@@ -19,8 +19,11 @@ Phases:
    CUDA-core kernel for the rest; ``ptc_block_matmul`` three, the product
    route, the per-block route for Q = 1 and few rows, and the wide route
    for k > 32, each checked at every shape it can take; ``sigma_grad``,
-   ``feedback_matmul`` and ``mesh_apply`` each a wide route for k > 32),
-   and hold each against its plain
+   ``feedback_matmul`` and ``mesh_apply`` each a wide route for k > 32;
+   ``ptc_block_matmul`` and ``sigma_grad`` a tensor-core route for bf16 at
+   k 64 and 128, timed beside the CUDA-core wide route forced on the same
+   inputs and beside fp32 and bf16 one-call yardsticks), and hold each
+   against its plain
    PyTorch version on the card: the reference package's kernel-test
    geometries, ragged row counts, feedback masks of density 0, 0.5, 1
    and btopk, k of 33, 64, 100 and 128 in fp32 and bf16, duplicate
@@ -47,10 +50,13 @@ Phases:
    (q, k, v, o 2048 → 2048; gate, up 2048 → 8192; down 8192 → 2048) in
    blocked mode at k = 128 with bf16 bases, T = 4096: one step, forward
    and autograd through ``apply_ptc_linear`` with feedback and column
-   sampling, on the three wide PTC routes alone, held against the same
-   step through the plain versions; then the up projection's 1,024
-   blocks realized through ``realized_unitaries`` (2,048 reck meshes of
-   k = 128 on the wide mesh route).
+   sampling, on the tensor-core forward and Σ-gradient and the
+   feedback's wide route alone, held against the same step through the
+   plain versions (the Σ-gradients' least-squares scale within 5e-4 of
+   1), its device time by kernel from ``torch.profiler``; the same step
+   with fp32 bases on the three CUDA-core wide routes; then the up
+   projection's 1,024 blocks realized through ``realized_unitaries``
+   (2,048 reck meshes of k = 128 on the wide mesh route).
 6. ``gateway`` — qwen3-4b at full width (36 layers, d_model 2560, k = 128
    fused PTC with bf16 bases) serving 16 seeded Poisson requests through
    the continuous-batching gateway with paged KV and chunked prefill
@@ -66,8 +72,9 @@ The last two lines are a ``{"kernels": [...]}`` JSON summary and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there are
 counted over its main path with every count set to 0 just before it: the
 PTC kernels over the last quickstart path driven (full width, else
-parity), their wide routes over the blocked_lm step and the wide mesh
-route over its realization, the serving kernels over the gateway's
+parity), the tensor-core routes and the feedback's wide route over the
+blocked_lm bf16 step, the CUDA-core wide forward and Σ-gradient over its
+fp32 step, the wide mesh route over its realization, the serving kernels over the gateway's
 qwen3-4b run, the CUDA-core prefill route (which that bf16 run never
 takes) over the smoke-width fp32 gateways; they are null when that path
 did not run.  Any failed check raises (exit code not
@@ -122,7 +129,10 @@ REPLACES = {"ptc_block_matmul": "src/repro/kernels/ptc_block_matmul.py:46",
             "ptc_block_matmul_wide": "src/repro/kernels/ptc_block_matmul.py:46",
             "sigma_grad_wide": "src/repro/kernels/sigma_grad.py:43",
             "feedback_matmul_wide": "src/repro/kernels/feedback_matmul.py:48",
-            "mesh_apply_wide": "src/repro/kernels/mesh_apply.py:45"}
+            "mesh_apply_wide": "src/repro/kernels/mesh_apply.py:45",
+            "ptc_block_matmul_wide_tc":
+                "src/repro/kernels/ptc_block_matmul.py:46",
+            "sigma_grad_wide_tc": "src/repro/kernels/sigma_grad.py:43"}
 # the port's kernels by their device function names (a wrapper may launch
 # several), for the profiles' per-kernel sums
 KERNEL_FAMILIES = {
@@ -207,6 +217,15 @@ def bound_ms(flops: float, nbytes: float,
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ls_scale(got, want) -> float:
+    """The least-squares scale of ``got`` against ``want`` (1 when ``got``
+    carries no bias; a column scale rounded to bf16 read 1.0020-1.0024)."""
+    g, w = got.double().flatten(), want.double().flatten()
+    if float(w @ w) == 0.0:             # every column masked: zeros
+        return 1.0 if float(g @ g) == 0.0 else float("inf")
+    return float(g @ w / (w @ w))
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -752,6 +771,11 @@ OLMO_LINEARS = (("q", 2048, 2048), ("k", 2048, 2048), ("v", 2048, 2048),
 BLOCKED_LM_T = 4096     # one train_4k sequence (src/repro/configs/common.py:53)
 WIDE_KERNELS = ("ptc_block_matmul_wide", "sigma_grad_wide",
                 "feedback_matmul_wide")
+# the tensor-core routes of the forward and the Σ-gradient (bf16 at k 64
+# and 128): the blocked LM's bf16 step takes these and the feedback's
+# wide route; an fp32 step takes the three CUDA-core wide routes
+TC_KERNELS = ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc")
+BF16_STEP_KERNELS = TC_KERNELS + ("feedback_matmul_wide",)
 NARROW_PTC = ("ptc_block_matmul", "ptc_block_matmul_perblock", "sigma_grad",
               "feedback_matmul")
 
@@ -766,11 +790,14 @@ def wide_kernels(torch, gen) -> dict:
     import ctypes
     from repro_torch.core import unitary as un
     from repro_torch.core.ptc import PTCParams, compose_weight, unblockize
-    from repro_torch.core.sparsity import SparsityConfig, feedback_mask
+    from repro_torch.core.sparsity import (SparsityConfig, column_mask,
+                                           feedback_mask)
     from repro_torch.kernels import (build, feedback_matmul, mesh_apply_plain,
                                      ptc_block_matmul, ref, sigma_grad)
     from repro_torch.kernels.mesh_apply import mesh_apply_batched
-    from repro_torch.kernels.ptc_block_matmul import WIDE_TILE, wide_lib
+    from repro_torch.kernels.ptc_block_matmul import (TC_K, TC_TILE,
+                                                      WIDE_TILE, tc_lib,
+                                                      wide_lib)
 
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
@@ -778,6 +805,9 @@ def wide_kernels(torch, gen) -> dict:
     check(wide_lib().ptc_wide_tile(out) == 0 and tuple(out) == WIDE_TILE,
           f"ptc_wide: the kernel's tile {tuple(out)} is not the plan's "
           f"{WIDE_TILE}")
+    check(tc_lib().ptc_tc_tile(out) == 0 and tuple(out) == TC_TILE,
+          f"ptc_wide_tc: the kernel's tile {tuple(out)} is not the plan's "
+          f"{TC_TILE}")
 
     def mk(*shape, dtype=f32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -794,8 +824,15 @@ def wide_kernels(torch, gen) -> dict:
     # outputs (y, dx) are rounded to bf16 on both sides, so two fp32 sums
     # that agree to 1e-6 may round one bf16 ulp apart: 2^-7 of the largest
     # entry; ds is fp32 whatever the operands
-    worst = {n: [0.0, 0.0] for n in WIDE_KERNELS}      # rel, abs
-    n_cases = dict.fromkeys(WIDE_KERNELS, 0)
+    # bf16 at k 64 and 128 takes the tensor cores (y from U diag(s) and W
+    # each rounded once to bf16: still one bf16 ulp of y, 2^-7; ds at 1e-4
+    # with col ⊙ δy split into bf16 hi + lo), every other case the CUDA
+    # cores; the least-squares scale of every column-scaled ds within 5e-4
+    # of 1
+    sweep = WIDE_KERNELS + TC_KERNELS
+    worst = {n: [0.0, 0.0] for n in sweep}      # rel, abs
+    n_cases = dict.fromkeys(sweep, 0)
+    worst_scale = 0.0
 
     def record(name, what, got, want, tol):
         diff, rel = rel_err(got, want)
@@ -815,24 +852,28 @@ def wide_kernels(torch, gen) -> dict:
             u, s, v = mk(p, q, k, k, dtype=dtype), mk(p, q, k, dtype=dtype), \
                 mk(p, q, k, k, dtype=dtype)
             what = f"{(t, p, q, k)} {dtype}"
+            tc = "_tc" if dtype == bf16 and k in TC_K else ""
+            fwd, sig = "ptc_block_matmul_wide" + tc, "sigma_grad_wide" + tc
             y = ptc_block_matmul(x, u, s, v)
-            record("ptc_block_matmul_wide", what, y,
-                   ref.ptc_block_matmul_ref(x, u, s, v), tol)
+            record(fwd, what, y, ref.ptc_block_matmul_ref(x, u, s, v), tol)
             check(torch.equal(y, ptc_block_matmul(x, u, s, v)),
-                  f"ptc_block_matmul_wide {what}: two runs differ")
+                  f"{fwd} {what}: two runs differ")
             ds = sigma_grad(dy, x, u, v)
-            record("sigma_grad_wide", what, ds,
-                   ref.sigma_grad_ref(dy, x, u, v), 1e-4)
+            record(sig, what, ds, ref.sigma_grad_ref(dy, x, u, v), 1e-4)
             check(torch.equal(ds, sigma_grad(dy, x, u, v)),
-                  f"sigma_grad_wide {what}: two runs differ")
+                  f"{sig} {what}: two runs differ")
             # a column scale off bf16's grid, applied in fp32
             col = (torch.rand((t,), generator=gen, device=dev) < 0.6) \
                 .float() / 0.6
             ds = sigma_grad(dy, x, u, v, col)
-            record("sigma_grad_wide", f"{what} col", ds,
-                   ref.sigma_grad_ref(dy, x, u, v, col), 1e-4)
+            want = ref.sigma_grad_ref(dy, x, u, v, col)
+            record(sig, f"{what} col", ds, want, 1e-4)
             check(torch.equal(ds, sigma_grad(dy, x, u, v, col)),
-                  f"sigma_grad_wide {what} col: two runs differ")
+                  f"{sig} {what} col: two runs differ")
+            scale = ls_scale(ds, want)
+            check(abs(scale - 1) < 5e-4, f"{sig} {what} col: least-squares "
+                                         f"scale {scale:.6f}")
+            worst_scale = max(worst_scale, abs(scale - 1))
             for label, mask in masks(q, p):
                 dx = feedback_matmul(dy, u, s, v, mask)
                 record("feedback_matmul_wide", f"{what} {label}", dx,
@@ -845,18 +886,20 @@ def wide_kernels(torch, gen) -> dict:
                           f"feedback_matmul_wide {what}: density 0 is not "
                           f"an exact zero")
     torch.cuda.synchronize()
-    for name in WIDE_KERNELS:
+    for name in sweep:
         check(build.launch_counts[name] - before[name] == 2 * n_cases[name],
-              f"{name}: not every call took the wide route")
+              f"{name}: not every call took the route its rule names")
     check(all(build.launch_counts[n] == before[n] for n in NARROW_PTC),
           "a k > 32 call took a k <= 32 route")
     print(f"[check] wide PTC routes, k 33/64/100/128, fp32 + bf16, T at "
           f"the 128-row tile's edges: " + ", ".join(
               f"{n} {n_cases[n]} cases, max rel err {worst[n][0]:.2e}"
-              for n in WIDE_KERNELS)
+              for n in sweep)
           + " (tol 1e-4 fp32 and ds; 2^-7 for bf16 y and dx: one bf16 "
-            "rounding); ds also under a column scale of 1/0.6 (fp32); "
-            "feedback masks of density 0, 0.5, 1 and btopk 0.6 "
+            "rounding; bf16 at k 64 and 128 on the tensor cores, the rest "
+            "on the CUDA cores); ds also under a column scale of 1/0.6 "
+            f"(fp32; least-squares scale within {worst_scale:.1e} of 1, tol "
+            "5e-4); feedback masks of density 0, 0.5, 1 and btopk 0.6 "
             "(density 0 an exact zero); reruns bitwise")
 
     # mesh_apply's wide route: build_unitary (the shared identity, output
@@ -889,68 +932,113 @@ def wide_kernels(torch, gen) -> dict:
         mk(p, q, k, k, dtype=bf16)
     mask = feedback_mask(gen, torch.rand((p, q), generator=gen, device=dev),
                          SparsityConfig(alpha_w=0.6))
+    # a column scale off bf16's grid (column_norm "exp": 1/0.6)
+    col = column_mask(gen, t, SparsityConfig(alpha_c=0.6,
+                                             column_norm="exp"))
     kept = int(torch.count_nonzero(mask))
     w32 = unblockize(compose_weight(PTCParams(u.float(), s.float(),
                                               v.float())))
     wm32 = unblockize(compose_weight(PTCParams(u.float(), s.float(),
                                                v.float()))
                       * mask.T[:, :, None, None])
-    x32, dy32 = x.float(), dy.float()
+    w16 = w32.to(bf16)                  # composed and rounded outside
+    x32, dy32, dyc32 = x.float(), dy.float(), dy.float() * col[:, None]
     eb = 2                                   # bytes of a bf16 operand
-    ops_in = {
-        # (kernel, plain, library: one fp32 PyTorch call on the widened
-        # operands with W composed outside the timing, flops, bytes)
-        "ptc_block_matmul_wide": (
-            lambda: ptc_block_matmul(x, u, s, v),
-            lambda: ref.ptc_block_matmul_ref(x, u, s, v),
-            lambda: x32 @ w32.T, "x @ composed unblockize(W).T",
-            2 * k * k * t * p * q + (2 * k ** 3 + k * k) * p * q,
-            eb * (x.numel() + u.numel() + s.numel() + v.numel() + t * p * k)),
-        "sigma_grad_wide": (
-            lambda: sigma_grad(dy, x, u, v),
-            lambda: ref.sigma_grad_ref(dy, x, u, v),
-            lambda: torch.einsum("tpi,tqj,pqik,pqkj->pqk",
-                                 dy32.view(t, p, k), x32.view(t, q, k),
-                                 u.float(), v.float()), "one torch.einsum",
-            2 * k * k * t * p * q + (2 * k ** 3 + 2 * k * k) * p * q,
-            eb * (dy.numel() + x.numel() + u.numel() + v.numel())
-            + 4 * p * q * k),
-        "feedback_matmul_wide": (
-            lambda: feedback_matmul(dy, u, s, v, mask),
-            lambda: ref.feedback_matmul_ref(dy, u, s, v, mask),
-            lambda: dy32 @ wm32, "dy @ masked composed unblockize(W)",
-            kept * (2 * k * k * t + 2 * k ** 3 + k * k),
-            eb * (dy.numel() + kept * (2 * k * k + k) + t * q * k)
-            + 4 * mask.numel()),
-    }
-    for name, (fn, plain_fn, lib_fn, lib_what, flops, nbytes) in \
-            ops_in.items():
+    fwd_flops = 2 * k * k * t * p * q + (2 * k ** 3 + k * k) * p * q
+    fwd_bytes = eb * (x.numel() + u.numel() + s.numel() + v.numel()
+                      + t * p * k)
+    sig_flops = 2 * k * k * t * p * q + (2 * k ** 3 + 2 * k * k) * p * q
+    sig_bytes = eb * (dy.numel() + x.numel() + u.numel() + v.numel()) \
+        + 4 * p * q * k
+
+    def sig_lib(d32):
+        return lambda: torch.einsum("tpi,tqj,pqik,pqkj->pqk",
+                                    d32.view(t, p, k), x32.view(t, q, k),
+                                    u.float(), v.float())
+
+    fwd_lib = (lambda: x32 @ w32.T, "fp32 x @ composed unblockize(W).T")
+    fwd_b16 = (lambda: x @ w16.T, "bf16 x @ composed W.T")
+    sig_b16 = (lambda: dy.T @ x, "bf16 dy.T @ x (G alone)")
+    # (summary name or None, label, kernel, plain, fp32 one-call yardstick,
+    # bf16 yardstick or None, flops, bytes, tol, the kernel's own peak):
+    # the tensor-core routes first, then the CUDA-core wide routes forced
+    # on the same inputs
+    rows = (
+        ("ptc_block_matmul_wide_tc", "ptc_block_matmul wide_tc",
+         lambda: ptc_block_matmul(x, u, s, v),
+         lambda: ref.ptc_block_matmul_ref(x, u, s, v), fwd_lib, fwd_b16,
+         fwd_flops, fwd_bytes, 2 ** -7, PEAK_BF16_FLOPS),
+        ("ptc_block_matmul_wide", "ptc_block_matmul wide (forced)",
+         lambda: ptc_block_matmul(x, u, s, v, force_route="wide"),
+         lambda: ref.ptc_block_matmul_ref(x, u, s, v), fwd_lib, fwd_b16,
+         fwd_flops, fwd_bytes, 2 ** -7, PEAK_FP32_FLOPS),
+        ("sigma_grad_wide_tc", "sigma_grad wide_tc, col given (hi + lo)",
+         lambda: sigma_grad(dy, x, u, v, col),
+         lambda: ref.sigma_grad_ref(dy, x, u, v, col),
+         (sig_lib(dyc32), "one fp32 einsum on col * dy"), sig_b16,
+         sig_flops, sig_bytes + 4 * t, 1e-4, PEAK_BF16_FLOPS),
+        (None, "sigma_grad wide_tc, col None",
+         lambda: sigma_grad(dy, x, u, v),
+         lambda: ref.sigma_grad_ref(dy, x, u, v),
+         (sig_lib(dy32), "one fp32 einsum"), sig_b16, sig_flops, sig_bytes,
+         1e-4, PEAK_BF16_FLOPS),
+        ("sigma_grad_wide", "sigma_grad wide (forced), col None",
+         lambda: sigma_grad(dy, x, u, v, force_route="wide"),
+         lambda: ref.sigma_grad_ref(dy, x, u, v),
+         (sig_lib(dy32), "one fp32 einsum"), sig_b16, sig_flops, sig_bytes,
+         1e-4, PEAK_FP32_FLOPS),
+        ("feedback_matmul_wide",
+         f"feedback_matmul wide, btopk 0.6: {kept} of {p * q} blocks",
+         lambda: feedback_matmul(dy, u, s, v, mask),
+         lambda: ref.feedback_matmul_ref(dy, u, s, v, mask),
+         (lambda: dy32 @ wm32, "fp32 dy @ masked composed unblockize(W)"),
+         None, kept * (2 * k * k * t + 2 * k ** 3 + k * k),
+         eb * (dy.numel() + kept * (2 * k * k + k) + t * q * k)
+         + 4 * mask.numel(), 2 ** -7, PEAK_FP32_FLOPS),
+    )
+    for (name, label, fn, plain_fn, (lib_fn, lib_what), b16, flops, nbytes,
+         tol, peak) in rows:
         got, want = fn(), plain_fn()
-        tol = 1e-4 if name == "sigma_grad_wide" else 2 ** -7
-        record(name, "olmo-1b up projection bf16", got, want, tol)
+        diff, rel = rel_err(got, want)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{label} olmo-1b up: bad output")
+        check(rel < tol, f"{label} olmo-1b up: rel err {rel:.2e} >= {tol}")
+        check(torch.equal(got, fn()), f"{label} olmo-1b up: two runs differ")
+        extra = ""
+        if "col given" in label:
+            scale = ls_scale(got, want)
+            check(abs(scale - 1) < 5e-4, f"{label} olmo-1b up: least-squares "
+                                         f"scale {scale:.6f}")
+            extra = f", least-squares scale {scale:.6f} (tol 5e-4)"
         _, lib_rel = rel_err(lib_fn(), want)
         del got, want
-        ms = cuda_ms(fn, 5)
+        tc = peak == PEAK_BF16_FLOPS
+        ms = cuda_ms(fn, 20 if tc else 5)
         plain = cuda_ms(plain_fn, 2)
         lib = cuda_ms(lib_fn, 5)
-        b_ms, b_by = bound_ms(flops, nbytes)
+        b16_ms = cuda_ms(b16[0], 20) if b16 is not None else None
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
+        b_tc, _ = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         split = device_split(fn, 3)
-        print(f"[time] {name} olmo-1b up projection (T={t}, P={p}, Q={q}, "
-              f"k={k}, bf16"
-              + (f", btopk 0.6: {kept} of {p * q} blocks" if "feedback" in
-                 name else "")
-              + f"): kernel {ms:.4f} ms ({100 * b_ms / ms:.0f}% of the "
-              f"bound; by launch " + ", ".join(f"{n} {m:.4f}" for n, m in
-                                               split)
-              + f"), plain {plain:.4f} ms, library {lib_what} on the fp32 "
-              f"widened operands (rel err {lib_rel:.1e}) {lib:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)")
-        summary[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                             library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-    del w32, wm32, x32, dy32
-    for name in WIDE_KERNELS:
-        summary[name]["max_abs_err"] = worst[name][1]
+        print(f"[time] {label}, olmo-1b up projection (T={t}, P={p}, Q={q}, "
+              f"k={k}, bf16): kernel {ms:.4f} ms ({100 * b_tc / ms:.1f}% of "
+              f"the bf16 bound {b_tc:.4f} ms"
+              + ("" if tc else f"; {100 * b_ms / ms:.0f}% of its fp32 bound "
+                               f"{b_ms:.4f} ms")
+              + "; by launch " + ", ".join(f"{n} {m:.4f}" for n, m in split)
+              + f"), plain {plain:.4f} ms, library {lib_what} {lib:.4f} ms "
+              f"(rel err {lib_rel:.1e})"
+              + (f", {b16[1]} {b16_ms:.4f} ms" if b16 is not None else "")
+              + f"; rel err {rel:.2e} (tol {tol:g}){extra}; bound by {b_by} "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if name is not None:
+            summary[name] = dict(max_abs_err=diff, ms=ms, plain_ms=plain,
+                                 library_ms=lib, bound_ms=b_ms,
+                                 bound_by=b_by)
+    del w32, wm32, w16, x32, dy32, dyc32
+    for name in sweep:
+        summary[name]["max_abs_err"] = max(worst[name][1],
+                                           summary[name]["max_abs_err"])
 
     # mesh_apply's wide route at the realization's shape: 2,048 reck
     # meshes of k = 128 (the up projection's U and V* meshes)
@@ -1632,8 +1720,10 @@ def vgg8_phase(torch, steps: int = 30, batch: int = 32) -> None:
 # the step's kernel-vs-plain limit, of the largest entry: y, dx and the
 # Σ-gradient leave the step rounded to bf16 (the reference's dtypes), and
 # two fp32 sums that agree to 1e-6 can round one bf16 ulp apart, up to
-# 2^-7 of the largest entry (the kernels themselves are held to 1e-4 in
-# fp32, and ds before its rounding, in the kernels phase)
+# 2^-7 of the largest entry; the tensor-core forward also rounds U diag(s)
+# and W to bf16, about 2^-9 of a typical |y|, under one ulp of the largest
+# (the kernels themselves are held to 1e-4 in fp32, and ds before its
+# rounding, in the kernels phase)
 BLOCKED_LM_TOL = 2 ** -7
 
 
@@ -1644,7 +1734,11 @@ def blocked_lm_phase(torch) -> dict:
     and column masks, held against the same step through the plain
     versions; then the up projection's 1,024 blocks realized through
     ``hw/device.py::realized_unitaries`` (2,048 reck meshes of k = 128).
-    Returns the wide routes' launches: the PTC kernels' over the step,
+    The bf16 step takes the tensor-core forward and Σ-gradient and the
+    feedback's wide route; the same step with fp32 bases the three
+    CUDA-core wide routes.  Returns the wide routes' launches: the
+    tensor-core routes' and the feedback's over the bf16 step, the
+    CUDA-core forward's and Σ-gradient's over the fp32 step,
     ``mesh_apply_wide``'s over the realization."""
     from repro_torch.configs import get_config
     from repro_torch.core import subspace
@@ -1691,7 +1785,7 @@ def blocked_lm_phase(torch) -> dict:
           f"cuts: depth 16 -> 1 layer, batch 256 -> 1 sequence; init "
           f"{time.perf_counter() - t0:.1f} s")
 
-    def step():
+    def step(layers=layers, cfg=cfg, dys=dys):
         s_leaf = {n: p["s"].detach().clone().requires_grad_()
                   for n, p in layers.items()}
         x_leaf = {n: x.detach().clone().requires_grad_()
@@ -1707,63 +1801,130 @@ def blocked_lm_phase(torch) -> dict:
         out.update({f"dx.{n}": g for n, g in zip(widths, grads[len(names):])})
         return out
 
+    def plain(fn):
+        """fn() with the three PTC kernels swapped for their plain
+        versions; checks that nothing was launched."""
+        kernels = (subspace.ptc_block_matmul, subspace.sigma_grad,
+                   subspace.feedback_matmul)
+        before = dict(build.launch_counts)
+        subspace.ptc_block_matmul = ref.ptc_block_matmul_ref
+        subspace.sigma_grad = ref.sigma_grad_ref
+        subspace.feedback_matmul = ref.feedback_matmul_ref
+        try:
+            out = fn()
+        finally:
+            (subspace.ptc_block_matmul, subspace.sigma_grad,
+             subspace.feedback_matmul) = kernels
+        torch.cuda.synchronize()
+        check(build.launch_counts == before,
+              "blocked_lm: the plain-version step launched a kernel")
+        return out
+
+    def compare(got, want, tol, what):
+        errs = {}
+        for name in got:
+            check(got[name].shape == want[name].shape
+                  and got[name].dtype == want[name].dtype,
+                  f"blocked_lm {what}: {name} shape or dtype differs from "
+                  f"the plain step's")
+            check(bool(torch.isfinite(got[name]).all()),
+                  f"blocked_lm {what}: {name} is not finite")
+            errs[name] = rel_err(got[name], want[name])[1]
+            check(errs[name] < tol, f"blocked_lm {what}: {name} rel err "
+                                    f"{errs[name]:.2e} >= {tol:g} against "
+                                    f"the plain versions")
+        return errs
+
+    routes = WIDE_KERNELS + TC_KERNELS + NARROW_PTC
     build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = step()
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = {k: build.launch_counts[k] for k in WIDE_KERNELS}
-    narrow = {k: build.launch_counts[k] for k in NARROW_PTC}
+    counts = {k: build.launch_counts[k] for k in routes}
     print(f"[blocked_lm] step (7 forwards, 7 Σ-gradients, 7 feedbacks): "
           f"wall {1e3 * step_s:.1f} ms, first call; launches "
-          + ", ".join(f"{k}={v}" for k, v in {**launches, **narrow}.items()))
-    for kernel in WIDE_KERNELS:
-        check(launches[kernel] == len(OLMO_LINEARS),
-              f"blocked_lm: {kernel} launched {launches[kernel]} times, not "
-              f"once per linear")
-    check(not any(narrow.values()),
-          f"blocked_lm: a k <= 32 route was launched: {narrow}")
-    for name, g in got.items():
-        check(bool(torch.isfinite(g).all()), f"blocked_lm: {name} is not "
-                                             f"finite")
+          + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    for kernel in routes:
+        want_n = len(OLMO_LINEARS) if kernel in BF16_STEP_KERNELS else 0
+        check(counts[kernel] == want_n,
+              f"blocked_lm: {kernel} launched {counts[kernel]} times in the "
+              f"bf16 step, not {want_n}")
+    launches = {k: counts[k] for k in BF16_STEP_KERNELS}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step()
     torch.cuda.synchronize()
     print(f"[blocked_lm] step again (warm): wall "
           f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    split = device_split(step, 3)
+    families = (("ptc_block_matmul_wide_tc", r"tc_(compose|product)_kernel"),
+                ("sigma_grad_wide_tc", r"tc_(col_split|sigma)_kernel"),
+                ("feedback_matmul_wide", r"ptc_wide_\w+_kernel"))
+    by_family = {}
+    for kname, ms in split:
+        fam = next((f for f, pat in families if re.search(pat, kname)),
+                   "other")
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+    total = sum(by_family.values())
+    if total == 0:
+        print("[blocked_lm] the profiler saw no device time: step kernel "
+              "time not measured")
+    else:
+        print(f"[blocked_lm] warm step, device time by kernel (torch.profiler"
+              f", 3 steps): {total:.3f} ms of kernels: " + ", ".join(
+                  f"{f} {m:.3f} ms" for f, m in sorted(
+                      by_family.items(), key=lambda kv: -kv[1]))
+              + "; by launch: " + ", ".join(
+                  f"{n} {m:.3f}" for n, m in sorted(split,
+                                                    key=lambda e: -e[1])[:8]))
 
     # the same step through the plain versions, on the same masks
-    kernels = (subspace.ptc_block_matmul, subspace.sigma_grad,
-               subspace.feedback_matmul)
-    before = dict(build.launch_counts)
-    subspace.ptc_block_matmul = ref.ptc_block_matmul_ref
-    subspace.sigma_grad = ref.sigma_grad_ref
-    subspace.feedback_matmul = ref.feedback_matmul_ref
-    try:
-        want = step()
-    finally:
-        (subspace.ptc_block_matmul, subspace.sigma_grad,
-         subspace.feedback_matmul) = kernels
-    torch.cuda.synchronize()
-    check(build.launch_counts == before,
-          "blocked_lm: the plain-version step launched a kernel")
-    errs = {}
-    for name in got:
-        check(got[name].shape == want[name].shape
-              and got[name].dtype == want[name].dtype,
-              f"blocked_lm: {name} shape or dtype differs from the plain "
-              f"step's")
-        errs[name] = rel_err(got[name], want[name])[1]
-        check(errs[name] < BLOCKED_LM_TOL,
-              f"blocked_lm: {name} rel err {errs[name]:.2e} >= 2^-7 against "
-              f"the plain versions")
+    want = plain(step)
+    errs = compare(got, want, BLOCKED_LM_TOL, "bf16")
+    # the column scale reaches ds in fp32: no bias against the plain step
+    scales = {n: ls_scale(got[f"ds.{n}"], want[f"ds.{n}"])
+              for n in layers}
+    for n, sc in scales.items():
+        check(abs(sc - 1) < 5e-4, f"blocked_lm: ds.{n} least-squares scale "
+                                  f"{sc:.6f} against the plain step")
     print(f"[blocked_lm] kernels vs plain versions, same masks: max |err| "
           f"over the largest entry " + ", ".join(
               f"{n} {e:.1e}" for n, e in errs.items())
-          + f" (tol 2^-7: one bf16 rounding of y, ds and dx)")
+          + f" (tol 2^-7: one bf16 rounding of y, ds and dx); ds "
+          f"least-squares scale within "
+          f"{max(abs(sc - 1) for sc in scales.values()):.1e} of 1 (tol "
+          f"5e-4)")
     del got, want
+
+    # the same step with fp32 bases: the CUDA-core wide routes
+    cfg32 = PTCLinearCfg(k=128, mode="blocked", base_dtype=torch.float32)
+    layers32 = {n: dict(p, u=p["u"].float(), v=p["v"].float())
+                for n, p in layers.items()}
+    dys32 = {n: d.float() for n, d in dys.items()}
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step(layers32, cfg32, dys32)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = {k: build.launch_counts[k] for k in routes}
+    for kernel in routes:
+        want_n = len(OLMO_LINEARS) if kernel in WIDE_KERNELS else 0
+        check(counts[kernel] == want_n,
+              f"blocked_lm: {kernel} launched {counts[kernel]} times in the "
+              f"fp32 step, not {want_n}")
+    launches.update({k: counts[k] for k in WIDE_KERNELS
+                     if k not in launches})
+    want = plain(lambda: step(layers32, cfg32, dys32))
+    errs = compare(got, want, 1e-4, "fp32")
+    print(f"[blocked_lm] the same step with fp32 bases: wall "
+          f"{1e3 * step_s:.1f} ms, first call; launches "
+          + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+          + f"; kernels vs plain versions: max |err| over the largest entry "
+          f"{max(errs.values()):.1e} (tol 1e-4)")
+    del got, want, layers32, dys32
 
     # realize the up projection's blocks: U and V* meshes of every block
     spec = un.mesh_spec(cfg.k, "reck")

@@ -50,12 +50,28 @@
 //  * Deterministic: fixed summation order, no atomics.  Launch on the
 //    caller's stream, allocate nothing, return cudaGetLastError().
 
-#include <cuda.h>           // CUtensorMap and its enums; no libcuda link
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using hopper::desc_sw128;
+using hopper::encode_fn;
+using hopper::EncodeTiled;
+using hopper::fence_proxy_async;
+using hopper::fence_regs;
+using hopper::kEncodeError;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_init_fence;
+using hopper::mbar_wait;
+using hopper::pack_bf16;
+using hopper::smem_u32;
+using hopper::tma_load_4d;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs;
+using hopper::wgmma_ss;
+using hopper::wgmma_wait_all;
 
 constexpr int kRows = 64;      // query rows per CTA: one wgmma M
 constexpr int kKeys = 64;      // keys per K/V tile: the S product's N
@@ -63,8 +79,6 @@ constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 128;  // one warpgroup
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the reference's floor
 constexpr int kHalfBytes = 64 * 128;       // 64 rows x 64 bf16 (128 B)
-// error codes past the CUDA runtime's: cuTensorMapEncodeTiled failed
-constexpr int kEncodeError = 100000;
 
 template <int HALVES>
 struct Layout {  // byte offsets from a 1024-aligned base
@@ -75,119 +89,6 @@ struct Layout {  // byte offsets from a 1024-aligned base
   static constexpr int bars = stages + kStages * stage;
   static constexpr int bytes = bars + 8 * kStages + 1024;  // + align slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: 8-row groups 1024 B
-// apart (SBO); LBO is unused by every operand here (each spans one swizzle
-// atom along its contiguous dimension).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
-  d |= (uint64_t)1 << 16;                 // LBO (unused), 16 B
-  d |= (uint64_t)(1024 >> 4) << 32;       // SBO
-  d |= (uint64_t)1 << 62;                 // SWIZZLE_128B
-  return d;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// a tile that never arrives (a refused copy) stops the kernel with a trap
-// after some seconds of waiting instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous products
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define WG_OUT32(d)                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
-
-// d (64 x 64, fp32) (+)= A (64 x 16, K-major smem) * B (16 x 64, K-major
-// smem); scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_OUT32(d)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 registers) * B (16 x 64,
-// MN-major smem)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // K and V tile t_begin + it (keys from 64 * (t_begin + it), KV head g,
 // slot b) into stage it % kStages; one thread issues it
@@ -244,7 +145,7 @@ prefill_tc_kernel(__grid_constant__ const CUtensorMap kmap,
   const uint32_t bar0 = sbase + L::bars;
   if (tid == 0) {
     for (int st = 0; st < kStages; ++st) mbar_init(bar0 + 8 * st, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
     for (int it = 0; it < min(kStages, n_tiles); ++it)
       issue_tile<HALVES>(&kmap, &vmap, sbase, it, t_begin, g, b);
   }
@@ -264,7 +165,7 @@ prefill_tc_kernel(__grid_constant__ const CUtensorMap kmap,
     *reinterpret_cast<uint4*>(base + L::q + hh * kHalfBytes + r * 128 +
                               ((c16 ^ (r & 7)) << 4)) = val;
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
   __syncthreads();
 
   // this thread's two rows of the accumulator tiles, and their queries
@@ -296,8 +197,8 @@ prefill_tc_kernel(__grid_constant__ const CUtensorMap kmap,
 #pragma unroll
     for (int kk = 0; kk < Dh / 16; ++kk) {
       const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-      wgmma_ss(s, desc_sw128(sbase + L::q + off), desc_sw128(ks + off),
-               kk > 0);
+      wgmma_ss<0, 0>(s, desc_sw128(sbase + L::q + off), desc_sw128(ks + off),
+                     kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -388,31 +289,6 @@ prefill_tc_kernel(__grid_constant__ const CUtensorMap kmap,
                                   o[hh][4 * n + 2 * e + 1] * inv);
       }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // (B, S, Hkv, Dh) bf16 as a 4-D map (Dh, Hkv, S, B); box 64 x 1 x 64 x 1

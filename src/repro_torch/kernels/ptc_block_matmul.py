@@ -18,7 +18,13 @@ shapes alone, each counting its launches under its own name:
   composed once by a batched block product into a (P·k, Q·k) scratch, the
   same layout the feedback composes, then one register-tiled fp32 product
   of 128 × 128 output tiles that reads it transposed
-  (:data:`WIDE_TILE`, :func:`wide_plan`).
+  (:data:`WIDE_TILE`, :func:`wide_plan`);
+* ``"wide_tc"`` (counter ``ptc_block_matmul_wide_tc``,
+  ``csrc/ptc_wide_tc.cu``): bf16 operands at k in :data:`TC_K` (64, 128),
+  on the tensor cores: each block composed once by ``wgmma`` into a bf16
+  (P·k, Q·k) scratch (U diag(s) and W each rounded once to bf16), then
+  ``y = x Wᵀ`` by ``wgmma`` from a TMA-fed ring into 128 × 256 output
+  tiles (:data:`TC_TILE`).  fp32 operands and other k stay on ``"wide"``.
 
 On a CPU tensor it runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.ptc_block_matmul_ref`).
@@ -35,16 +41,28 @@ from . import build
 from .ref import ptc_block_matmul_ref
 
 __all__ = ["ptc_block_matmul", "route", "plan", "Plan", "kernel_k",
-           "wide_plan", "WidePlan", "wide_lib", "MAX_K", "PER_BLOCK_MAX_T",
-           "ROUTES", "K_STAGE", "WIDE_TILE"]
+           "wide_plan", "WidePlan", "wide_lib", "tc_lib", "tc_ok", "MAX_K",
+           "PER_BLOCK_MAX_T", "ROUTES", "K_STAGE", "WIDE_TILE", "TC_K",
+           "TC_TILE"]
 
 LIB = "ptc_block_matmul"
 LIB_WIDE = "ptc_wide"                     # the k > MAX_K routes of all three
+LIB_TC = "ptc_wide_tc"                    # the tensor-core forward and Σ-grad
 NAME = "ptc_block_matmul"                 # launch counter, product route
 NAME_PER_BLOCK = "ptc_block_matmul_perblock"
 NAME_WIDE = "ptc_block_matmul_wide"
-ROUTES = {"product": NAME, "per_block": NAME_PER_BLOCK, "wide": NAME_WIDE}
+NAME_WIDE_TC = "ptc_block_matmul_wide_tc"
+ROUTES = {"product": NAME, "per_block": NAME_PER_BLOCK, "wide": NAME_WIDE,
+          "wide_tc": NAME_WIDE_TC}
 MAX_K = 32                      # the widest block of the k <= 32 kernels
+# the block sizes of the tensor-core routes (bf16 only): a 128 × 128 tile
+# of G is one block at k = 128 and 2 × 2 blocks at k = 64
+TC_K = (64, 128)
+# the tensor-core forward product's CTA output tile (rows, columns) and
+# reduction columns a stage (csrc/ptc_wide_tc.cu; the kernel reports its
+# own by ptc_tc_tile); its rows are the wide route's, so one grid check
+# (wide_plan) serves both
+TC_TILE = (128, 256, 64)
 # the wide kernels' CTA output tile (rows, columns) and reduction steps a
 # stage (csrc/ptc_wide.cu; the kernel reports its own by ptc_wide_tile)
 WIDE_TILE = (128, 128, 16)
@@ -71,13 +89,21 @@ def kernel_k(k: int) -> int:
     return next((c for c in _KERNEL_K if c >= k), k)
 
 
-def route(t: int, p: int, q: int, k: int) -> str:
-    """``"wide"`` for every k > :data:`MAX_K`; else ``"per_block"`` for one
-    input block (Q = 1) and at most :data:`PER_BLOCK_MAX_T` rows,
-    ``"product"`` for every other shape.  The rule reads nothing but its
-    arguments."""
+def tc_ok(k: int, dtype: torch.dtype | None) -> bool:
+    """Whether the tensor-core routes take blocks of size k in ``dtype``:
+    bf16 operands at k in :data:`TC_K`."""
+    return dtype == torch.bfloat16 and k in TC_K
+
+
+def route(t: int, p: int, q: int, k: int,
+          dtype: torch.dtype | None = None) -> str:
+    """Past :data:`MAX_K`: ``"wide_tc"`` for bf16 operands at k in
+    :data:`TC_K`, else ``"wide"`` (fp32, other k, or no dtype given); up to
+    it ``"per_block"`` for one input block (Q = 1) and at most
+    :data:`PER_BLOCK_MAX_T` rows, ``"product"`` for every other shape.  The
+    rule reads nothing but its arguments."""
     if k > MAX_K:
-        return "wide"
+        return "wide_tc" if tc_ok(k, dtype) else "wide"
     return "per_block" if q == 1 and t <= PER_BLOCK_MAX_T else "product"
 
 
@@ -113,6 +139,21 @@ def wide_lib():
         lib.ptc_wide_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.ptc_wide_forward, lib.ptc_wide_sigma,
                    lib.ptc_wide_feedback, lib.ptc_wide_tile):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def tc_lib():
+    """The loaded ``ptc_wide_tc`` library (the tensor-core routes of
+    ``ptc_block_matmul`` and ``sigma_grad``)."""
+    lib = build.library(LIB_TC)
+    if lib.ptc_tc_forward.argtypes is None:
+        lib.ptc_tc_forward.argtypes = \
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ptc_tc_sigma.argtypes = \
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ptc_tc_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.ptc_tc_forward, lib.ptc_tc_sigma, lib.ptc_tc_tile):
             fn.restype = ctypes.c_int
     return lib
 
@@ -199,21 +240,33 @@ def ptc_block_matmul(x: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         raise ValueError("ptc_block_matmul: inputs lie on different devices")
     if not all(a.is_contiguous() for a in (x, u, s, v)):
         raise ValueError("ptc_block_matmul: inputs must be contiguous")
+    which = force_route or route(t, p, q, k, x.dtype)
+    serves = {"product": k <= MAX_K, "per_block": k <= MAX_K and q == 1,
+              "wide": k > MAX_K, "wide_tc": tc_ok(k, x.dtype)}
+    if not serves.get(which, False):
+        raise ValueError(f"ptc_block_matmul: no route {which!r} for Q = {q},"
+                         f" k = {k}, {x.dtype}")
+    if force_route == "wide_tc" and x.device.type != "cuda":
+        raise ValueError("ptc_block_matmul: the wide_tc route runs on a "
+                         f"CUDA tensor only, not on {x.device}")
     if x.device.type == "cpu":
         return ptc_block_matmul_ref(x, u, s, v)
     if x.device.type != "cuda":
         raise ValueError(f"ptc_block_matmul: unsupported device {x.device}")
-    which = force_route or route(t, p, q, k)
-    if which not in ROUTES or (which == "per_block" and q != 1) \
-            or ((which == "wide") != (k > MAX_K)):
-        raise ValueError(f"ptc_block_matmul: no route {which!r} for Q = {q},"
-                         f" k = {k}")
     y = torch.empty((t, p * k), dtype=x.dtype, device=x.device)
     if t == 0 or p == 0 or q == 0:
         return y.zero_()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if which == "wide":
+        if which == "wide_tc":
+            lib = LIB_TC
+            if wide_plan(t, p * k, k).row_tiles > _MAX_GRID_Y:
+                raise ValueError(f"ptc_block_matmul: grid too large (T={t})")
+            w = torch.empty((p * k, q * k), dtype=x.dtype, device=x.device)
+            status = tc_lib().ptc_tc_forward(
+                x.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                w.data_ptr(), y.data_ptr(), t, p, q, k, stream)
+        elif which == "wide":
             lib = LIB_WIDE
             if wide_plan(t, p * k, k).row_tiles > _MAX_GRID_Y:
                 raise ValueError(f"ptc_block_matmul: grid too large (T={t})")

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ptc_block_matmul_ref", "mesh_apply_ref", "sigma_grad_ref",
+           "ptc_block_matmul_tc_ref", "sigma_grad_tc_ref", "split_bf16",
            "feedback_matmul_ref", "paged_gather_ref", "paged_scatter_ref",
            "prefill_attention_ref", "NEG_INF"]
 
@@ -44,6 +45,49 @@ def sigma_grad_ref(dy, x, u, v, col=None):
     gu = torch.einsum("pqik,tpi->tpqk", u.to(f32), dyb)
     xv = torch.einsum("pqkj,tqj->tpqk", v.to(f32), xb)
     return torch.einsum("tpqk,tpqk->pqk", gu, xv)
+
+
+def split_bf16(a):
+    """fp32 ``a`` as bf16 ``(hi, lo)``: hi = bf16(a), lo = bf16(a - hi), so
+    hi + lo lies within 2^-17 of a."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.to(a.dtype)).to(torch.bfloat16)
+
+
+def ptc_block_matmul_tc_ref(x, u, s, v):
+    """The tensor-core route's roundings of :func:`ptc_block_matmul_ref`:
+    U_pq diag(s_pq) rounded once to bf16, W_pq = (U diag(s)) V*_pq summed
+    in fp32 and rounded once to bf16, y = x Wᵀ summed in fp32 and rounded
+    to bf16 (the kernel sums in another order).
+
+    x: (T, Q·k); u,v: (P, Q, k, k); s: (P, Q, k), all bf16  →  y bf16
+    """
+    p, q, k, _ = u.shape
+    f32, b16 = torch.float32, torch.bfloat16
+    us = (u.to(f32) * s.to(f32)[:, :, None, :]).to(b16).to(f32)
+    w = torch.einsum("pqia,pqaj->piqj", us, v.to(f32)).to(b16).to(f32)
+    return (x.to(f32) @ w.reshape(p * k, q * k).T).to(b16)
+
+
+def sigma_grad_tc_ref(dy, x, u, v, col=None):
+    """The tensor-core route's roundings of :func:`sigma_grad_ref`: with a
+    column scale, ``col ⊙ δy`` formed in fp32 and split into bf16 hi + lo
+    (:func:`split_bf16`), G = Σ over the parts of partᵀx in fp32 (δy alone
+    without one); G split into bf16 hi + lo, H_pq = U_pqᵀ(G_hi + G_lo) and
+    ds_pq[i] = Σ_b H_pq[i, b] V*_pq[i, b] in fp32.
+
+    dy: (T, P·k); x: (T, Q·k); u,v: (P, Q, k, k), all bf16; col: (T,) fp32
+    or None  →  ds: (P, Q, k) fp32
+    """
+    p, q, k, _ = u.shape
+    f32 = torch.float32
+    parts = (dy,) if col is None else split_bf16(dy.to(f32) * col[:, None])
+    xf = x.to(f32)
+    g = sum(part.to(f32).T @ xf for part in parts)            # (P·k, Q·k)
+    g = g.reshape(p, k, q, k).permute(0, 2, 1, 3)              # (P, Q, a, b)
+    h = sum(torch.einsum("pqai,pqab->pqib", u.to(f32), part.to(f32))
+            for part in split_bf16(g))
+    return (h * v.to(f32)).sum(-1)
 
 
 def feedback_matmul_ref(dy, u, s, v, mask):

@@ -15,8 +15,17 @@ widened on load; ds is fp32.  A column mask ``col`` scales δy's rows in
 fp32: on the wide route as the kernel widens them; the k <= 32 ring
 fetches fp32 rows by ``cp.async``, which cannot scale, so there the
 wrapper forms ``col ⊙ δy`` in fp32 first (widening the other operands,
-which changes none of their values).  On a CPU tensor it runs the plain PyTorch
-version (:func:`repro_torch.kernels.ref.sigma_grad_ref`).
+which changes none of their values).  bf16 operands at k = 64 and 128
+take the tensor-core route instead (``"wide_tc"``, counter
+``sigma_grad_wide_tc``, ``csrc/ptc_wide_tc.cu``): ``G = δyᵀx`` by
+``wgmma`` from TMA-fed tiles over all T, projected in the same kernel
+(G split into bf16 hi + lo, ``Uᵀ(G_hi + G_lo)`` by ``wgmma``, then
+against V*); a column mask first splits ``col ⊙ δy``, formed in fp32,
+into bf16 hi + lo, both reduced into one accumulator (lo only in the
+64-row stages where it is not all zero: a scale on bf16's grid, as the
+samplers' {0, 1} columns, costs one pass).  On a CPU tensor it
+runs the plain PyTorch version
+(:func:`repro_torch.kernels.ref.sigma_grad_ref`).
 """
 
 from __future__ import annotations
@@ -27,13 +36,16 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .ptc_block_matmul import LIB_WIDE, MAX_K, kernel_k, wide_lib, wide_plan
+from .ptc_block_matmul import (LIB_TC, LIB_WIDE, MAX_K, kernel_k, tc_lib,
+                               tc_ok, wide_lib, wide_plan)
 from .ref import sigma_grad_ref
 
-__all__ = ["sigma_grad", "route", "plan", "Plan", "MAX_K"]
+__all__ = ["sigma_grad", "route", "plan", "Plan", "MAX_K", "ROUTES"]
 
 NAME = "sigma_grad"                 # launch counter, k <= MAX_K
 NAME_WIDE = "sigma_grad_wide"       # launch counter, k > MAX_K
+NAME_WIDE_TC = "sigma_grad_wide_tc"  # launch counter, bf16 at k in TC_K
+ROUTES = {"narrow": NAME, "wide": NAME_WIDE, "wide_tc": NAME_WIDE_TC}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (p-blocks, q-blocks) of a CTA's G tile by compiled k: 128 threads, each a
 # 9 x 9 (k = 9) or 8 x 8 tile of G
@@ -74,10 +86,14 @@ def plan(t: int, p: int, q: int, k: int, sms: int = 132) -> Plan:
     return Plan(kt, mp, nq, max(1, -(-t // chunk)), chunk)
 
 
-def route(k: int) -> str:
-    """``"narrow"`` (the k <= 32 kernel) or ``"wide"`` (every larger k).
-    Reads nothing but its argument."""
-    return "wide" if k > MAX_K else "narrow"
+def route(k: int, dtype: torch.dtype | None = None) -> str:
+    """``"narrow"`` (the k <= 32 kernel); past it ``"wide_tc"`` (the
+    tensor cores) for bf16 operands at k in
+    :data:`~.ptc_block_matmul.TC_K`, else ``"wide"`` (fp32, other k, or no
+    dtype given).  Reads nothing but its arguments."""
+    if k <= MAX_K:
+        return "narrow"
+    return "wide_tc" if tc_ok(k, dtype) else "wide"
 
 
 def _lib():
@@ -91,6 +107,7 @@ def _lib():
 
 def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
                v: torch.Tensor, col: torch.Tensor | None = None, *,
+               force_route: str | None = None,
                force_plan: Plan | None = None) -> torch.Tensor:
     """dy: (T, P·k), x: (T, Q·k), u/v: (P, Q, k, k), col: (T,) fp32 column
     scale or None → ds: (P, Q, k) fp32, the Σ-gradient of ``col ⊙ δy``.
@@ -98,8 +115,9 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
     dy, x, u, v all fp32 or all bf16, contiguous, on one device;
     accumulated in fp32, the column scale applied in fp32.  Two runs give
     the same bits.
-    ``force_plan`` overrides :func:`plan` (for testing the splits; the
-    callers in the port pass none).
+    ``force_route`` and ``force_plan`` override :func:`route` and
+    :func:`plan` (for measuring and testing the routes and splits; the
+    callers in the port pass neither).
     """
     if dy.dim() != 2 or x.dim() != 2 or u.dim() != 4 or v.shape != u.shape \
             or u.shape[2] != u.shape[3] or x.shape[0] != dy.shape[0]:
@@ -124,6 +142,15 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
         raise ValueError("sigma_grad: inputs lie on different devices")
     if not all(a.is_contiguous() for a in ins):
         raise ValueError("sigma_grad: inputs must be contiguous")
+    which = force_route or route(k, dy.dtype)
+    serves = {"narrow": k <= MAX_K, "wide": k > MAX_K,
+              "wide_tc": tc_ok(k, dy.dtype)}
+    if not serves.get(which, False):
+        raise ValueError(f"sigma_grad: no route {which!r} for k = {k}, "
+                         f"{dy.dtype}")
+    if force_route == "wide_tc" and dy.device.type != "cuda":
+        raise ValueError("sigma_grad: the wide_tc route runs on a CUDA "
+                         f"tensor only, not on {dy.device}")
     if dy.device.type == "cpu":
         return sigma_grad_ref(dy, x, u, v, col)
     if dy.device.type != "cuda":
@@ -131,7 +158,25 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
     ds = torch.empty((p, q, k), dtype=torch.float32, device=dy.device)
     if t == 0 or p * q == 0:
         return ds.zero_()
-    if route(k) == "wide":
+    if which == "wide_tc":
+        if wide_plan(p * k, q * k, k).row_tiles > _MAX_GRID:
+            raise ValueError(f"sigma_grad: grid too large (P={p}, k={k})")
+        # col ⊙ δy's bf16 hi and lo, formed by the kernel's first pass,
+        # and which 64-row stages of lo are not all zero
+        split = torch.empty((2, t, p * k) if col is not None else (0,),
+                            dtype=dy.dtype, device=dy.device)
+        live = torch.empty((-(-t // 64),) if col is not None else (0,),
+                           dtype=torch.int32, device=dy.device)
+        with torch.cuda.device(dy.device):
+            status = tc_lib().ptc_tc_sigma(
+                dy.data_ptr(), 0, x.data_ptr(), u.data_ptr(), v.data_ptr(),
+                0 if col is None else col.data_ptr(), split.data_ptr(),
+                live.data_ptr(), ds.data_ptr(), t, p, q, k,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_status(LIB_TC, status)
+        build.launch_counts[NAME_WIDE_TC] += 1
+        return ds
+    if which == "wide":
         if wide_plan(p * k, q * k, k).row_tiles > _MAX_GRID:
             raise ValueError(f"sigma_grad: grid too large (P={p}, k={k})")
         g = torch.empty((p * k, q * k), dtype=torch.float32, device=dy.device)

@@ -40,6 +40,16 @@ package, so the repository's conftest is not needed)::
   1 and btopk; reruns bitwise, every call on the wide route; the kernel's
   tile is the wrapper's ``WIDE_TILE``.  ``mesh_apply``'s wide route
   (``build_unitary`` and rows of their own, reck and clements) at 1e-5.
+* The tensor-core routes (bf16 at k 64 and 128) of ``ptc_block_matmul``
+  and ``sigma_grad`` against their plain versions and the plain
+  emulations of their roundings, T 1 to 4096, P or Q ragged against the
+  128 × 128 tile at k = 64, with and without a column scale off bf16's
+  grid: y within 2^-7 of its largest entry, ds within 1e-4 and its
+  least-squares scale within 5e-4 of 1; reruns bitwise; the column scale
+  bit for bit the kernel fed the plain bf16 split of the fp32 product;
+  ``force_route="wide"`` still reaches the CUDA cores for bf16, and
+  ``"wide_tc"`` is refused for fp32 and k = 100; the kernel's tile is the
+  wrapper's ``TC_TILE``.
 * The CUDA-core ``prefill_attention`` route (fp32 q; fp32 q over bf16
   K/V; bf16 at head dims other than 64 and 128) over the 12 (blk, window,
   cap) cases at 2e-5, head dims 5, 96, 200 and 256, reruns bitwise; a
@@ -60,8 +70,9 @@ from repro_torch.kernels import (build, feedback_matmul, prefill_attention,
                                  ptc_block_matmul, ref, sigma_grad)
 from repro_torch.kernels.prefill_attn import NAME, NAME_CUDA_CORES
 from repro_torch.kernels.ptc_block_matmul import (K_STAGE, PER_BLOCK_MAX_T,
-                                                  ROUTES, WIDE_TILE, Plan,
-                                                  route, wide_lib)
+                                                  ROUTES, TC_K, TC_TILE,
+                                                  WIDE_TILE, Plan, route,
+                                                  tc_lib, wide_lib)
 from repro_torch.kernels.ptc_block_matmul import plan as product_plan
 from repro_torch.kernels.sigma_grad import Plan as SigmaPlan
 from repro_torch.kernels.sigma_grad import plan as sigma_plan
@@ -373,17 +384,23 @@ def test_wide_ptc_routes_match_plain_version(card, t, p, q, k, dtype,
     gen = torch.Generator("cuda").manual_seed(t + k)
     mask = _masks(gen, q, p, density)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    # bf16 at k 64 and 128: the forward and Σ-gradient on the tensor cores
+    tc = "_tc" if dtype == torch.bfloat16 and k in TC_K else ""
     before = dict(build.launch_counts)
     y = ptc_block_matmul(x, u, s, v)
     ds = sigma_grad(dy, x, u, v)
     dx = feedback_matmul(dy, u, s, v, mask)
     torch.cuda.synchronize()
-    for name in ("ptc_block_matmul_wide", "sigma_grad_wide",
-                 "feedback_matmul_wide"):
+    launched = ("ptc_block_matmul_wide" + tc, "sigma_grad_wide" + tc,
+                "feedback_matmul_wide")
+    for name in launched:
         assert build.launch_counts[name] - before[name] == 1, name
     for name in ("ptc_block_matmul", "ptc_block_matmul_perblock",
-                 "sigma_grad", "feedback_matmul"):
-        assert build.launch_counts[name] == before[name], name
+                 "sigma_grad", "feedback_matmul", "ptc_block_matmul_wide",
+                 "ptc_block_matmul_wide_tc", "sigma_grad_wide",
+                 "sigma_grad_wide_tc"):
+        if name not in launched:
+            assert build.launch_counts[name] == before[name], name
     assert y.dtype == dtype and dx.dtype == dtype
     assert torch.equal(y, ptc_block_matmul(x, u, s, v))
     assert torch.equal(ds, sigma_grad(dy, x, u, v))
@@ -409,11 +426,125 @@ def test_sigma_grad_column_scale_is_fp32_on_both_routes(card, t, p, q, k,
     col = (torch.rand((t,), generator=gen, device="cuda") < 0.6).float() \
         / 0.6
     ds = sigma_grad(dy, x, u, v, col)
-    want = sigma_grad((dy.float() * col[:, None]).contiguous(), x.float(),
-                      u.float(), v.float())
+    if dtype == torch.bfloat16 and k in TC_K:
+        # the tensor cores take col ⊙ δy, formed in fp32, as bf16 hi + lo:
+        # bit for bit the kernel fed the plain split of the fp32 product
+        want = _tc_sigma_of_parts(
+            *ref.split_bf16(dy.float() * col[:, None]), x, u, v)
+    else:
+        want = sigma_grad((dy.float() * col[:, None]).contiguous(),
+                          x.float(), u.float(), v.float())
     assert torch.equal(ds, want)
     assert torch.equal(ds, sigma_grad(dy, x, u, v, col))
     assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v, col)) < 1e-4
+
+
+def _tc_sigma_of_parts(hi, lo, x, u, v):
+    """The tensor-core Σ-gradient's library entry over the given bf16 parts
+    of δy (hi, then lo into the same accumulator)."""
+    p, q, k, _ = u.shape
+    ds = torch.empty((p, q, k), dtype=torch.float32, device="cuda")
+    status = tc_lib().ptc_tc_sigma(
+        hi.data_ptr(), lo.data_ptr(), x.data_ptr(), u.data_ptr(),
+        v.data_ptr(), 0, 0, 0, ds.data_ptr(), hi.shape[0], p, q, k,
+        torch.cuda.current_stream().cuda_stream)
+    build.check_status("ptc_wide_tc", status)
+    return ds
+
+
+_TC = [(1, 1, 1, 128), (100, 3, 2, 128), (4096, 2, 3, 128), (1, 2, 3, 64),
+       (100, 3, 3, 64), (4096, 3, 5, 64), (129, 1, 2, 128), (192, 5, 1, 64)]
+
+
+@pytest.mark.parametrize("t,p,q,k", _TC)
+@pytest.mark.parametrize("with_col", [False, True])
+def test_wide_tc_matches_plain_version(card, t, p, q, k, with_col):
+    """bf16 at k 64 and 128 on the tensor cores: y within 2^-7 of its
+    largest entry (U diag(s), W and y rounded to bf16), ds within 1e-4
+    with and without a column scale off bf16's grid; reruns bitwise; the
+    CUDA-core wide counters untouched."""
+    dy, x, u, s, v = (a.to(torch.bfloat16)
+                      for a in _sigma_inputs(t, p, q, k, seed=7))
+    gen = torch.Generator("cuda").manual_seed(t + k)
+    col = (torch.rand((t,), generator=gen, device="cuda") < 0.6).float() \
+        / 0.6 if with_col else None
+    before = dict(build.launch_counts)
+    y = ptc_block_matmul(x, u, s, v)
+    ds = sigma_grad(dy, x, u, v, col)
+    torch.cuda.synchronize()
+    assert build.launch_counts["ptc_block_matmul_wide_tc"] \
+        - before["ptc_block_matmul_wide_tc"] == 1
+    assert build.launch_counts["sigma_grad_wide_tc"] \
+        - before["sigma_grad_wide_tc"] == 1
+    for name in ("ptc_block_matmul_wide", "sigma_grad_wide"):
+        assert build.launch_counts[name] == before[name], name
+    assert y.dtype == torch.bfloat16 and ds.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    assert _rel(y, ref.ptc_block_matmul_ref(x, u, s, v)) < 2 ** -7
+    assert _rel(y, ref.ptc_block_matmul_tc_ref(x, u, s, v)) < 2 ** -7
+    want = ref.sigma_grad_ref(dy, x, u, v, col)
+    assert _rel(ds, want) < 1e-4
+    assert _rel(ds, ref.sigma_grad_tc_ref(dy, x, u, v, col)) < 1e-4
+    if bool(want.any()):
+        ratio = float((ds.double() * want.double()).sum()
+                      / (want.double() ** 2).sum())
+        assert abs(ratio - 1.0) < 5e-4
+    else:                                # T = 1 with its column dropped
+        assert not bool(ds.any())
+    assert torch.equal(y, ptc_block_matmul(x, u, s, v))
+    assert torch.equal(ds, sigma_grad(dy, x, u, v, col))
+
+
+@pytest.mark.parametrize("t,p,q,k", [(100, 3, 2, 128), (4096, 2, 3, 128),
+                                     (4096, 3, 5, 64)])
+def test_wide_tc_column_scale_on_bf16_grid_skips_only_zeros(card, t, p, q,
+                                                           k):
+    """Columns of {0, 1} (the samplers' scale without a normalizer): col ⊙
+    δy is exact in bf16, lo is zero, and the stages it skips change no
+    bit against the kernel that multiplies every lo, or δy pre-scaled."""
+    dy, x, u, _, v = (a.to(torch.bfloat16)
+                      for a in _sigma_inputs(t, p, q, k, seed=5))
+    gen = torch.Generator("cuda").manual_seed(t)
+    col = (torch.rand((t,), generator=gen, device="cuda") < 0.6).float()
+    ds = sigma_grad(dy, x, u, v, col)
+    scaled = (dy.float() * col[:, None]).to(torch.bfloat16)
+    assert torch.equal(ds, _tc_sigma_of_parts(scaled, torch.zeros_like(dy),
+                                              x, u, v))
+    assert torch.equal(ds, sigma_grad(scaled, x, u, v))
+    assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v, col)) < 1e-4
+
+
+@pytest.mark.parametrize("k", [64, 128])
+def test_wide_route_still_takes_bf16_when_forced(card, k):
+    dy, x, u, s, v = (a.to(torch.bfloat16)
+                      for a in _sigma_inputs(129, 2, 3, k, seed=3))
+    before = dict(build.launch_counts)
+    y = ptc_block_matmul(x, u, s, v, force_route="wide")
+    ds = sigma_grad(dy, x, u, v, force_route="wide")
+    torch.cuda.synchronize()
+    for name in ("ptc_block_matmul_wide", "sigma_grad_wide"):
+        assert build.launch_counts[name] - before[name] == 1, name
+    for name in ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc"):
+        assert build.launch_counts[name] == before[name], name
+    assert _rel(y, ref.ptc_block_matmul_ref(x, u, s, v)) < 2 ** -7
+    assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v)) < 1e-4
+
+
+def test_wide_tc_refuses_fp32_and_other_k_on_the_card(card):
+    for k, dtype in ((128, torch.float32), (100, torch.bfloat16)):
+        dy, x, u, s, v = (a.to(dtype)
+                          for a in _sigma_inputs(16, 2, 2, k, seed=1))
+        with pytest.raises(ValueError, match="no route"):
+            ptc_block_matmul(x, u, s, v, force_route="wide_tc")
+        with pytest.raises(ValueError, match="no route"):
+            sigma_grad(dy, x, u, v, force_route="wide_tc")
+
+
+def test_tc_kernel_tile_is_the_plan(card):
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    assert tc_lib().ptc_tc_tile(out) == 0
+    assert tuple(out) == TC_TILE
 
 
 def test_wide_kernel_tile_is_the_plan(card):

@@ -131,12 +131,15 @@ def test_wide_plan_covers_rows_columns_and_blocks_once(shape):
 def test_each_route_counts_under_its_own_name_in_one_library():
     assert ROUTES == {"product": "ptc_block_matmul",
                       "per_block": "ptc_block_matmul_perblock",
-                      "wide": "ptc_block_matmul_wide"}
+                      "wide": "ptc_block_matmul_wide",
+                      "wide_tc": "ptc_block_matmul_wide_tc"}
     for name in ROUTES.values():
         # the k <= 32 routes share one library; the wide routes of the
-        # three PTC kernels share another
-        assert build.KERNELS[name] == ("ptc_wide" if name.endswith("_wide")
-                                       else "ptc_block_matmul")
+        # three PTC kernels share another, the tensor-core routes a third
+        assert build.KERNELS[name] == (
+            "ptc_wide" if name.endswith("_wide") else
+            "ptc_wide_tc" if name.endswith("_wide_tc") else
+            "ptc_block_matmul")
         assert name in build.launch_counts
 
 
