@@ -20,13 +20,16 @@ Phases:
    route, the per-block route for Q = 1 and few rows, and the wide route
    for k > 32, each checked at every shape it can take; ``sigma_grad``,
    ``feedback_matmul`` and ``mesh_apply`` each a wide route for k > 32;
-   ``ptc_block_matmul`` and ``sigma_grad`` a tensor-core route for bf16 at
-   k 64 and 128, timed beside the CUDA-core wide route forced on the same
-   inputs and beside fp32 and bf16 one-call yardsticks), and hold each
+   the three PTC kernels a tensor-core route for bf16 at k 64 and 128,
+   timed beside the CUDA-core wide route forced on the same inputs and
+   beside fp32 and bf16 one-call yardsticks; ``mesh_apply``'s
+   narrow route timed in turns with its earlier layered kernel), and
+   hold each
    against its plain
    PyTorch version on the card: the reference package's kernel-test
    geometries, ragged row counts, feedback masks of density 0, 0.5, 1
-   and btopk, k of 33, 64, 100 and 128 in fp32 and bf16, duplicate
+   and btopk, k of 33, 64, 100 and 128 in fp32 and bf16, meshes of k 2
+   to 32, duplicate
    scatter targets, the prefill (blk, window, cap)
    sweep on both routes, and the full-width shapes of the main paths,
    where each is also timed beside its bound, its plain version and a
@@ -50,8 +53,8 @@ Phases:
    (q, k, v, o 2048 → 2048; gate, up 2048 → 8192; down 8192 → 2048) in
    blocked mode at k = 128 with bf16 bases, T = 4096: one step, forward
    and autograd through ``apply_ptc_linear`` with feedback and column
-   sampling, on the tensor-core forward and Σ-gradient and the
-   feedback's wide route alone, held against the same step through the
+   sampling, on the three tensor-core routes alone, held against the
+   same step through the
    plain versions (the Σ-gradients' least-squares scale within 5e-4 of
    1), its device time by kernel from ``torch.profiler``; the same step
    with fp32 bases on the three CUDA-core wide routes; then the up
@@ -72,9 +75,9 @@ The last two lines are a ``{"kernels": [...]}`` JSON summary and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there are
 counted over its main path with every count set to 0 just before it: the
 PTC kernels over the last quickstart path driven (full width, else
-parity), the tensor-core routes and the feedback's wide route over the
-blocked_lm bf16 step, the CUDA-core wide forward and Σ-gradient over its
-fp32 step, the wide mesh route over its realization, the serving kernels over the gateway's
+parity), the tensor-core routes over the blocked_lm bf16 step, the
+CUDA-core wide routes over its fp32 step, the wide mesh route over its
+realization, the serving kernels over the gateway's
 qwen3-4b run, the CUDA-core prefill route (which that bf16 run never
 takes) over the smoke-width fp32 gateways; they are null when that path
 did not run.  Any failed check raises (exit code not
@@ -132,7 +135,9 @@ REPLACES = {"ptc_block_matmul": "src/repro/kernels/ptc_block_matmul.py:46",
             "mesh_apply_wide": "src/repro/kernels/mesh_apply.py:45",
             "ptc_block_matmul_wide_tc":
                 "src/repro/kernels/ptc_block_matmul.py:46",
-            "sigma_grad_wide_tc": "src/repro/kernels/sigma_grad.py:43"}
+            "sigma_grad_wide_tc": "src/repro/kernels/sigma_grad.py:43",
+            "feedback_matmul_wide_tc":
+                "src/repro/kernels/feedback_matmul.py:48"}
 # the port's kernels by their device function names (a wrapper may launch
 # several), for the profiles' per-kernel sums
 KERNEL_FAMILIES = {
@@ -264,9 +269,28 @@ def ptxas_summary(log: str) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
+def mesh_layered(torch, spec, phases, x, d):
+    """build_unitary's call (x shared, output transposed) through the
+    narrow route's earlier design, the layered kernel (a (layer, wire)
+    table of phase slots scanned per rotation), called through its library
+    entry: for timing it beside the route's kernel; counts no launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mesh_apply import layer_tables, mesh_lib
+    b, k, r = phases.shape[0], spec.k, x.shape[1]
+    up = layer_tables(k, spec.kind, phases.device)[3]
+    out = torch.empty((b, k, r), dtype=torch.float32, device=phases.device)
+    status = mesh_lib().mesh_apply_layered_f32(
+        x.data_ptr(), 0, phases.data_ptr(), d.data_ptr(), up.data_ptr(),
+        out.data_ptr(), r * k, 1, r, b, r, k, spec.n_rot, up.shape[0],
+        torch.cuda.current_stream().cuda_stream)
+    build.check_status("mesh_apply", status)
+    return out
+
+
 def kernel_phase(torch, parent=None) -> dict:
     from repro_torch.core import unitary as un
     from repro_torch.kernels import build, mesh_apply, mesh_apply_plain
+    from repro_torch.kernels.mesh_apply import mesh_apply_batched
 
     info = build.build(force=True)
     print(f"[build] nvcc sm_90a, {len(info['built'])} kernels in parallel: "
@@ -284,7 +308,9 @@ def kernel_phase(torch, parent=None) -> dict:
 
     # -- mesh_apply ----------------------------------------------------------
     worst = 0.0
-    for k in (2, 4, 8, 9, 13, 16):
+    before = build.launch_counts["mesh_apply"]
+    n_calls = 0
+    for k in (2, 4, 8, 9, 13, 16, 32):
         for kind in ("clements", "reck"):
             spec = un.mesh_spec(k, kind)
             ph = (torch.rand(spec.n_rot, generator=gen, device=dev) * 2 - 1) \
@@ -296,6 +322,14 @@ def kernel_phase(torch, parent=None) -> dict:
                 y = mesh_apply(spec, ph, x, d)
                 yr = mesh_apply_plain(spec, ph[None], x[None], d[None])[0]
                 worst = max(worst, float((y - yr).abs().max()))
+                # 1000 rows transposed: row groups whose outputs are not
+                # contiguous, stored from registers
+                yt = mesh_apply_batched(spec, ph[None], x[None], d[None],
+                                        transpose_out=True)
+                worst = max(worst, float((yt - mesh_apply_plain(
+                    spec, ph[None], x[None], d[None], transpose_out=True))
+                    .abs().max()))
+                n_calls += 2
             # block-batched, as build_unitary drives it
             b = 37
             phb = torch.randn(b, spec.n_rot, generator=gen, device=dev) * 3
@@ -305,8 +339,16 @@ def kernel_phase(torch, parent=None) -> dict:
             ur = mesh_apply_plain(spec, phb, torch.eye(k, device=dev)[None],
                                   db, transpose_out=True)
             worst = max(worst, float((u - ur).abs().max()))
+            # rows of their own per mesh, no signs
+            xb = torch.randn(b, 3, k, generator=gen, device=dev)
+            worst = max(worst, float((mesh_apply_batched(spec, phb, xb)
+                                      - mesh_apply_plain(spec, phb, xb))
+                                     .abs().max()))
+            n_calls += 2
     torch.cuda.synchronize()
     check(worst < 1e-5, f"mesh_apply: max abs err {worst:.2e} >= 1e-5")
+    check(build.launch_counts["mesh_apply"] - before == n_calls,
+          "mesh_apply: a k <= 32 call did not take the narrow route")
 
     k, nb = 9, 2 * 25992
     spec = un.mesh_spec(k, "clements")
@@ -320,21 +362,43 @@ def kernel_phase(torch, parent=None) -> dict:
     check(full_err < 1e-5, f"mesh_apply full width: max abs err "
                            f"{full_err:.2e} >= 1e-5")
     worst = max(worst, full_err)
-    print(f"[check] mesh_apply: k in 2,4,8,9,13,16 x clements,reck, 24 and "
-          f"1000 rows, batched; full width {nb} meshes x 9 rows: max abs "
-          f"err {worst:.2e} (tol 1e-5)")
-    ms = cuda_ms(lambda: un.build_unitary(spec, phb, db), 50)
+    # the narrow route's earlier design (the layered kernel) on the same
+    # inputs, called through the library: held to the same limit
+    layered = mesh_layered(torch, spec, phb, eye, db)
+    old_err = float((layered - ur).abs().max())
+    check(old_err < 1e-5, f"mesh_apply layered kernel: max abs err "
+                          f"{old_err:.2e} >= 1e-5")
+    print(f"[check] mesh_apply: k in 2,4,8,9,13,16,32 x clements,reck, 24 "
+          f"and 1000 rows (both output layouts), batched (identity and rows "
+          f"of their own); full width {nb} meshes x 9 rows: max abs err "
+          f"{worst:.2e}, the layered kernel {old_err:.2e} (tol 1e-5)")
+    del layered, ur
+    # build_unitary's call on one identity made outside the timing, through
+    # the route's kernel and through the layered kernel, in turns: new,
+    # layered, layered, new
+    def fn_new():
+        return mesh_apply_batched(spec, phb, eye, db, transpose_out=True)
+
+    def fn_old():
+        return mesh_layered(torch, spec, phb, eye, db)
+
+    times = [cuda_ms(f, 50) for f in (fn_new, fn_old, fn_old, fn_new)]
+    ms, old_ms = min(times[0], times[3]), min(times[1], times[2])
     plain = cuda_ms(lambda: mesh_apply_plain(spec, phb, eye, db,
                                              transpose_out=True), 5)
     t_rot, layers = spec.n_rot, spec.n_layers
     # per mesh: one sincos (counted as 2 operations) per phase, 6 per
     # rotation per row, one sign multiply per wire per row
     flops = nb * (2 * t_rot + k * (6 * t_rot + k))
-    nbytes = 4 * (nb * t_rot + nb * k + k * k + nb * k * k + layers * k)
+    nbytes = 4 * (nb * t_rot + nb * k + k * k + nb * k * k)
     b_ms, b_by = bound_ms(flops, nbytes)
     print(f"[time] mesh_apply build_unitary ({nb} meshes x {k} rows, k={k}, "
-          f"clements): kernel {ms:.4f} ms, plain {plain:.4f} ms, no "
-          f"one-call yardstick, bound {b_ms:.4f} ms ({b_by})")
+          f"clements): kernel {ms:.4f} ms ({100 * b_ms / ms:.0f}% of the "
+          f"bound; in turns {times[0]:.4f}, {times[3]:.4f}), the layered "
+          f"kernel (the narrow route's earlier design) {old_ms:.4f} ms "
+          f"({100 * b_ms / old_ms:.0f}%; {times[1]:.4f}, {times[2]:.4f}), "
+          f"plain {plain:.4f} ms, no one-call yardstick, bound {b_ms:.4f} ms "
+          f"({b_by})")
     summary["mesh_apply"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
                                  library_ms=None, bound_ms=b_ms,
                                  bound_by=b_by)
@@ -771,11 +835,11 @@ OLMO_LINEARS = (("q", 2048, 2048), ("k", 2048, 2048), ("v", 2048, 2048),
 BLOCKED_LM_T = 4096     # one train_4k sequence (src/repro/configs/common.py:53)
 WIDE_KERNELS = ("ptc_block_matmul_wide", "sigma_grad_wide",
                 "feedback_matmul_wide")
-# the tensor-core routes of the forward and the Σ-gradient (bf16 at k 64
-# and 128): the blocked LM's bf16 step takes these and the feedback's
-# wide route; an fp32 step takes the three CUDA-core wide routes
-TC_KERNELS = ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc")
-BF16_STEP_KERNELS = TC_KERNELS + ("feedback_matmul_wide",)
+# the tensor-core routes of the three PTC kernels (bf16 at k 64 and 128):
+# the blocked LM's bf16 step takes these; an fp32 step takes the three
+# CUDA-core wide routes
+TC_KERNELS = ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc",
+              "feedback_matmul_wide_tc")
 NARROW_PTC = ("ptc_block_matmul", "ptc_block_matmul_perblock", "sigma_grad",
               "feedback_matmul")
 
@@ -845,7 +909,8 @@ def wide_kernels(torch, gen) -> dict:
     before = dict(build.launch_counts)
     for (t, p, q, k) in ((37, 2, 3, 33), (64, 2, 2, 64), (129, 3, 2, 100),
                          (127, 3, 3, 128), (128, 2, 3, 128), (129, 3, 2, 128),
-                         (1, 1, 1, 128), (300, 1, 2, 128)):
+                         (1, 1, 1, 128), (300, 1, 2, 128), (300, 3, 5, 64),
+                         (257, 4, 3, 128)):
         for dtype in (f32, bf16):
             tol = 1e-4 if dtype == f32 else 2 ** -7
             x, dy = mk(t, q * k, dtype=dtype), mk(t, p * k, dtype=dtype)
@@ -874,17 +939,16 @@ def wide_kernels(torch, gen) -> dict:
             check(abs(scale - 1) < 5e-4, f"{sig} {what} col: least-squares "
                                          f"scale {scale:.6f}")
             worst_scale = max(worst_scale, abs(scale - 1))
+            fb = "feedback_matmul_wide" + tc
             for label, mask in masks(q, p):
                 dx = feedback_matmul(dy, u, s, v, mask)
-                record("feedback_matmul_wide", f"{what} {label}", dx,
-                       ref.feedback_matmul_ref(dy, u, s, v, mask), tol)
+                want = ref.feedback_matmul_ref(dy, u, s, v, mask)
+                record(fb, f"{what} {label}", dx, want, tol)
                 check(torch.equal(dx, feedback_matmul(dy, u, s, v, mask)),
-                      f"feedback_matmul_wide {what} {label}: two runs "
-                      f"differ")
+                      f"{fb} {what} {label}: two runs differ")
                 if label == "density 0.0":
                     check(int(torch.count_nonzero(dx)) == 0,
-                          f"feedback_matmul_wide {what}: density 0 is not "
-                          f"an exact zero")
+                          f"{fb} {what}: density 0 is not an exact zero")
     torch.cuda.synchronize()
     for name in sweep:
         check(build.launch_counts[name] - before[name] == 2 * n_cases[name],
@@ -942,6 +1006,7 @@ def wide_kernels(torch, gen) -> dict:
                                                v.float()))
                       * mask.T[:, :, None, None])
     w16 = w32.to(bf16)                  # composed and rounded outside
+    wm16 = wm32.to(bf16)
     x32, dy32, dyc32 = x.float(), dy.float(), dy.float() * col[:, None]
     eb = 2                                   # bytes of a bf16 operand
     fwd_flops = 2 * k * k * t * p * q + (2 * k ** 3 + k * k) * p * q
@@ -956,6 +1021,11 @@ def wide_kernels(torch, gen) -> dict:
                                     d32.view(t, p, k), x32.view(t, q, k),
                                     u.float(), v.float())
 
+    fb_flops = kept * (2 * k * k * t + 2 * k ** 3 + k * k)
+    fb_bytes = eb * (dy.numel() + kept * (2 * k * k + k) + t * q * k) \
+        + 4 * mask.numel()
+    fb_lib = (lambda: dy32 @ wm32, "fp32 dy @ masked composed unblockize(W)")
+    fb_b16 = (lambda: dy @ wm16, "bf16 dy @ masked composed W")
     fwd_lib = (lambda: x32 @ w32.T, "fp32 x @ composed unblockize(W).T")
     fwd_b16 = (lambda: x @ w16.T, "bf16 x @ composed W.T")
     sig_b16 = (lambda: dy.T @ x, "bf16 dy.T @ x (G alone)")
@@ -987,14 +1057,17 @@ def wide_kernels(torch, gen) -> dict:
          lambda: ref.sigma_grad_ref(dy, x, u, v),
          (sig_lib(dy32), "one fp32 einsum"), sig_b16, sig_flops, sig_bytes,
          1e-4, PEAK_FP32_FLOPS),
-        ("feedback_matmul_wide",
-         f"feedback_matmul wide, btopk 0.6: {kept} of {p * q} blocks",
+        ("feedback_matmul_wide_tc",
+         f"feedback_matmul wide_tc, btopk 0.6: {kept} of {p * q} blocks",
          lambda: feedback_matmul(dy, u, s, v, mask),
-         lambda: ref.feedback_matmul_ref(dy, u, s, v, mask),
-         (lambda: dy32 @ wm32, "fp32 dy @ masked composed unblockize(W)"),
-         None, kept * (2 * k * k * t + 2 * k ** 3 + k * k),
-         eb * (dy.numel() + kept * (2 * k * k + k) + t * q * k)
-         + 4 * mask.numel(), 2 ** -7, PEAK_FP32_FLOPS),
+         lambda: ref.feedback_matmul_ref(dy, u, s, v, mask), fb_lib, fb_b16,
+         fb_flops, fb_bytes, 2 ** -7, PEAK_BF16_FLOPS),
+        ("feedback_matmul_wide",
+         f"feedback_matmul wide (forced), btopk 0.6: {kept} of {p * q} "
+         f"blocks",
+         lambda: feedback_matmul(dy, u, s, v, mask, force_route="wide"),
+         lambda: ref.feedback_matmul_ref(dy, u, s, v, mask), fb_lib, fb_b16,
+         fb_flops, fb_bytes, 2 ** -7, PEAK_FP32_FLOPS),
     )
     for (name, label, fn, plain_fn, (lib_fn, lib_what), b16, flops, nbytes,
          tol, peak) in rows:
@@ -1035,7 +1108,7 @@ def wide_kernels(torch, gen) -> dict:
             summary[name] = dict(max_abs_err=diff, ms=ms, plain_ms=plain,
                                  library_ms=lib, bound_ms=b_ms,
                                  bound_by=b_by)
-    del w32, wm32, w16, x32, dy32, dyc32
+    del w32, wm32, w16, wm16, x32, dy32, dyc32
     for name in sweep:
         summary[name]["max_abs_err"] = max(worst[name][1],
                                            summary[name]["max_abs_err"])
@@ -1734,12 +1807,11 @@ def blocked_lm_phase(torch) -> dict:
     and column masks, held against the same step through the plain
     versions; then the up projection's 1,024 blocks realized through
     ``hw/device.py::realized_unitaries`` (2,048 reck meshes of k = 128).
-    The bf16 step takes the tensor-core forward and Σ-gradient and the
-    feedback's wide route; the same step with fp32 bases the three
-    CUDA-core wide routes.  Returns the wide routes' launches: the
-    tensor-core routes' and the feedback's over the bf16 step, the
-    CUDA-core forward's and Σ-gradient's over the fp32 step,
-    ``mesh_apply_wide``'s over the realization."""
+    The bf16 step takes the three tensor-core routes; the same step with
+    fp32 bases the three CUDA-core wide routes.  Returns the wide routes'
+    launches: the tensor-core routes' over the bf16 step, the CUDA-core
+    routes' over the fp32 step, ``mesh_apply_wide``'s over the
+    realization."""
     from repro_torch.configs import get_config
     from repro_torch.core import subspace
     from repro_torch.core import unitary as un
@@ -1847,11 +1919,11 @@ def blocked_lm_phase(torch) -> dict:
           f"wall {1e3 * step_s:.1f} ms, first call; launches "
           + ", ".join(f"{k}={v}" for k, v in counts.items()))
     for kernel in routes:
-        want_n = len(OLMO_LINEARS) if kernel in BF16_STEP_KERNELS else 0
+        want_n = len(OLMO_LINEARS) if kernel in TC_KERNELS else 0
         check(counts[kernel] == want_n,
               f"blocked_lm: {kernel} launched {counts[kernel]} times in the "
               f"bf16 step, not {want_n}")
-    launches = {k: counts[k] for k in BF16_STEP_KERNELS}
+    launches = {k: counts[k] for k in TC_KERNELS}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step()
@@ -1861,7 +1933,7 @@ def blocked_lm_phase(torch) -> dict:
     split = device_split(step, 3)
     families = (("ptc_block_matmul_wide_tc", r"tc_(compose|product)_kernel"),
                 ("sigma_grad_wide_tc", r"tc_(col_split|sigma)_kernel"),
-                ("feedback_matmul_wide", r"ptc_wide_\w+_kernel"))
+                ("feedback_matmul_wide_tc", r"tc_(fcompose|feedback)_kernel"))
     by_family = {}
     for kname, ms in split:
         fam = next((f for f, pat in families if re.search(pat, kname)),

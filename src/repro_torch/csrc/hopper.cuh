@@ -193,6 +193,27 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+#define HOPPER_D64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                               \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                      \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "                      \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "                      \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "                      \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                      \
+  "%60, %61, %62, %63}"
+
+// d (64 x 128, fp32) += A (64 x 16, K-major smem) * B (16 x 128, K-major
+// smem: 128 rows of N)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_OUT64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d (64 x 256, fp32) += A (64 x 16, K-major smem) * B (16 x 256, K-major
 // smem: 256 rows of N)
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,

@@ -7,34 +7,50 @@
 // the realized unitaries of every block in Identity Calibration and Parallel
 // Mapping needs (each ZO probe rebuilds U and V of every block).
 //
-// What bounds it on an H100: the work is tiny per byte and per launch.  For
-// build_unitary at k = 9 each mesh reads T = 36 phases and 9 signs and writes
-// 81 outputs, and does 36 sincos + 9*36*4 FMAs; 52k meshes per IC probe are a
-// few MB of traffic, so the kernel is bound by device-memory bytes (and, at
-// these sizes, by launch latency) rather than by arithmetic.
+// What bounds it on an H100: device-memory bytes.  For build_unitary at
+// k = 9 each mesh reads T = 36 phases and 9 signs and writes 81 outputs, and
+// does 36 sincos + 9*36*6 flops; 51,984 meshes (an IC probe of VGG-8's
+// classifier head) move 26 MB, 7.8 us at 3.35 TB/s.  The instructions come
+// close behind: a full-precision sincosf is some 45 of them and each
+// rotation four FMAs and a shared load per row, so the kernel below issues
+// for about as long as its bytes take (PERF.md has its share of the bound).
 //
-// Design:
-//  * One thread per row (mesh b, row r) with the row's k wires in registers
-//    (template K >= k, wires >= k idle).  The adjacent-wire exchange of a
-//    layer is then a register move: no shuffles, no shared-memory traffic.
-//    One lane per wire with __shfl_sync was the alternative; k = 9 (the
-//    paper's block size) fills 9 of 32 lanes, so rows would have to be packed
-//    three to a warp with segmented shuffles, and each layer would still pay
-//    a shuffle per wire.  Registers cost nothing per layer.
+// The narrow route (mesh_apply_kernel, k <= 32):
+//  * A thread owns rows of one mesh, each row's wires in registers (K, the
+//    compiled width, >= k): two rows up to K = 9, one past it.  The
+//    adjacent-wire exchange of a rotation is a register move: no
+//    shuffles, no shared-memory traffic.
+//  * The rotation sequence is fixed at compile time per (kind, K): the
+//    mesh's pairs in application order (clements: layer by layer; reck:
+//    the reversed column-wise nulling order), unrolled, so each rotation is
+//    one shared (cos, sin) load at a constant offset and four FMAs a row,
+//    with no lookup and no branch.  Rotations on disjoint wires commute, so
+//    this order gives the layered order's bits.  k below its compiled K
+//    runs the K pattern under a host table (kernels/mesh_apply.py::
+//    narrow_plan) of each rotation's phase slot, -1 where absent (a
+//    uniform branch); a reck mesh of k sits on wires K - k .. K - 1 of the
+//    K mesh, a clements mesh on wires 0 .. k - 1.
 //  * cos/sin are computed in the kernel (sincosf, full precision: phases
 //    carry an unknown bias up to 2*pi plus quantization) once per (mesh,
 //    phase) into shared memory and shared by the mesh's rows, replacing the
-//    separate table pass.  Each rotation reads its (cos, sin) pair once and
-//    updates both of its wires, so the per-wire sign table is not needed:
-//    the host passes, per layer and wire, the phase slot of the rotation
-//    whose UPPER wire it is (-1 otherwise).
-//  * A block covers several meshes and a range of rows, so that build_unitary
-//    (9 rows per mesh) still fills 252 of 256 threads.
+//    separate table pass.
+//  * Persistent CTAs walk groups of meshes (as many whole meshes as fill
+//    256 threads: 51 at k = 9), and prefetch the next group's phases and
+//    signs by cp.async into a second buffer while the current group
+//    computes.
+//  * Stores go through shared memory: a group's outputs are one contiguous
+//    span of y (its meshes whole, or a row range of one mesh, in either
+//    output layout), written as float4 with its ragged ends scalar.
 //  * x may be broadcast over meshes (batch stride 0): build_unitary applies
 //    every mesh to one shared identity without copying it per mesh.  The
-//    output strides are free, so build_unitary writes U transposed in place.
+//    output strides are free (a group whose span is not contiguous stores
+//    from registers), so build_unitary writes U transposed in place.
 //  * Launches on the caller's stream, allocates nothing, and returns
 //    cudaGetLastError().
+// The layered kernel (mesh_apply_layered_kernel) is the narrow route's
+// design before the redesign above, kept to time beside it: CTAs of one
+// group each, a (layer, wire) table of phase slots scanned per rotation,
+// stores straight from registers.
 //
 // The wide route (mesh_apply_wide_kernel, any k > 32; k = 128 in every LM
 // config): a row's k wires no longer fit in one thread's registers, and a
@@ -51,7 +67,9 @@
 // applied: one barrier a layer, and the shared memory no longer grows with
 // the phase count.
 
-#include <cuda_runtime.h>
+#include <utility>
+
+#include "ptc_common.cuh"
 
 namespace {
 
@@ -60,7 +78,7 @@ constexpr int kSmemBytes = 48 * 1024;
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-mesh_apply_kernel(const float* __restrict__ x, long long x_bstride,
+mesh_apply_layered_kernel(const float* __restrict__ x, long long x_bstride,
                   const float* __restrict__ phases,
                   const float* __restrict__ d,
                   const int* __restrict__ up_slot,
@@ -127,7 +145,7 @@ mesh_apply_kernel(const float* __restrict__ x, long long x_bstride,
 }
 
 template <int K>
-cudaError_t launch(const float* x, long long x_bstride, const float* phases,
+cudaError_t launch_layered(const float* x, long long x_bstride, const float* phases,
                    const float* d, const int* up_slot, float* y,
                    long long y_bstride, long long y_rstride,
                    long long y_wstride, int B, int R, int k, int T, int L,
@@ -141,10 +159,295 @@ cudaError_t launch(const float* x, long long x_bstride, const float* phases,
   const dim3 grid((B + meshes_per_block - 1) / meshes_per_block,
                   (R + rows_per_block - 1) / rows_per_block);
   const size_t smem = 2 * (size_t)meshes_per_block * T * sizeof(float) + table_bytes;
-  mesh_apply_kernel<K><<<grid, kThreads, smem, stream>>>(
+  mesh_apply_layered_kernel<K><<<grid, kThreads, smem, stream>>>(
       x, x_bstride, phases, d, up_slot, y, y_bstride, y_rstride, y_wstride,
       B, R, k, T, L, meshes_per_block, rows_per_block);
   return cudaGetLastError();
+}
+
+// --- the narrow route -----------------------------------------------------
+
+enum MeshKind { kClements = 0, kReck = 1 };
+constexpr int kNarrowThreads = 256;
+constexpr int kNarrowMaxSmem = 96 * 1024;
+
+// the upper wire of rotation t (of K*(K-1)/2) of a (kind, K) mesh in
+// application order: clements, layer l's pairs (a, a + 1) for a = l % 2,
+// l % 2 + 2, ...; reck, the nulling order (column c, rows K - 1 down to
+// c + 1) reversed.  The order of core/unitary.py::mesh_spec(K, kind).pairs.
+__host__ __device__ constexpr int pattern_upper(int K, int kind, int t) {
+  int n = 0;
+  if (kind == kClements) {
+    for (int l = 0; l < K; ++l)
+      for (int a = l % 2; a < K - 1; a += 2)
+        if (n++ == t) return a;
+  } else {
+    const int T = K * (K - 1) / 2;
+    for (int c = 0; c < K - 1; ++c)
+      for (int r = K - 1; r > c; --r)
+        if (n++ == T - 1 - t) return r - 1;
+  }
+  return -1;
+}
+
+// rows a thread applies its mesh to: two up to K = 9 (each (cos, sin)
+// load and the thread's fixed work then serve two rows), one past it
+template <int K>
+__host__ __device__ constexpr int rows_per_thread() { return K <= 9 ? 2 : 1; }
+
+// rotation I of the pattern on the thread's rows: (cos, sin) of its phase
+// slot (I itself where k == K; else the host table's slot, -1 absent)
+template <int K, int KIND, bool EXACT, int RPT, int I>
+__device__ __forceinline__ void rotate(float (&v)[RPT][K],
+                                       const float2* __restrict__ cs,
+                                       const int* __restrict__ slot) {
+  constexpr int a = pattern_upper(K, KIND, I);
+  static_assert(a >= 0 && a + 1 < K, "rotation outside the mesh");
+  int t = I;
+  if constexpr (!EXACT) {
+    t = slot[I];
+    if (t < 0) return;
+  }
+  const float2 r = cs[t];
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    const float x0 = v[j][a], x1 = v[j][a + 1];
+    v[j][a] = r.x * x0 - r.y * x1;
+    v[j][a + 1] = r.y * x0 + r.x * x1;
+  }
+}
+
+template <int K, int KIND, bool EXACT, int RPT, int... I>
+__device__ __forceinline__ void rotate_all(float (&v)[RPT][K],
+                                           const float2* __restrict__ cs,
+                                           const int* __restrict__ slot,
+                                           std::integer_sequence<int, I...>) {
+  (rotate<K, KIND, EXACT, RPT, I>(v, cs, slot), ...);
+}
+
+// a CTA's shared memory, in floats: (cos, sin) of a group's phases, the
+// group's outputs (+ 3 for the span's alignment shift), the phases and
+// signs of two groups (the current one and the next), the slot table
+struct NarrowSmem {
+  int cs, out, ph, dd, slot, total;
+  __host__ __device__ NarrowSmem(int G, int rows, int k, int T, int TK,
+                                 bool exact) {
+    using ptc::pad4;
+    cs = 0;
+    out = cs + pad4(2 * G * T);
+    ph = out + pad4(G * rows * k + 3);
+    dd = ph + 2 * pad4(G * T);
+    slot = dd + 2 * pad4(G * k);
+    total = slot + (exact ? 0 : pad4(TK));
+  }
+};
+
+// groups of G whole meshes (rows == R) or of `rows` rows of one mesh
+// (G == 1); group g = (mesh group g / row_groups, row group g % row_groups).
+// Registers are capped at 64 a thread up to K = 16 (four CTAs an SM; the
+// uncapped K = 16 pattern under a slot table takes more than 128) and at
+// 128 for K = 32.
+template <int K, int KIND, bool EXACT>
+__global__ void __launch_bounds__(kNarrowThreads, K <= 16 ? 4 : 2)
+mesh_apply_kernel(const float* __restrict__ x, long long x_bstride,
+                  const float* __restrict__ phases,
+                  const float* __restrict__ d,
+                  const int* __restrict__ slot_g, float* __restrict__ y,
+                  long long y_bstride, long long y_rstride,
+                  long long y_wstride, int B, int R, int k, int T, int off,
+                  int G, int rows, int row_groups, int groups, int staged) {
+  constexpr int TK = K * (K - 1) / 2;
+  constexpr int RPT = rows_per_thread<K>();
+  extern __shared__ __align__(16) float nsm[];
+  const NarrowSmem L(G, rows, EXACT ? K : k, T, TK, EXACT);
+  float2* cs = reinterpret_cast<float2*>(nsm + L.cs);
+  float* out = nsm + L.out;
+  int* slot = reinterpret_cast<int*>(nsm + L.slot);
+  const int tid = threadIdx.x;
+  if (!EXACT)
+    for (int i = tid; i < TK; i += kNarrowThreads) slot[i] = slot_g[i];
+
+  auto stage = [&](int g, int buf) {  // group g's phases and signs
+    const long long b0 = (long long)(g / row_groups) * G;
+    const int nb = (int)min((long long)G, B - b0);
+    float* ph = nsm + L.ph + buf * ptc::pad4(G * T);
+    for (int i = tid; i < nb * T; i += kNarrowThreads)
+      ptc::cp_async4(ph + i, phases + b0 * T + i, true);
+    if (d != nullptr) {
+      float* dd = nsm + L.dd + buf * ptc::pad4(G * k);
+      for (int i = tid; i < nb * k; i += kNarrowThreads)
+        ptc::cp_async4(dd + i, d + b0 * k + i, true);
+    }
+    ptc::cp_async_commit();
+  };
+
+  if ((int)blockIdx.x < groups) stage(blockIdx.x, 0);
+  for (int g = blockIdx.x, it = 0; g < groups; g += gridDim.x, ++it) {
+    const int buf = it & 1;
+    const long long b0 = (long long)(g / row_groups) * G;
+    const int r0 = (g % row_groups) * rows;
+    const int nb = (int)min((long long)G, B - b0);
+    const int nr = min(rows, R - r0);
+    if (g + (int)gridDim.x < groups) {
+      stage(g + gridDim.x, buf ^ 1);
+      ptc::cp_async_wait<1>();
+    } else {
+      ptc::cp_async_wait<0>();
+    }
+    __syncthreads();  // group g's phases and signs have landed
+
+    const float* ph = nsm + L.ph + buf * ptc::pad4(G * T);
+    for (int i = tid; i < nb * T; i += kNarrowThreads) {
+      float sv, cv;
+      sincosf(ph[i], &sv, &cv);
+      cs[i] = make_float2(cv, sv);
+    }
+    __syncthreads();
+
+    // the group's outputs are y[s0 ..) of n elements; out[shift + j] holds
+    // y[s0 + j], so out and y agree modulo 16 bytes
+    const long long s0 = b0 * y_bstride + (long long)r0 * y_rstride;
+    const int shift = (int)(s0 & 3);
+    // thread (mb, tr) of the tpm threads a mesh: rows tr, tr + tpm, ...
+    // of the group's nr (a missing last row recomputes row nr - 1 and
+    // stores nothing)
+    const int tpm = (nr + RPT - 1) / RPT;
+    if (tid < nb * tpm) {
+      const int mb = tid / tpm, tr = tid % tpm;
+      const long long b = b0 + mb;
+      const float* dd = nsm + L.dd + buf * ptc::pad4(G * k) + mb * k;
+      float v[RPT][K];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int r = r0 + min(tr + j * tpm, nr - 1);
+        const float* xr = x + b * x_bstride + (long long)r * k;
+#pragma unroll
+        for (int w = 0; w < K; ++w) {
+          const int i = w - off;  // the caller's wire
+          float xv = 0.f;
+          if (EXACT || (i >= 0 && i < k)) {
+            xv = xr[i];
+            if (d != nullptr) xv *= dd[i];
+          }
+          v[j][w] = xv;
+        }
+      }
+      rotate_all<K, KIND, EXACT, RPT>(v, cs + mb * T, slot,
+                                      std::make_integer_sequence<int, TK>{});
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        if (tr + j * tpm >= nr) continue;
+        const int r = r0 + tr + j * tpm;
+        if (staged) {
+          float* o = out + shift + mb * y_bstride + (r - r0) * y_rstride;
+#pragma unroll
+          for (int w = 0; w < K; ++w) {
+            const int i = w - off;
+            if (EXACT || (i >= 0 && i < k)) o[i * y_wstride] = v[j][w];
+          }
+        } else {
+          float* yr = y + b * y_bstride + (long long)r * y_rstride;
+#pragma unroll
+          for (int w = 0; w < K; ++w) {
+            const int i = w - off;
+            if (EXACT || (i >= 0 && i < k)) yr[i * y_wstride] = v[j][w];
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    if (staged) {  // float4 where a whole aligned quad lies in the span
+      const int n = nb * nr * k;
+      float* dst = y + (s0 - shift);
+      for (int q = tid; q < (shift + n + 3) / 4; q += kNarrowThreads) {
+        const int j0 = 4 * q;
+        if (j0 >= shift && j0 + 4 <= shift + n) {
+          reinterpret_cast<float4*>(dst)[q] =
+              reinterpret_cast<const float4*>(out)[q];
+        } else {
+          for (int j = j0; j < j0 + 4; ++j)
+            if (j >= shift && j < shift + n) dst[j] = out[j];
+        }
+      }
+    }
+  }
+}
+
+template <int K, int KIND, bool EXACT>
+cudaError_t launch_narrow(const float* x, long long x_bstride,
+                          const float* phases, const float* d,
+                          const int* slot, float* y, long long y_bstride,
+                          long long y_rstride, long long y_wstride, int B,
+                          int R, int k, int T, int off, cudaStream_t stream) {
+  constexpr int TK = K * (K - 1) / 2;
+  constexpr int RPT = rows_per_thread<K>();
+  auto kern = mesh_apply_kernel<K, KIND, EXACT>;
+  const int rows = R < RPT * kNarrowThreads ? R : RPT * kNarrowThreads;
+  int G = rows == R ? kNarrowThreads / ((R + RPT - 1) / RPT) : 1;
+  while (G > 1 && NarrowSmem(G, rows, k, T, TK, EXACT).total * 4 >
+                      kNarrowMaxSmem)
+    --G;
+  const int smem = NarrowSmem(G, rows, k, T, TK, EXACT).total * 4;
+  const int row_groups = (R + rows - 1) / rows;
+  const long long groups = (((long long)B + G - 1) / G) * row_groups;
+  if (smem > kNarrowMaxSmem || groups > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  // a group's outputs are contiguous (and staged through shared memory)
+  // where meshes are dense in y and the group holds whole meshes or rows
+  // of k consecutive outputs; y 16-byte aligned for the float4 stores
+  const int staged =
+      y_bstride == (long long)R * k &&
+      (rows == R || (y_rstride == k && y_wstride == 1)) &&
+      (reinterpret_cast<uintptr_t>(y) & 15u) == 0;
+  static bool smem_set = false;
+  static int sms = 0, per_sm = 0, per_sm_smem = -1;
+  cudaError_t err;
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kNarrowMaxSmem);
+    if (err != cudaSuccess) return err;
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  if (per_sm_smem != smem) {  // resident CTAs an SM at this size
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kNarrowThreads, smem);
+    if (err != cudaSuccess) return err;
+    per_sm_smem = smem;
+  }
+  const long long resident = (long long)sms * (per_sm > 1 ? per_sm : 1);
+  const long long grid = groups < resident ? groups : resident;
+  kern<<<(unsigned)grid, kNarrowThreads, smem, stream>>>(
+      x, x_bstride, phases, d, slot, y, y_bstride, y_rstride, y_wstride, B,
+      R, k, T, off, G, rows, row_groups, (int)groups, staged);
+  return cudaGetLastError();
+}
+
+template <int K, int KIND>
+cudaError_t launch_narrow_kind(const float* x, long long x_bstride,
+                               const float* phases, const float* d,
+                               const int* slot, float* y,
+                               long long y_bstride, long long y_rstride,
+                               long long y_wstride, int B, int R, int k,
+                               int T, int off, cudaStream_t stream) {
+  if (k == K)
+    return launch_narrow<K, KIND, true>(x, x_bstride, phases, d, nullptr, y,
+                                        y_bstride, y_rstride, y_wstride, B,
+                                        R, k, T, 0, stream);
+  if constexpr (K == 9) {
+    return cudaErrorInvalidValue;  // k < 9 compiles to 4 or 8
+  } else {
+    if (slot == nullptr) return cudaErrorInvalidValue;
+    return launch_narrow<K, KIND, false>(x, x_bstride, phases, d, slot, y,
+                                         y_bstride, y_rstride, y_wstride, B,
+                                         R, k, T, off, stream);
+  }
 }
 
 // rows of one CTA of the wide route: up to 64, as many as fit 96 KB at
@@ -234,10 +537,50 @@ extern "C" const char* repro_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// x: (B or 1, R, k) fp32 rows, batch stride x_bstride (0 = shared by all
-// meshes); phases: (B, T) fp32; d: (B, k) fp32 or null; up_slot: (L, k)
-// int32; y[b, r, w] at b*y_bstride + r*y_rstride + w*y_wstride.
+// The narrow route, k <= 32: x: (B or 1, R, k) fp32 rows, batch stride
+// x_bstride (0 = shared by all meshes); phases: (B, T) fp32; d: (B, k)
+// fp32 or null; y[b, r, w] at b*y_bstride + r*y_rstride + w*y_wstride;
+// kind 0 clements, 1 reck.  k in 4, 8, 9, 16, 32 runs its own pattern
+// (slot null, off 0); any other k the pattern of the next of those, K,
+// with slot (K*(K-1)/2,) int32 the phase slot of each of its rotations
+// (-1 where the k mesh has none) and off the first of K's wires that the
+// k mesh uses (kernels/mesh_apply.py::narrow_plan).
 extern "C" int mesh_apply_f32(const float* x, long long x_bstride,
+                              const float* phases, const float* d,
+                              const int* slot, float* y, long long y_bstride,
+                              long long y_rstride, long long y_wstride,
+                              int B, int R, int k, int T, int kind, int off,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kk = ptc::kernel_k(k);
+  if (kk == 0 || k < 2 || T != k * (k - 1) / 2 || B < 1 || R < 1 ||
+      off < 0 || off + k > kk || (kind != kClements && kind != kReck))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_NARROW(KK)                                                      \
+  return static_cast<int>(                                                   \
+      kind == kClements                                                      \
+          ? launch_narrow_kind<KK, kClements>(x, x_bstride, phases, d, slot, \
+                                              y, y_bstride, y_rstride,       \
+                                              y_wstride, B, R, k, T, off, s) \
+          : launch_narrow_kind<KK, kReck>(x, x_bstride, phases, d, slot, y,  \
+                                          y_bstride, y_rstride, y_wstride,   \
+                                          B, R, k, T, off, s))
+  switch (kk) {
+    case 4: REPRO_NARROW(4);
+    case 8: REPRO_NARROW(8);
+    case 9: REPRO_NARROW(9);
+    case 16: REPRO_NARROW(16);
+    default: REPRO_NARROW(32);
+  }
+#undef REPRO_NARROW
+}
+
+// The layered kernel (the narrow route's earlier design, for timing beside
+// it): x: (B or 1, R, k) fp32 rows, batch stride x_bstride (0 = shared by
+// all meshes); phases: (B, T) fp32; d: (B, k) fp32 or null; up_slot:
+// (L, k) int32, the phase slot of the rotation whose upper wire w is in
+// layer l, else -1; y[b, r, w] at b*y_bstride + r*y_rstride + w*y_wstride.
+extern "C" int mesh_apply_layered_f32(const float* x, long long x_bstride,
                               const float* phases, const float* d,
                               const int* up_slot, float* y,
                               long long y_bstride, long long y_rstride,
@@ -245,9 +588,10 @@ extern "C" int mesh_apply_f32(const float* x, long long x_bstride,
                               int L, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_MESH_LAUNCH(KK)                                                 \
-  return static_cast<int>(launch<KK>(x, x_bstride, phases, d, up_slot, y,    \
-                                      y_bstride, y_rstride, y_wstride, B, R,  \
-                                      k, T, L, s))
+  return static_cast<int>(launch_layered<KK>(x, x_bstride, phases, d,        \
+                                              up_slot, y, y_bstride,          \
+                                              y_rstride, y_wstride, B, R, k,  \
+                                              T, L, s))
   if (k <= 4) REPRO_MESH_LAUNCH(4);
   if (k <= 8) REPRO_MESH_LAUNCH(8);
   if (k == 9) REPRO_MESH_LAUNCH(9);
@@ -259,7 +603,7 @@ extern "C" int mesh_apply_f32(const float* x, long long x_bstride,
 
 // The wide route, any k >= 2: rot_wire / rot_slot (T,) int32, each
 // rotation's upper wire and phase slot in layer order; layer_start (L + 1,)
-// int32.  Other arguments as mesh_apply_f32.
+// int32.  Other arguments as mesh_apply_layered_f32.
 extern "C" int mesh_apply_wide_f32(const float* x, long long x_bstride,
                                    const float* phases, const float* d,
                                    const int* rot_wire, const int* rot_slot,

@@ -39,7 +39,8 @@
 //    rows along the reduction, transposed on load), feedback dx = dy W
 //    (A = dy, transposed on load, which skips every reduction step whose
 //    blocks are all masked for the tile's q range: btopk at alpha_W = 0.6
-//    leaves 40% of the blocks), sigma G = (col * dy)^T x over all T rows
+//    keeps round(0.6 P) blocks of each q row, 60%, and skips the other
+//    40%), sigma G = (col * dy)^T x over all T rows
 //    (A = dy, scaled by col on load, and B = x, both k-major as stored),
 //    written to an fp32 scratch (P*k, Q*k).
 //  * ptc_wide_project_kernel (batched block product, grid P*Q blocks x

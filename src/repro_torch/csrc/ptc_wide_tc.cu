@@ -1,22 +1,26 @@
-// The blocked PTC forward and Sigma-gradient at k = 64 and 128 with bf16
-// operands, on the tensor cores (the "wide_tc" route).
+// The blocked PTC forward, Sigma-gradient and error feedback at k = 64
+// and 128 with bf16 operands, on the tensor cores (the "wide_tc" route).
 //
 // Replaces, for bf16 operands at k = 64 and 128 (k = 128 in every LM
 // config), the TPU kernels
 //   repro/kernels/ptc_block_matmul.py::ptc_block_matmul  y_p  = sum_q U_pq (s_pq * V*_pq x_q)
 //   repro/kernels/sigma_grad.py::sigma_grad              ds_pq = sum_t col_t (U_pq^T dy_p) * (V*_pq x_q)
+//   repro/kernels/feedback_matmul.py::feedback_matmul    dx_q = sum_p mask[q,p] V*_pq^T (s_pq * U_pq^T dy_p)
 // (dispatched by repro/kernels/ops.py).  Shapes: x (T, Q*k), dy (T, P*k),
 // u and v (P, Q, k, k) with v holding V*, s (P, Q, k), all bf16; col (T,)
-// fp32 or none; y (T, P*k) bf16, ds (P, Q, k) fp32.  fp32 operands and
-// other k take the CUDA-core route (ptc_wide.cu).
+// fp32 or none; mask (Q, P) fp32, already scaled; y (T, P*k) bf16, ds
+// (P, Q, k) fp32, dx (T, Q*k) bf16.  fp32 operands and other k take the
+// CUDA-core route (ptc_wide.cu).
 //
 // What bounds it on an H100: operations.  At olmo-1b's up projection
 // (2048 -> 8192, k = 128, T = 4096) the forward is 137.4 GFLOP of product
 // and 4.3 of composing: 0.143 ms at the bf16 tensor-core rate (989
 // TFLOP/s) against 0.045 ms of bytes; the Sigma-gradient is the same
-// product (G = dy^T x) and the same projection.  The CUDA-core route
-// multiplies these bf16 operands in fp32 at 67 TFLOP/s; wgmma is the only
-// way to the tensor cores' rate.
+// product (G = dy^T x) and the same projection; the feedback is the
+// product over the kept blocks alone (608 of 1,024 under btopk at
+// alpha_W = 0.6: 81.6 GFLOP, 0.085 ms).  The CUDA-core route multiplies
+// these bf16 operands in fp32 at 67 TFLOP/s; wgmma is the only way to the
+// tensor cores' rate.
 //
 // Design (bf16 products, fp32 accumulators; no atomics, fixed order of
 // sums: two runs give the same bits):
@@ -60,6 +64,26 @@
 //    split into bf16 hi + lo in shared memory, H = U^T (G_hi + G_lo) by
 //    wgmma, then ds[i] = sum_b H[i, b] V*[i, b] reduced over the four
 //    threads that share a row.  G never reaches device memory.
+//  * tc_fcompose_kernel, the feedback's compose: only the kept blocks
+//    (mask[q, p] != 0; a masked block's CTAs return at once), each
+//    composed once and transposed, Wt_qp = (mask[q, p] U_pq diag(s_pq)
+//    V*_pq)^T, into a (Q*k, P*k) bf16 scratch: A = V*^T read from shared
+//    memory through wgmma's transpose bit, B = U diag(s) mask (scaled in
+//    fp32, rounded once to bf16) K-major; Wt rounded once to bf16.  With
+//    W~ stored transposed the product is the forward's K-major x W^T.
+//  * tc_feedback_kernel, dx = dy Wt^T: the forward's ring, producer and
+//    two consumer warpgroups, over the live 64-column stages only: a
+//    stage (64 rows of one p block) is live where the mask keeps that p
+//    block for any q block of the tile's columns.  The producer and the
+//    consumers derive the same count from the mask (the producer the
+//    stages themselves, the consumers how many), so no branch sits among
+//    the wgmmas.  The tile is 256 rows x one q block (k columns; two
+//    consumer warpgroups of 128 rows, m64n128k16 at k = 128), so the
+//    skip keeps the mask's whole saving: under btopk at alpha_W = 0.6
+//    60% of a tile's stages are live, where a tile of two q blocks (the
+//    forward's 128 x 256 at k = 128) has a stage live wherever either
+//    block keeps it, about 84%.  A q block with no kept p block gives an
+//    exact zero.
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or kEncodeError + the driver's code when a tensor
@@ -87,6 +111,7 @@ using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_rs;
 using hopper::wgmma_ss;
+using hopper::wgmma_ss_n128;
 using hopper::wgmma_ss_n256;
 using hopper::wgmma_wait;
 
@@ -262,6 +287,218 @@ tc_product_kernel(__grid_constant__ const CUtensorMap xmap,
         *reinterpret_cast<__nv_bfloat162*>(yr + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
   }
+}
+
+// --- feedback: Wt = W~^T composed, then dx = dy Wt^T ---------------------
+
+// Wt[q*KB + j0 + j, p*KB + i0 + i] = sum_a V*[a, j0 + j] bf16(U[i0 + i, a]
+// s[a] m) for the CTA's 64 x 64 tile of block blockIdx.x = p*Q + q, m =
+// mask[q, p]; a masked block (m = 0) is not composed: its tiles of Wt are
+// left as they are (the product's one-q-block tiles never read them)
+template <int KB>
+__global__ void __launch_bounds__(128)
+tc_fcompose_kernel(const bf16* __restrict__ u, const bf16* __restrict__ s,
+                   const bf16* __restrict__ v, const float* __restrict__ mask,
+                   bf16* __restrict__ wt, int P, int Q) {
+  const long long blk = blockIdx.x;
+  const int p = (int)(blk / Q), q = (int)(blk % Q);
+  const float m = mask[(long long)q * P + p];
+  if (m == 0.f) return;
+  constexpr int nt = KB / 64;
+  const int j0 = (blockIdx.y / nt) * 64, i0 = (blockIdx.y % nt) * 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base;
+  const uint32_t sbase = aligned_base(smem_raw, &base);
+  constexpr int b_off = KB * 128;  // B after A's KB rows
+  const bf16* ub = u + blk * KB * KB;
+  const bf16* sb = s + blk * KB;
+  const bf16* vb = v + blk * KB * KB;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // A = V*^T, MN-major: V*[a, j0 .. j0 + 63] for every a, 128-byte
+  // swizzled (row a's 16-byte chunk c at a*128 + ((c ^ (a & 7)) * 16))
+  for (int i = tid; i < KB * 8; i += 128) {
+    const int a = i >> 3, c = i & 7;
+    *reinterpret_cast<uint4*>(base + a * 128 + ((c ^ (a & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(vb + a * KB + j0 + c * 8);
+  }
+  // B = (U diag(s) m)^T, K-major: row n = U's row i0 + n, its KB values
+  // of a in 64-wide swizzle atoms of 8 KB; each product U s m formed in
+  // fp32 and rounded once to bf16
+  for (int i = tid; i < 64 * (KB / 8); i += 128) {
+    const int n = i / (KB / 8), a0 = 8 * (i % (KB / 8));
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(ub + (long long)(i0 + n) * KB + a0);
+    const __nv_bfloat162* u2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    uint4 packed;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 uv = __bfloat1622float2(u2[e]);
+      const float2 sv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(sb + a0 + 2 * e));
+      o[e] = pack_bf16(__fmul_rn(__fmul_rn(uv.x, sv.x), m),
+                       __fmul_rn(__fmul_rn(uv.y, sv.y), m));
+    }
+    const int c = (a0 % 64) / 8;
+    *reinterpret_cast<uint4*>(base + b_off + (a0 / 64) * kHalf + n * 128 +
+                              ((c ^ (n & 7)) << 4)) = packed;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KB / 16; ++kk)
+    wgmma_ss<1, 0>(acc, desc_sw128(sbase + kk * 2048),
+                   desc_sw128(sbase + b_off + (kk / 4) * kHalf +
+                              (kk % 4) * 32),
+                   1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // rows j0 + 16 warp + lane / 4 (+ 8) of Wt's block row q, columns
+  // i0 + 8 jj + 2 (lane % 4) of its block column p
+  const int r = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  const long long ldw = (long long)P * KB;
+  bf16* wr = wt + ((long long)q * KB + j0 + r) * ldw + (long long)p * KB +
+             i0 + c2;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    *reinterpret_cast<__nv_bfloat162*>(wr + 8 * jj) =
+        __floats2bfloat162_rn(acc[4 * jj], acc[4 * jj + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(wr + 8 * ldw + 8 * jj) =
+        __floats2bfloat162_rn(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+}
+
+constexpr int kFBM = 256;  // the feedback product's tile: 256 rows x k
+
+template <int KB>
+struct FeedbackLayout {  // byte offsets from the aligned base
+  static constexpr int stages = 4;
+  static constexpr int tile_a = kFBM * kBK * 2;       // kFBM rows of dy
+  static constexpr int stage = tile_a + KB * kBK * 2;  // then KB of Wt
+  static constexpr int bars = stages * stage;
+  static constexpr int bytes = bars + 16 * stages + 1024;
+};
+
+// d (64 x N) += A (64 x 16) * B (16 x N), both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_kmajor(float (&d)[N / 2], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_ss<0, 0>(d, da, db, 1);
+  else
+    wgmma_ss_n128(d, da, db);
+}
+
+// dx tile (blockIdx.y, blockIdx.x): rows kFBM*y .. of T, the KB columns of
+// q block x, over the 64-column stages of the p blocks that q keeps
+template <int KB>
+__global__ void __launch_bounds__(kThreads, 1)
+tc_feedback_kernel(__grid_constant__ const CUtensorMap amap,
+                   __grid_constant__ const CUtensorMap bmap,
+                   const float* __restrict__ mask, bf16* __restrict__ dx,
+                   int T, int P, int Q) {
+  using L = FeedbackLayout<KB>;
+  constexpr int S = L::stages;
+  constexpr int per_p = KB / kBK;  // stages a p block
+  constexpr int MT = kFBM / 128;   // 64-row products a consumer
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base;
+  const uint32_t sbase = aligned_base(smem_raw, &base);
+  const int N = Q * KB;
+  const int n0 = blockIdx.x * KB, m0 = blockIdx.y * kFBM;
+  const float* mrow = mask + (long long)blockIdx.x * P;  // mask[q, :]
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  auto full = [&](int st) { return sbase + L::bars + 8 * st; };
+  auto empty = [&](int st) { return sbase + L::bars + 8 * (S + st); };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: the live stages, in order
+    if (tid == 0) {
+      int vs = 0;
+      for (int pb = 0; pb < P; ++pb) {
+        if (__ldg(mrow + pb) == 0.f) continue;
+        for (int h = 0; h < per_p; ++h, ++vs) {
+          const int st = vs % S;
+          if (vs >= S) mbar_wait(empty(st), (vs / S - 1) & 1);
+          const uint32_t dst = sbase + st * L::stage;
+          const int kc = pb * KB + h * kBK;
+          mbar_expect_tx(full(st), L::stage);
+          tma_load_2d(dst, &amap, full(st), kc, m0);
+          tma_load_2d(dst + L::tile_a, &bmap, full(st), kc, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer c owns rows c*kFBM/2 .. of the tile, all KB columns; it
+  // counts the stages the producer sends
+  const int c = wg - 1;
+  int n_live = 0;
+  for (int pb = 0; pb < P; ++pb) n_live += __ldg(mrow + pb) != 0.f;
+  n_live *= per_p;
+  float acc[MT][KB / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < KB / 2; ++i) acc[mt][i] = 0.f;
+  for (int vs = 0; vs < n_live; ++vs) {
+    const int st = vs % S;
+    mbar_wait(full(st), (vs / S) & 1);
+    const uint32_t a = sbase + st * L::stage + c * (kFBM / 2) * 128;
+    const uint32_t b = sbase + st * L::stage + L::tile_a;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        wgmma_kmajor<KB>(acc[mt], desc_sw128(a + mt * kHalf + 32 * kk),
+                         desc_sw128(b + 32 * kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+    if (vs > 0 && lane == 0) mbar_arrive(empty((vs - 1) % S));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+
+  // rows m0 + c*kFBM/2 + 64 mt + 16 warp + lane / 4 (+ 8), columns n0 + 8 j
+  // + 2 (lane % 4)
+  const int c2 = 2 * (lane % 4);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + c * (kFBM / 2) + 64 * mt + 16 * warp +
+                      lane / 4 + 8 * e;
+      if (row >= T) continue;
+      bf16* xr = dx + (long long)row * N + n0 + c2;
+#pragma unroll
+      for (int j = 0; j < KB / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(xr + 8 * j) =
+            __floats2bfloat162_rn(acc[mt][4 * j + 2 * e],
+                                  acc[mt][4 * j + 2 * e + 1]);
+    }
 }
 
 // --- the column scale: hi + lo = col * dy --------------------------------
@@ -615,6 +852,33 @@ int sigma_any(const void* a, const void* lo, const int* lo_live,
              : sigma<KB, false>(a, lo, nullptr, x, u, v, ds, T, P, Q, st);
 }
 
+template <int KB>
+int feedback(const void* dy, const void* u, const void* s, const void* v,
+             const float* mask, void* wt, void* dx, int T, int P, int Q,
+             cudaStream_t st) {
+  using L = FeedbackLayout<KB>;
+  constexpr int nt = KB / 64;
+  tc_fcompose_kernel<KB><<<dim3((unsigned)P * Q, nt * nt), 128,
+                           KB * 128 + 64 * KB * 2 + 1024, st>>>(
+      static_cast<const bf16*>(u), static_cast<const bf16*>(s),
+      static_cast<const bf16*>(v), mask, static_cast<bf16*>(wt), P, Q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long M = (long long)P * KB, N = (long long)Q * KB;
+  CUtensorMap amap, bmap;
+  int rc = map_2d(&amap, dy, T, M, kFBM, kBK);
+  if (rc == 0) rc = map_2d(&bmap, wt, N, M, KB, kBK);
+  if (rc != 0) return rc;
+  auto kern = tc_feedback_kernel<KB>;
+  static bool smem_set = false;
+  err = allow_smem(kern, L::bytes, &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3((unsigned)Q, (unsigned)((T + kFBM - 1) / kFBM)),
+         kThreads, L::bytes, st>>>(amap, bmap, mask, static_cast<bf16*>(dx),
+                                   T, P, Q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad(int T, int P, int Q, int k) {
   return T < 1 || P < 1 || Q < 1 || (k != 64 && k != 128) ||
          (long long)P * Q * k > 0x7fffffffLL ||
@@ -692,4 +956,23 @@ extern "C" int ptc_tc_sigma(const void* dy, const void* lo, const void* x,
   }
   return k == 64 ? sigma_any<64>(a, lo, live, x, u, v, ds, T, P, Q, st)
                  : sigma_any<128>(a, lo, live, x, u, v, ds, T, P, Q, st);
+}
+
+// dy, u, s, v, dx bf16, k 64 or 128; mask (Q, P) fp32, scaled; wt:
+// scratch (Q*k, P*k) bf16, the kept blocks composed and transposed (a
+// masked block's tiles are neither written nor read).  dy, u, v and wt
+// 16-byte aligned.
+extern "C" int ptc_tc_feedback(const void* dy, const void* u, const void* s,
+                               const void* v, const void* mask, void* wt,
+                               void* dx, int T, int P, int Q, int k,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mask);
+  if (bad(T, P, Q, k) || !aligned16(dy) || !aligned16(u) || !aligned16(v) ||
+      !aligned16(wt) ||
+      ((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(mask) |
+        reinterpret_cast<uintptr_t>(dx)) & 3u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return k == 64 ? feedback<64>(dy, u, s, v, m, wt, dx, T, P, Q, st)
+                 : feedback<128>(dy, u, s, v, m, wt, dx, T, P, Q, st);
 }

@@ -17,6 +17,9 @@ bf16 K/V at head dims 64 and 128, the CUDA-core one for every other pair
 (:func:`.prefill_attn.route`).  ``ptc_block_matmul`` has two routes: the
 per-block one for one input block and few rows (the IC/PM probes), the
 product one for every other shape (:func:`.ptc_block_matmul.route`).
+Past k = 32 the PTC and mesh wrappers take wide routes, and the three PTC
+wrappers take bf16 operands at k 64 and 128 to the tensor cores
+(``"wide_tc"``; each ``route`` reads the dtype).
 
 Each wrapper launches its CUDA kernel (``repro_torch/csrc``) on a CUDA
 tensor and runs its plain PyTorch version (:mod:`.ref`) on a CPU tensor.

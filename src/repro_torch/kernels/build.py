@@ -5,8 +5,8 @@ for ``sm_90a`` into its own shared library under ``build/repro_torch/`` at
 the root of the checkout, at first use; the library is loaded with
 ``ctypes``.  A library may hold several kernels (``paged_kv.cu`` holds the
 gather and the scatter; ``ptc_wide.cu`` the k > 32 routes of the three
-PTC kernels; ``ptc_wide_tc.cu`` the tensor-core routes of the forward and
-the Σ-gradient), and one TPU kernel may have several routes
+PTC kernels; ``ptc_wide_tc.cu`` the tensor-core routes of the three),
+and one TPU kernel may have several routes
 (``prefill_attention`` on the tensor cores, ``prefill_attention_cudacore``
 for the pairs they do not take; ``mesh_apply`` and ``mesh_apply_wide``
 past k = 32; ``ptc_block_matmul_wide`` and ``ptc_block_matmul_wide_tc``
@@ -61,6 +61,7 @@ KERNELS = {"mesh_apply": "mesh_apply",
            "sigma_grad_wide_tc": "ptc_wide_tc",
            "feedback_matmul": "feedback_matmul",
            "feedback_matmul_wide": "ptc_wide",
+           "feedback_matmul_wide_tc": "ptc_wide_tc",
            "paged_gather": "paged_kv",
            "paged_scatter": "paged_kv",
            "prefill_attention": "prefill_attn_tc",

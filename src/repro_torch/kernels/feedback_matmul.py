@@ -14,7 +14,16 @@ the wide route instead (counter ``feedback_matmul_wide``,
 product into a (P·k, Q·k) scratch scaled by its mask entry, then one
 register-tiled product of 128 × 128 tiles that skips every reduction step
 whose blocks the tile's q range all masked.  Both routes take fp32 or bf16
-operands (all four alike; the mask fp32), widened on load.
+operands (all four alike; the mask fp32), widened on load.  bf16
+operands at k = 64 and 128 take the tensor-core route instead
+(``"wide_tc"``, counter ``feedback_matmul_wide_tc``,
+``csrc/ptc_wide_tc.cu``): each kept block composed once by ``wgmma``,
+transposed, into a bf16 (Q·k, P·k) scratch (U diag(s) scaled by its mask
+entry in fp32 and rounded once to bf16, W̃ rounded once to bf16), then
+``dx = δy W̃`` by ``wgmma`` from a TMA-fed ring into tiles of 256 rows and
+one q block, over only the 64-row stages whose p block the tile's q block
+keeps (:func:`repro_torch.kernels.ref.feedback_matmul_tc_ref` emulates its
+roundings).  fp32 and other k stay on ``"wide"``.
 """
 
 from __future__ import annotations
@@ -24,13 +33,16 @@ import ctypes
 import torch
 
 from . import build
-from .ptc_block_matmul import LIB_WIDE, MAX_K, wide_lib, wide_plan
+from .ptc_block_matmul import (LIB_TC, LIB_WIDE, MAX_K, tc_lib, tc_ok,
+                               wide_lib, wide_plan)
 from .ref import feedback_matmul_ref
 
-__all__ = ["feedback_matmul", "route", "plan", "MAX_K"]
+__all__ = ["feedback_matmul", "route", "plan", "MAX_K", "ROUTES"]
 
 NAME = "feedback_matmul"            # launch counter, k <= MAX_K
 NAME_WIDE = "feedback_matmul_wide"  # launch counter, k > MAX_K
+NAME_WIDE_TC = "feedback_matmul_wide_tc"  # launch counter, bf16 at TC_K
+ROUTES = {"narrow": NAME, "wide": NAME_WIDE, "wide_tc": NAME_WIDE_TC}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROW_TILES = 65535   # grid.y limit (the transpose's tiles are 32 rows)
 # the k the kernel is compiled for, and its most rows per lane (acc regs)
@@ -54,10 +66,14 @@ def plan(t: int, k: int) -> tuple[int, int, int]:
     return kt, -(-kt // 4) * 4, rt
 
 
-def route(k: int) -> str:
-    """``"narrow"`` (the k <= 32 kernel) or ``"wide"`` (every larger k).
-    Reads nothing but its argument."""
-    return "wide" if k > MAX_K else "narrow"
+def route(k: int, dtype: torch.dtype | None = None) -> str:
+    """``"narrow"`` (the k <= 32 kernel); past it ``"wide_tc"`` (the
+    tensor cores) for bf16 operands at k in
+    :data:`~.ptc_block_matmul.TC_K`, else ``"wide"`` (fp32, other k, or no
+    dtype given).  Reads nothing but its arguments."""
+    if k <= MAX_K:
+        return "narrow"
+    return "wide_tc" if tc_ok(k, dtype) else "wide"
 
 
 def _lib():
@@ -70,13 +86,16 @@ def _lib():
 
 
 def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
-                    v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+                    v: torch.Tensor, mask: torch.Tensor, *,
+                    force_route: str | None = None) -> torch.Tensor:
     """dy: (T, P·k), u/v: (P, Q, k, k), s: (P, Q, k), mask: (Q, P) scaled
     → dx: (T, Q·k), dy's dtype.
 
     dy, u, s, v all fp32 or all bf16, the mask fp32; contiguous, on one
     device; accumulated in fp32.  Blocks whose mask entry is 0 are skipped;
-    a row of the mask with no kept block gives an exact zero.
+    a row of the mask with no kept block gives an exact zero.  Two runs
+    give the same bits.  ``force_route`` overrides :func:`route` (for
+    measuring and testing the routes; the callers in the port pass none).
     """
     if dy.dim() != 2 or u.dim() != 4 or v.shape != u.shape \
             or s.shape != u.shape[:3] or u.shape[2] != u.shape[3]:
@@ -99,6 +118,15 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         raise ValueError("feedback_matmul: inputs lie on different devices")
     if not all(a.is_contiguous() for a in (dy, u, s, v, mask)):
         raise ValueError("feedback_matmul: inputs must be contiguous")
+    which = force_route or route(k, dy.dtype)
+    serves = {"narrow": k <= MAX_K, "wide": k > MAX_K,
+              "wide_tc": tc_ok(k, dy.dtype)}
+    if not serves.get(which, False):
+        raise ValueError(f"feedback_matmul: no route {which!r} for k = {k}, "
+                         f"{dy.dtype}")
+    if force_route == "wide_tc" and dy.device.type != "cuda":
+        raise ValueError("feedback_matmul: the wide_tc route runs on a CUDA "
+                         f"tensor only, not on {dy.device}")
     if dy.device.type == "cpu":
         return feedback_matmul_ref(dy, u, s, v, mask)
     if dy.device.type != "cuda":
@@ -106,7 +134,20 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
     dx = torch.empty((t, q * k), dtype=dy.dtype, device=dy.device)
     if t == 0 or q == 0:
         return dx
-    if route(k) == "wide":
+    if which == "wide_tc":
+        if wide_plan(t, q * k, k).row_tiles > _MAX_ROW_TILES:
+            raise ValueError(f"feedback_matmul: grid too large (T={t})")
+        # the kept blocks, composed and transposed (masked ones unwritten)
+        wt = torch.empty((q * k, p * k), dtype=dy.dtype, device=dy.device)
+        with torch.cuda.device(dy.device):
+            status = tc_lib().ptc_tc_feedback(
+                dy.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                mask.data_ptr(), wt.data_ptr(), dx.data_ptr(), t, p, q, k,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_status(LIB_TC, status)
+        build.launch_counts[NAME_WIDE_TC] += 1
+        return dx
+    if which == "wide":
         if wide_plan(t, q * k, k).row_tiles > _MAX_ROW_TILES:
             raise ValueError(f"feedback_matmul: grid too large (T={t})")
         w = torch.empty((p * k, q * k), dtype=torch.float32, device=dy.device)

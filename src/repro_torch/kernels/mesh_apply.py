@@ -5,10 +5,12 @@ Counterpart of ``repro/kernels/mesh_apply.py`` and the table pass of
 the two hand-written kernels in ``csrc/mesh_apply.cu`` (both compute
 cos/sin themselves), picked by :func:`route` from k alone and each
 counting its launches under its own name: ``mesh_apply`` (k <= 32, a
-row's wires in one thread's registers) and ``mesh_apply_wide`` (k > 32,
-a CTA's rows in shared memory, the rotations as a list in layer order).
-On a CPU tensor it runs the plain PyTorch version
-(:func:`repro_torch.kernels.ref.mesh_apply_ref`).
+thread's rows' wires in its registers, the rotation sequence unrolled at
+compile time for the compiled widths 4, 8, 9, 16, 32 and each kind:
+:func:`narrow_plan` maps any other k onto the next of them) and
+``mesh_apply_wide`` (k > 32, a CTA's rows in shared memory, the rotations
+as a list in layer order).  On a CPU tensor it runs the plain PyTorch
+version (:func:`repro_torch.kernels.ref.mesh_apply_ref`).
 
 ``spec`` is a :class:`repro_torch.core.unitary.MeshSpec`; only its numpy
 layer tables are read here.
@@ -18,20 +20,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import build
-from .ptc_block_matmul import MAX_K
+from .ptc_block_matmul import MAX_K, kernel_k
 from .ref import mesh_apply_ref
 
 __all__ = ["mesh_apply", "mesh_apply_batched", "mesh_apply_plain",
-           "layer_tables", "rotation_tables", "route", "MAX_K"]
+           "layer_tables", "rotation_tables", "route", "narrow_plan", "NarrowPlan", "mesh_lib", "MAX_K"]
 
 NAME = "mesh_apply"                  # launch counter, k <= MAX_K
 NAME_WIDE = "mesh_apply_wide"        # launch counter, k > MAX_K
-_MAX_ROW_TILES = 65535   # grid.y limit; the narrow kernel's tiles are 256 rows
+_KINDS = {"clements": 0, "reck": 1}  # the narrow kernel's kind argument
 
 
 def route(k: int) -> str:
@@ -40,16 +43,21 @@ def route(k: int) -> str:
     return "narrow" if k <= MAX_K else "wide"
 
 
-def _lib():
+def mesh_lib():
+    """The loaded ``mesh_apply`` library (both routes, and the narrow
+    route's earlier layered kernel)."""
     lib = build.library(NAME)
     fn = lib.mesh_apply_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong] + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
+        head = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong]
+        fn.argtypes = head + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        # the narrow route's earlier design, timed beside it
+        layered = lib.mesh_apply_layered_f32
+        layered.argtypes = head + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        layered.restype = ctypes.c_int
         wide = lib.mesh_apply_wide_f32
         wide.argtypes = [ctypes.c_void_p, ctypes.c_longlong] \
             + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
@@ -61,7 +69,8 @@ def _lib():
 @functools.lru_cache(maxsize=64)
 def layer_tables(k: int, kind: str, device: torch.device):
     """The spec's layer tables on ``device``: (slot, partner, sign) for the
-    plain version and the kernel's upper-wire slot table."""
+    plain version and the layered kernel's upper-wire slot table (the
+    narrow route's earlier design, timed beside it)."""
     from ..core.unitary import mesh_spec
     spec = mesh_spec(k, kind)
     up = np.where(spec.layer_sign < 0, spec.layer_slot, -1).astype(np.int32)
@@ -84,6 +93,55 @@ def rotation_tables(k: int, kind: str, device: torch.device):
     start = np.concatenate([[0], np.cumsum(upper.sum(1))]).astype(np.int32)
     as_t = functools.partial(torch.as_tensor, device=device)
     return as_t(wire), as_t(slot), as_t(start)
+
+
+class NarrowPlan(NamedTuple):
+    """The narrow kernel's launch for a (k, kind) mesh: the compiled width
+    ``kk`` whose pattern it runs, the first of kk's wires that the k mesh
+    takes, and each pattern rotation's phase slot in the k mesh (-1 where
+    it has none; None where k is kk itself, the slot then the rotation's
+    own index)."""
+    kk: int
+    off: int
+    slot: np.ndarray | None
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_plan(k: int, kind: str) -> NarrowPlan:
+    """The k mesh as a part of the compiled kk mesh (kk the least of 4, 8,
+    9, 16, 32 that holds k): a clements mesh on wires 0 .. k - 1 (layers
+    0 .. k - 1 of kk's, their pairs below k), a reck mesh on wires
+    kk - k .. kk - 1 (kk's last k - 1 nulling columns).  Each of the k
+    mesh's rotations, in its application order, is matched to the next
+    pattern rotation on the same wires; rotations on disjoint wires
+    commute, so the kernel's order gives the layered order's bits.  The
+    kernel's compiled pattern (``csrc/mesh_apply.cu::pattern_upper``) is
+    the kk mesh's own application order, ``mesh_spec(kk, kind).pairs``."""
+    from ..core.unitary import mesh_spec
+    if not 2 <= k <= MAX_K:
+        raise ValueError(f"mesh_apply: k = {k} outside 2..{MAX_K}")
+    kk = kernel_k(k)
+    upper = mesh_spec(kk, kind).pairs[:, 0]
+    if kk == k:
+        return NarrowPlan(kk, 0, None)
+    off = kk - k if kind == "reck" else 0
+    pairs = mesh_spec(k, kind).pairs
+    slot = np.full(upper.shape, -1, dtype=np.int32)
+    j = 0
+    for t, a in enumerate(upper):
+        if j < len(pairs) and pairs[j][0] == a - off:
+            slot[t] = j
+            j += 1
+    if j != len(pairs):
+        raise AssertionError(f"mesh_apply: the {kind} mesh of k = {k} is "
+                             f"not a part of the k = {kk} pattern")
+    return NarrowPlan(kk, off, slot)
+
+
+@functools.lru_cache(maxsize=64)
+def _narrow_slots(k: int, kind: str, device: torch.device):
+    slot = narrow_plan(k, kind).slot
+    return None if slot is None else torch.as_tensor(slot, device=device)
 
 
 def mesh_apply_plain(spec, phases: torch.Tensor, x: torch.Tensor,
@@ -142,7 +200,7 @@ def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
     wide = route(k) == "wide"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        lib = _lib()
+        lib = mesh_lib()
         dptr = 0 if d is None else d.data_ptr()
         if wide:
             wire, slot, start = rotation_tables(k, spec.kind, x.device)
@@ -152,13 +210,12 @@ def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
                 out.data_ptr(), r * k, y_rstride, y_wstride, b, r, k, t,
                 start.shape[0] - 1, stream)
         else:
-            if -(-r // 256) > _MAX_ROW_TILES:
-                raise ValueError(f"mesh_apply: too many rows per mesh ({r})")
-            up = layer_tables(k, spec.kind, x.device)[3]
+            slot = _narrow_slots(k, spec.kind, x.device)
             status = lib.mesh_apply_f32(
                 x.data_ptr(), x_bstride, phases.data_ptr(), dptr,
-                up.data_ptr(), out.data_ptr(), r * k, y_rstride, y_wstride,
-                b, r, k, t, up.shape[0], stream)
+                0 if slot is None else slot.data_ptr(), out.data_ptr(),
+                r * k, y_rstride, y_wstride, b, r, k, t, _KINDS[spec.kind],
+                narrow_plan(k, spec.kind).off, stream)
     build.check_status(NAME, status)
     build.launch_counts[NAME_WIDE if wide else NAME] += 1
     return out

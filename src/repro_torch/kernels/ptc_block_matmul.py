@@ -47,7 +47,7 @@ __all__ = ["ptc_block_matmul", "route", "plan", "Plan", "kernel_k",
 
 LIB = "ptc_block_matmul"
 LIB_WIDE = "ptc_wide"                     # the k > MAX_K routes of all three
-LIB_TC = "ptc_wide_tc"                    # the tensor-core forward and Σ-grad
+LIB_TC = "ptc_wide_tc"                    # the tensor-core routes of all three
 NAME = "ptc_block_matmul"                 # launch counter, product route
 NAME_PER_BLOCK = "ptc_block_matmul_perblock"
 NAME_WIDE = "ptc_block_matmul_wide"
@@ -145,15 +145,18 @@ def wide_lib():
 
 def tc_lib():
     """The loaded ``ptc_wide_tc`` library (the tensor-core routes of
-    ``ptc_block_matmul`` and ``sigma_grad``)."""
+    ``ptc_block_matmul``, ``sigma_grad`` and ``feedback_matmul``)."""
     lib = build.library(LIB_TC)
     if lib.ptc_tc_forward.argtypes is None:
         lib.ptc_tc_forward.argtypes = \
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ptc_tc_sigma.argtypes = \
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ptc_tc_feedback.argtypes = \
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ptc_tc_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        for fn in (lib.ptc_tc_forward, lib.ptc_tc_sigma, lib.ptc_tc_tile):
+        for fn in (lib.ptc_tc_forward, lib.ptc_tc_sigma, lib.ptc_tc_feedback,
+                   lib.ptc_tc_tile):
             fn.restype = ctypes.c_int
     return lib
 

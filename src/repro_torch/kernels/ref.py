@@ -11,7 +11,7 @@ import torch
 
 __all__ = ["ptc_block_matmul_ref", "mesh_apply_ref", "sigma_grad_ref",
            "ptc_block_matmul_tc_ref", "sigma_grad_tc_ref", "split_bf16",
-           "feedback_matmul_ref", "paged_gather_ref", "paged_scatter_ref",
+           "feedback_matmul_ref", "feedback_matmul_tc_ref", "paged_gather_ref", "paged_scatter_ref",
            "prefill_attention_ref", "NEG_INF"]
 
 NEG_INF = -2.0 ** 30    # prefill attention's finite floor for masked logits
@@ -103,6 +103,25 @@ def feedback_matmul_ref(dy, u, s, v, mask):
     gus = gu * s.to(f32) * mask.to(f32).T[None, :, :, None]     # Σ ⊙ · 𝑃_W
     dx = torch.einsum("pqkj,tpqk->tqj", v.to(f32), gus)          # V ·
     return dx.reshape(dy.shape[0], q * k).to(dy.dtype)
+
+
+def feedback_matmul_tc_ref(dy, u, s, v, mask):
+    """The tensor-core route's roundings of :func:`feedback_matmul_ref`:
+    U_pq diag(s_pq) scaled by mask[q, p] in fp32 and rounded once to bf16,
+    W̃_pq = (U diag(s) mask) V*_pq summed in fp32 and rounded once to bf16,
+    dx = δy W̃ summed in fp32 and rounded to bf16 (the kernel sums in
+    another order and skips the masked blocks, which add zeros here).
+
+    dy: (T, P·k); u,v: (P, Q, k, k); s: (P, Q, k), all bf16; mask: (Q, P)
+    scaled fp32  →  dx: (T, Q·k) bf16
+    """
+    p, q, k, _ = u.shape
+    f32, b16 = torch.float32, torch.bfloat16
+    us = (u.to(f32) * s.to(f32)[:, :, None, :]) * mask.to(f32).T[:, :, None,
+                                                                 None]
+    w = torch.einsum("pqia,pqaj->piqj", us.to(b16).to(f32), v.to(f32))
+    w = w.to(b16).to(f32).reshape(p * k, q * k)
+    return (dy.to(f32) @ w).to(b16)
 
 
 def mesh_apply_ref(x, phases, layer_slot, layer_partner, layer_sign, d=None):

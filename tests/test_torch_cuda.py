@@ -38,18 +38,22 @@ package, so the repository's conftest is not needed)::
   128, fp32 (1e-4) and bf16 (2^-7 for the bf16 outputs y and dx; ds at
   1e-4), T at the 128-row tile's edges, feedback masks of density 0, 0.5,
   1 and btopk; reruns bitwise, every call on the wide route; the kernel's
-  tile is the wrapper's ``WIDE_TILE``.  ``mesh_apply``'s wide route
-  (``build_unitary`` and rows of their own, reck and clements) at 1e-5.
-* The tensor-core routes (bf16 at k 64 and 128) of ``ptc_block_matmul``
-  and ``sigma_grad`` against their plain versions and the plain
-  emulations of their roundings, T 1 to 4096, P or Q ragged against the
-  128 × 128 tile at k = 64, with and without a column scale off bf16's
-  grid: y within 2^-7 of its largest entry, ds within 1e-4 and its
-  least-squares scale within 5e-4 of 1; reruns bitwise; the column scale
-  bit for bit the kernel fed the plain bf16 split of the fp32 product;
-  ``force_route="wide"`` still reaches the CUDA cores for bf16, and
-  ``"wide_tc"`` is refused for fp32 and k = 100; the kernel's tile is the
-  wrapper's ``TC_TILE``.
+  tile is the wrapper's ``WIDE_TILE``.  ``mesh_apply``'s narrow route
+  (k 2 to 32, each compiled pattern and the slot tables, both output
+  layouts) and wide route (``build_unitary`` and rows of their own, reck
+  and clements) at 1e-5.
+* The tensor-core routes (bf16 at k 64 and 128) of ``ptc_block_matmul``,
+  ``sigma_grad`` and ``feedback_matmul`` against their plain versions and
+  the plain emulations of their roundings (the feedback at masks of
+  density 0, 0.5, 1 and btopk, olmo-1b's up projection among its shapes),
+  T 1 to 4096, P or Q ragged against the 128 × 128 tile at k = 64, with
+  and without a column scale off bf16's grid: y within 2^-7 of its
+  largest entry, ds within 1e-4 and its least-squares scale within 5e-4
+  of 1; reruns bitwise; the column scale bit for bit the kernel fed the
+  plain bf16 split of the fp32 product;
+  ``force_route="wide"`` still reaches the CUDA cores for bf16 in all
+  three, and ``"wide_tc"`` is refused for fp32 and k = 100; the kernel's
+  tile is the wrapper's ``TC_TILE``.
 * The CUDA-core ``prefill_attention`` route (fp32 q; fp32 q over bf16
   K/V; bf16 at head dims other than 64 and 128) over the 12 (blk, window,
   cap) cases at 2e-5, head dims 5, 96, 200 and 256, reruns bitwise; a
@@ -392,13 +396,14 @@ def test_wide_ptc_routes_match_plain_version(card, t, p, q, k, dtype,
     dx = feedback_matmul(dy, u, s, v, mask)
     torch.cuda.synchronize()
     launched = ("ptc_block_matmul_wide" + tc, "sigma_grad_wide" + tc,
-                "feedback_matmul_wide")
+                "feedback_matmul_wide" + tc)
     for name in launched:
         assert build.launch_counts[name] - before[name] == 1, name
     for name in ("ptc_block_matmul", "ptc_block_matmul_perblock",
                  "sigma_grad", "feedback_matmul", "ptc_block_matmul_wide",
                  "ptc_block_matmul_wide_tc", "sigma_grad_wide",
-                 "sigma_grad_wide_tc"):
+                 "sigma_grad_wide_tc", "feedback_matmul_wide",
+                 "feedback_matmul_wide_tc"):
         if name not in launched:
             assert build.launch_counts[name] == before[name], name
     assert y.dtype == dtype and dx.dtype == dtype
@@ -514,30 +519,82 @@ def test_wide_tc_column_scale_on_bf16_grid_skips_only_zeros(card, t, p, q,
     assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v, col)) < 1e-4
 
 
+@pytest.mark.parametrize("t,p,q,k", _TC + [(4096, 64, 16, 128),
+                                            (300, 5, 3, 64)])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0, "btopk"])
+def test_wide_tc_feedback_matches_plain_version(card, t, p, q, k, density):
+    """bf16 at k 64 and 128 on the tensor cores: dx within 2^-7 of its
+    largest entry against the plain version and the plain emulation of
+    the route's roundings; reruns bitwise; density 0 an exact zero."""
+    dy, _, u, s, v = (a.to(torch.bfloat16)
+                      for a in _sigma_inputs(t, p, q, k, seed=11))
+    gen = torch.Generator("cuda").manual_seed(t + p + k)
+    mask = _masks(gen, q, p, density)
+    before = dict(build.launch_counts)
+    dx = feedback_matmul(dy, u, s, v, mask)
+    torch.cuda.synchronize()
+    assert build.launch_counts["feedback_matmul_wide_tc"] \
+        - before["feedback_matmul_wide_tc"] == 1
+    assert build.launch_counts["feedback_matmul_wide"] \
+        == before["feedback_matmul_wide"]
+    assert dx.dtype == torch.bfloat16 and dx.shape == (t, q * k)
+    assert torch.equal(dx, feedback_matmul(dy, u, s, v, mask))
+    if density == 0.0:
+        assert int(torch.count_nonzero(dx)) == 0
+        return
+    assert bool(torch.isfinite(dx.float()).all())
+    assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < 2 ** -7
+    assert _rel(dx, ref.feedback_matmul_tc_ref(dy, u, s, v, mask)) < 2 ** -7
+    # q blocks the mask keeps nowhere: exact zeros in their columns
+    for qi in range(q):
+        if not bool(mask[qi].any()):
+            assert int(torch.count_nonzero(dx[:, qi * k:(qi + 1) * k])) == 0
+
+
+def test_wide_tc_feedback_masked_q_row_is_zero(card):
+    t, p, q, k = 300, 4, 3, 128
+    dy, _, u, s, v = (a.to(torch.bfloat16)
+                      for a in _sigma_inputs(t, p, q, k, seed=13))
+    mask = torch.full((q, p), 1.5, device="cuda")
+    mask[1] = 0.0
+    mask[2, ::2] = 0.0
+    dx = feedback_matmul(dy, u, s, v, mask)
+    assert int(torch.count_nonzero(dx[:, k:2 * k])) == 0
+    assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < 2 ** -7
+
+
 @pytest.mark.parametrize("k", [64, 128])
 def test_wide_route_still_takes_bf16_when_forced(card, k):
     dy, x, u, s, v = (a.to(torch.bfloat16)
                       for a in _sigma_inputs(129, 2, 3, k, seed=3))
+    mask = _masks(torch.Generator("cuda").manual_seed(k), 3, 2, "btopk")
     before = dict(build.launch_counts)
     y = ptc_block_matmul(x, u, s, v, force_route="wide")
     ds = sigma_grad(dy, x, u, v, force_route="wide")
+    dx = feedback_matmul(dy, u, s, v, mask, force_route="wide")
     torch.cuda.synchronize()
-    for name in ("ptc_block_matmul_wide", "sigma_grad_wide"):
+    for name in ("ptc_block_matmul_wide", "sigma_grad_wide",
+                 "feedback_matmul_wide"):
         assert build.launch_counts[name] - before[name] == 1, name
-    for name in ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc"):
+    for name in ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc",
+                 "feedback_matmul_wide_tc"):
         assert build.launch_counts[name] == before[name], name
     assert _rel(y, ref.ptc_block_matmul_ref(x, u, s, v)) < 2 ** -7
     assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v)) < 1e-4
+    assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < 2 ** -7
 
 
 def test_wide_tc_refuses_fp32_and_other_k_on_the_card(card):
     for k, dtype in ((128, torch.float32), (100, torch.bfloat16)):
         dy, x, u, s, v = (a.to(dtype)
                           for a in _sigma_inputs(16, 2, 2, k, seed=1))
+        mask = torch.ones((2, 2), device="cuda")
         with pytest.raises(ValueError, match="no route"):
             ptc_block_matmul(x, u, s, v, force_route="wide_tc")
         with pytest.raises(ValueError, match="no route"):
             sigma_grad(dy, x, u, v, force_route="wide_tc")
+        with pytest.raises(ValueError, match="no route"):
+            feedback_matmul(dy, u, s, v, mask, force_route="wide_tc")
 
 
 def test_tc_kernel_tile_is_the_plan(card):
@@ -552,6 +609,42 @@ def test_wide_kernel_tile_is_the_plan(card):
     out = (ctypes.c_int * 3)()
     assert wide_lib().ptc_wide_tile(out) == 0
     assert tuple(out) == WIDE_TILE
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 8, 9, 13, 16, 20, 32])
+@pytest.mark.parametrize("kind", ["reck", "clements"])
+def test_narrow_mesh_apply_matches_plain_version(card, k, kind):
+    """The narrow route's compiled patterns (k 4, 8, 9, 16, 32 exactly,
+    every other k under its slot table) at 1e-5: build_unitary, rows of
+    their own, one mesh over 1000 rows in both output layouts (row groups
+    stored through shared memory and from registers); reruns bitwise."""
+    from repro_torch.core import unitary as un
+    from repro_torch.kernels import mesh_apply_plain
+    from repro_torch.kernels.mesh_apply import mesh_apply_batched
+    spec = un.mesh_spec(k, kind)
+    gen = torch.Generator("cuda").manual_seed(k)
+    ph = torch.randn((37, spec.n_rot), generator=gen, device="cuda") * 3
+    d = torch.where(torch.rand((37, k), generator=gen, device="cuda") < 0.5,
+                    1.0, -1.0)
+    x = torch.randn((37, 5, k), generator=gen, device="cuda")
+    x1 = torch.randn((1, 1000, k), generator=gen, device="cuda")
+    before = build.launch_counts["mesh_apply"]
+    u = un.build_unitary(spec, ph, d)
+    y = mesh_apply_batched(spec, ph, x, d)
+    y1 = mesh_apply_batched(spec, ph[:1], x1)
+    y1t = mesh_apply_batched(spec, ph[:1], x1, transpose_out=True)
+    torch.cuda.synchronize()
+    assert build.launch_counts["mesh_apply"] - before == 4
+    eye = torch.eye(k, device="cuda")[None]
+    assert float((u - mesh_apply_plain(spec, ph, eye, d, transpose_out=True))
+                 .abs().max()) < 1e-5
+    assert float((y - mesh_apply_plain(spec, ph, x, d)).abs().max()) < 1e-5
+    assert float((y1 - mesh_apply_plain(spec, ph[:1], x1)).abs().max()) \
+        < 1e-5
+    assert float((y1t - mesh_apply_plain(spec, ph[:1], x1,
+                                         transpose_out=True)).abs().max()) \
+        < 1e-5
+    assert torch.equal(u, un.build_unitary(spec, ph, d))
 
 
 @pytest.mark.parametrize("k", [33, 64, 100, 128])
