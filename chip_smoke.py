@@ -22,11 +22,12 @@ Phases:
    ``feedback_matmul`` and ``mesh_apply`` each a wide route for k > 32;
    the three PTC kernels a tensor-core route for bf16 at k 64 and 128,
    timed beside the CUDA-core wide route forced on the same inputs and
-   beside fp32 and bf16 one-call yardsticks; ``mesh_apply``'s
-   narrow route timed in turns with its earlier layered kernel), and
-   hold each
-   against its plain
-   PyTorch version on the card: the reference package's kernel-test
+   beside fp32 and bf16 one-call yardsticks; the forward and the
+   Σ-gradient a 3xTF32 tensor-core route for fp32 at k 64 and 128, timed
+   in turns with the CUDA-core wide route forced on the same fp32 inputs
+   and beside fp32 and one-pass TF32 one-call yardsticks), and hold each
+   against its plain PyTorch version on the card: the reference
+   package's kernel-test
    geometries, ragged row counts, feedback masks of density 0, 0.5, 1
    and btopk, k of 33, 64, 100 and 128 in fp32 and bf16, meshes of k 2
    to 32, duplicate
@@ -57,7 +58,8 @@ Phases:
    same step through the
    plain versions (the Σ-gradients' least-squares scale within 5e-4 of
    1), its device time by kernel from ``torch.profiler``; the same step
-   with fp32 bases on the three CUDA-core wide routes; then the up
+   with fp32 bases on the two 3xTF32 routes and the CUDA-core wide
+   feedback, held at 1e-4 and profiled the same way; then the up
    projection's 1,024 blocks realized through ``realized_unitaries``
    (2,048 reck meshes of k = 128 on the wide mesh route).
 6. ``gateway`` — qwen3-4b at full width (36 layers, d_model 2560, k = 128
@@ -76,7 +78,8 @@ The last two lines are a ``{"kernels": [...]}`` JSON summary and
 counted over its main path with every count set to 0 just before it: the
 PTC kernels over the last quickstart path driven (full width, else
 parity), the tensor-core routes over the blocked_lm bf16 step, the
-CUDA-core wide routes over its fp32 step, the wide mesh route over its
+3xTF32 and CUDA-core wide routes over its fp32 step (which launches the
+CUDA-core forward and Σ-gradient no more), the wide mesh route over its
 realization, the serving kernels over the gateway's
 qwen3-4b run, the CUDA-core prefill route (which that bf16 run never
 takes) over the smoke-width fp32 gateways; they are null when that path
@@ -137,7 +140,10 @@ REPLACES = {"ptc_block_matmul": "src/repro/kernels/ptc_block_matmul.py:46",
                 "src/repro/kernels/ptc_block_matmul.py:46",
             "sigma_grad_wide_tc": "src/repro/kernels/sigma_grad.py:43",
             "feedback_matmul_wide_tc":
-                "src/repro/kernels/feedback_matmul.py:48"}
+                "src/repro/kernels/feedback_matmul.py:48",
+            "ptc_block_matmul_wide_3xtf32":
+                "src/repro/kernels/ptc_block_matmul.py:46",
+            "sigma_grad_wide_3xtf32": "src/repro/kernels/sigma_grad.py:43"}
 # the port's kernels by their device function names (a wrapper may launch
 # several), for the profiles' per-kernel sums
 KERNEL_FAMILIES = {
@@ -149,9 +155,12 @@ KERNEL_FAMILIES = {
 }
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 without tensor
 # cores, dense bf16 on the tensor cores (bf16 in, fp32 accumulate: the
-# least-time route for attention's products), and HBM3 bandwidth
+# least-time route for attention's products), dense TF32 on the tensor
+# cores (a 3xTF32 product takes three passes: 495 / 3 TFLOP/s of fp32
+# work), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # the reference quickstart on a CPU (examples/quickstart.py): dense
 # accuracy, IC identity MSE, PM layer-1 error after OSP, mapped accuracy,
@@ -269,24 +278,6 @@ def ptxas_summary(log: str) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
-def mesh_layered(torch, spec, phases, x, d):
-    """build_unitary's call (x shared, output transposed) through the
-    narrow route's earlier design, the layered kernel (a (layer, wire)
-    table of phase slots scanned per rotation), called through its library
-    entry: for timing it beside the route's kernel; counts no launch."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels.mesh_apply import layer_tables, mesh_lib
-    b, k, r = phases.shape[0], spec.k, x.shape[1]
-    up = layer_tables(k, spec.kind, phases.device)[3]
-    out = torch.empty((b, k, r), dtype=torch.float32, device=phases.device)
-    status = mesh_lib().mesh_apply_layered_f32(
-        x.data_ptr(), 0, phases.data_ptr(), d.data_ptr(), up.data_ptr(),
-        out.data_ptr(), r * k, 1, r, b, r, k, spec.n_rot, up.shape[0],
-        torch.cuda.current_stream().cuda_stream)
-    build.check_status("mesh_apply", status)
-    return out
-
-
 def kernel_phase(torch, parent=None) -> dict:
     from repro_torch.core import unitary as un
     from repro_torch.kernels import build, mesh_apply, mesh_apply_plain
@@ -362,31 +353,17 @@ def kernel_phase(torch, parent=None) -> dict:
     check(full_err < 1e-5, f"mesh_apply full width: max abs err "
                            f"{full_err:.2e} >= 1e-5")
     worst = max(worst, full_err)
-    # the narrow route's earlier design (the layered kernel) on the same
-    # inputs, called through the library: held to the same limit
-    layered = mesh_layered(torch, spec, phb, eye, db)
-    old_err = float((layered - ur).abs().max())
-    check(old_err < 1e-5, f"mesh_apply layered kernel: max abs err "
-                          f"{old_err:.2e} >= 1e-5")
     print(f"[check] mesh_apply: k in 2,4,8,9,13,16,32 x clements,reck, 24 "
           f"and 1000 rows (both output layouts), batched (identity and rows "
           f"of their own); full width {nb} meshes x 9 rows: max abs err "
-          f"{worst:.2e}, the layered kernel {old_err:.2e} (tol 1e-5)")
-    del layered, ur
-    # build_unitary's call on one identity made outside the timing, through
-    # the route's kernel and through the layered kernel, in turns: new,
-    # layered, layered, new
-    def fn_new():
-        return mesh_apply_batched(spec, phb, eye, db, transpose_out=True)
-
-    def fn_old():
-        return mesh_layered(torch, spec, phb, eye, db)
-
-    times = [cuda_ms(f, 50) for f in (fn_new, fn_old, fn_old, fn_new)]
-    ms, old_ms = min(times[0], times[3]), min(times[1], times[2])
+          f"{worst:.2e} (tol 1e-5)")
+    del ur
+    # build_unitary's call on one identity made outside the timing
+    ms = cuda_ms(lambda: mesh_apply_batched(spec, phb, eye, db,
+                                            transpose_out=True), 50)
     plain = cuda_ms(lambda: mesh_apply_plain(spec, phb, eye, db,
                                              transpose_out=True), 5)
-    t_rot, layers = spec.n_rot, spec.n_layers
+    t_rot = spec.n_rot
     # per mesh: one sincos (counted as 2 operations) per phase, 6 per
     # rotation per row, one sign multiply per wire per row
     flops = nb * (2 * t_rot + k * (6 * t_rot + k))
@@ -394,11 +371,8 @@ def kernel_phase(torch, parent=None) -> dict:
     b_ms, b_by = bound_ms(flops, nbytes)
     print(f"[time] mesh_apply build_unitary ({nb} meshes x {k} rows, k={k}, "
           f"clements): kernel {ms:.4f} ms ({100 * b_ms / ms:.0f}% of the "
-          f"bound; in turns {times[0]:.4f}, {times[3]:.4f}), the layered "
-          f"kernel (the narrow route's earlier design) {old_ms:.4f} ms "
-          f"({100 * b_ms / old_ms:.0f}%; {times[1]:.4f}, {times[2]:.4f}), "
-          f"plain {plain:.4f} ms, no one-call yardstick, bound {b_ms:.4f} ms "
-          f"({b_by})")
+          f"bound), plain {plain:.4f} ms, no one-call yardstick, bound "
+          f"{b_ms:.4f} ms ({b_by})")
     summary["mesh_apply"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
                                  library_ms=None, bound_ms=b_ms,
                                  bound_by=b_by)
@@ -835,9 +809,13 @@ OLMO_LINEARS = (("q", 2048, 2048), ("k", 2048, 2048), ("v", 2048, 2048),
 BLOCKED_LM_T = 4096     # one train_4k sequence (src/repro/configs/common.py:53)
 WIDE_KERNELS = ("ptc_block_matmul_wide", "sigma_grad_wide",
                 "feedback_matmul_wide")
+# the 3xTF32 routes of the forward and the Σ-gradient (fp32 at k 64 and
+# 128); with the CUDA-core wide feedback they are the blocked LM's fp32
+# step
+TF32X3_KERNELS = ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32")
+FP32_STEP_KERNELS = TF32X3_KERNELS + ("feedback_matmul_wide",)
 # the tensor-core routes of the three PTC kernels (bf16 at k 64 and 128):
-# the blocked LM's bf16 step takes these; an fp32 step takes the three
-# CUDA-core wide routes
+# the blocked LM's bf16 step takes these
 TC_KERNELS = ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc",
               "feedback_matmul_wide_tc")
 NARROW_PTC = ("ptc_block_matmul", "ptc_block_matmul_perblock", "sigma_grad",
@@ -849,8 +827,9 @@ def wide_kernels(torch, gen) -> dict:
     against their plain versions (k 33, 64, 100, 128; fp32 and bf16; T at
     the 128-row tile's edges; feedback masks of density 0, 0.5, 1 and
     btopk; reruns bitwise), then each timed at olmo-1b's up projection
-    (2048 → 8192, T 4096, bf16 operands) and at 2,048 reck meshes of
-    k = 128."""
+    (2048 → 8192, T 4096; bf16 operands, and fp32 ones for the 3xTF32
+    routes and the CUDA-core routes timed in turns with them) and at
+    2,048 reck meshes of k = 128."""
     import ctypes
     from repro_torch.core import unitary as un
     from repro_torch.core.ptc import PTCParams, compose_weight, unblockize
@@ -860,7 +839,8 @@ def wide_kernels(torch, gen) -> dict:
                                      ptc_block_matmul, ref, sigma_grad)
     from repro_torch.kernels.mesh_apply import mesh_apply_batched
     from repro_torch.kernels.ptc_block_matmul import (TC_K, TC_TILE,
-                                                      WIDE_TILE, tc_lib,
+                                                      TF32X3_TILE, WIDE_TILE,
+                                                      tc_lib, tf32x3_lib,
                                                       wide_lib)
 
     dev = torch.device("cuda")
@@ -872,6 +852,10 @@ def wide_kernels(torch, gen) -> dict:
     check(tc_lib().ptc_tc_tile(out) == 0 and tuple(out) == TC_TILE,
           f"ptc_wide_tc: the kernel's tile {tuple(out)} is not the plan's "
           f"{TC_TILE}")
+    check(tf32x3_lib().ptc_3xtf32_tile(out) == 0
+          and tuple(out) == TF32X3_TILE,
+          f"ptc_wide_3xtf32: the kernel's tile {tuple(out)} is not the "
+          f"plan's {TF32X3_TILE}")
 
     def mk(*shape, dtype=f32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -890,10 +874,11 @@ def wide_kernels(torch, gen) -> dict:
     # entry; ds is fp32 whatever the operands
     # bf16 at k 64 and 128 takes the tensor cores (y from U diag(s) and W
     # each rounded once to bf16: still one bf16 ulp of y, 2^-7; ds at 1e-4
-    # with col ⊙ δy split into bf16 hi + lo), every other case the CUDA
-    # cores; the least-squares scale of every column-scaled ds within 5e-4
-    # of 1
-    sweep = WIDE_KERNELS + TC_KERNELS
+    # with col ⊙ δy split into bf16 hi + lo), fp32 there the forward and
+    # the Σ-gradient in 3xTF32 (y and ds at 1e-5: about fp32's own sums),
+    # every other case the CUDA cores; the least-squares scale of every
+    # column-scaled ds within 5e-4 of 1
+    sweep = WIDE_KERNELS + TC_KERNELS + TF32X3_KERNELS
     worst = {n: [0.0, 0.0] for n in sweep}      # rel, abs
     n_cases = dict.fromkeys(sweep, 0)
     worst_scale = 0.0
@@ -910,7 +895,8 @@ def wide_kernels(torch, gen) -> dict:
     for (t, p, q, k) in ((37, 2, 3, 33), (64, 2, 2, 64), (129, 3, 2, 100),
                          (127, 3, 3, 128), (128, 2, 3, 128), (129, 3, 2, 128),
                          (1, 1, 1, 128), (300, 1, 2, 128), (300, 3, 5, 64),
-                         (257, 4, 3, 128)):
+                         (257, 4, 3, 128), (1, 3, 3, 64), (127, 2, 3, 64),
+                         (128, 3, 2, 64), (129, 5, 3, 64)):
         for dtype in (f32, bf16):
             tol = 1e-4 if dtype == f32 else 2 ** -7
             x, dy = mk(t, q * k, dtype=dtype), mk(t, p * k, dtype=dtype)
@@ -918,13 +904,17 @@ def wide_kernels(torch, gen) -> dict:
                 mk(p, q, k, k, dtype=dtype)
             what = f"{(t, p, q, k)} {dtype}"
             tc = "_tc" if dtype == bf16 and k in TC_K else ""
-            fwd, sig = "ptc_block_matmul_wide" + tc, "sigma_grad_wide" + tc
+            x3 = dtype == f32 and k in TC_K
+            fwd = "ptc_block_matmul_wide" + tc + ("_3xtf32" if x3 else "")
+            sig = "sigma_grad_wide" + tc + ("_3xtf32" if x3 else "")
+            tol_fs = 1e-5 if x3 else tol        # the forward's y
+            tol_ds = 1e-5 if x3 else 1e-4
             y = ptc_block_matmul(x, u, s, v)
-            record(fwd, what, y, ref.ptc_block_matmul_ref(x, u, s, v), tol)
+            record(fwd, what, y, ref.ptc_block_matmul_ref(x, u, s, v), tol_fs)
             check(torch.equal(y, ptc_block_matmul(x, u, s, v)),
                   f"{fwd} {what}: two runs differ")
             ds = sigma_grad(dy, x, u, v)
-            record(sig, what, ds, ref.sigma_grad_ref(dy, x, u, v), 1e-4)
+            record(sig, what, ds, ref.sigma_grad_ref(dy, x, u, v), tol_ds)
             check(torch.equal(ds, sigma_grad(dy, x, u, v)),
                   f"{sig} {what}: two runs differ")
             # a column scale off bf16's grid, applied in fp32
@@ -932,7 +922,7 @@ def wide_kernels(torch, gen) -> dict:
                 .float() / 0.6
             ds = sigma_grad(dy, x, u, v, col)
             want = ref.sigma_grad_ref(dy, x, u, v, col)
-            record(sig, f"{what} col", ds, want, 1e-4)
+            record(sig, f"{what} col", ds, want, tol_ds)
             check(torch.equal(ds, sigma_grad(dy, x, u, v, col)),
                   f"{sig} {what} col: two runs differ")
             scale = ls_scale(ds, want)
@@ -960,8 +950,10 @@ def wide_kernels(torch, gen) -> dict:
               f"{n} {n_cases[n]} cases, max rel err {worst[n][0]:.2e}"
               for n in sweep)
           + " (tol 1e-4 fp32 and ds; 2^-7 for bf16 y and dx: one bf16 "
-            "rounding; bf16 at k 64 and 128 on the tensor cores, the rest "
-            "on the CUDA cores); ds also under a column scale of 1/0.6 "
+            "rounding; 1e-5 for the 3xTF32 y and ds; bf16 at k 64 and 128 "
+            "on the tensor cores, fp32 there in 3xTF32 but the feedback, "
+            "the rest on the CUDA cores); ds also under a column scale of "
+            "1/0.6 "
             f"(fp32; least-squares scale within {worst_scale:.1e} of 1, tol "
             "5e-4); feedback masks of density 0, 0.5, 1 and btopk 0.6 "
             "(density 0 an exact zero); reruns bitwise")
@@ -989,7 +981,8 @@ def wide_kernels(torch, gen) -> dict:
           "mesh_apply: a k > 32 call did not take the wide route")
 
     summary = {}
-    # olmo-1b's up projection, bf16 operands as the blocked LM passes them
+    # olmo-1b's up projection, bf16 operands as the blocked LM passes them;
+    # the same values widened to fp32 for the fp32 step's routes
     t, p, q, k = BLOCKED_LM_T, 64, 16, 128
     x, dy = mk(t, q * k, dtype=bf16), mk(t, p * k, dtype=bf16)
     u, s, v = mk(p, q, k, k, dtype=bf16), mk(p, q, k, dtype=bf16), \
@@ -1000,76 +993,138 @@ def wide_kernels(torch, gen) -> dict:
     col = column_mask(gen, t, SparsityConfig(alpha_c=0.6,
                                              column_norm="exp"))
     kept = int(torch.count_nonzero(mask))
-    w32 = unblockize(compose_weight(PTCParams(u.float(), s.float(),
-                                              v.float())))
-    wm32 = unblockize(compose_weight(PTCParams(u.float(), s.float(),
-                                               v.float()))
+    x32, dy32, dyc32 = x.float(), dy.float(), dy.float() * col[:, None]
+    u32, s32, v32 = u.float(), s.float(), v.float()
+    w32 = unblockize(compose_weight(PTCParams(u32, s32, v32)))
+    wm32 = unblockize(compose_weight(PTCParams(u32, s32, v32))
                       * mask.T[:, :, None, None])
     w16 = w32.to(bf16)                  # composed and rounded outside
     wm16 = wm32.to(bf16)
-    x32, dy32, dyc32 = x.float(), dy.float(), dy.float() * col[:, None]
-    eb = 2                                   # bytes of a bf16 operand
     fwd_flops = 2 * k * k * t * p * q + (2 * k ** 3 + k * k) * p * q
-    fwd_bytes = eb * (x.numel() + u.numel() + s.numel() + v.numel()
-                      + t * p * k)
     sig_flops = 2 * k * k * t * p * q + (2 * k ** 3 + 2 * k * k) * p * q
-    sig_bytes = eb * (dy.numel() + x.numel() + u.numel() + v.numel()) \
-        + 4 * p * q * k
+
+    def op_bytes(eb, *ts, out=0, out_eb=4):
+        """bytes of the operands ``ts`` at ``eb`` bytes an element, and of
+        ``out`` outputs or column scales at ``out_eb``"""
+        return eb * sum(a.numel() for a in ts) + out_eb * out
 
     def sig_lib(d32):
         return lambda: torch.einsum("tpi,tqj,pqik,pqkj->pqk",
                                     d32.view(t, p, k), x32.view(t, q, k),
-                                    u.float(), v.float())
+                                    u32, v32)
+
+    def tf32_call(fn):
+        """fn with cuBLAS's one-pass TF32 products allowed, and the setting
+        restored after each call"""
+        def call():
+            before = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return fn()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = before
+        return call
 
     fb_flops = kept * (2 * k * k * t + 2 * k ** 3 + k * k)
-    fb_bytes = eb * (dy.numel() + kept * (2 * k * k + k) + t * q * k) \
+    # bf16 dy, the kept blocks' U, s and V*, dx; the fp32 mask
+    fb_bytes = 2 * (dy.numel() + kept * (2 * k * k + k) + t * q * k) \
         + 4 * mask.numel()
     fb_lib = (lambda: dy32 @ wm32, "fp32 dy @ masked composed unblockize(W)")
     fb_b16 = (lambda: dy @ wm16, "bf16 dy @ masked composed W")
     fwd_lib = (lambda: x32 @ w32.T, "fp32 x @ composed unblockize(W).T")
     fwd_b16 = (lambda: x @ w16.T, "bf16 x @ composed W.T")
+    fwd_tf32 = (tf32_call(lambda: x32 @ w32.T), "one-pass TF32 x @ W.T")
     sig_b16 = (lambda: dy.T @ x, "bf16 dy.T @ x (G alone)")
+    sig_tf32 = (tf32_call(sig_lib(dy32)), "one-pass TF32 einsum")
+
+    def fwd3():
+        return ptc_block_matmul(x32, u32, s32, v32)
+
+    def fwd_cc():
+        return ptc_block_matmul(x32, u32, s32, v32, force_route="wide")
+
+    def fwd32_plain():
+        return ref.ptc_block_matmul_ref(x32, u32, s32, v32)
+
+    def sig3():
+        return sigma_grad(dy32, x32, u32, v32)
+
+    def sig_cc():
+        return sigma_grad(dy32, x32, u32, v32, force_route="wide")
+
+    def sig32_plain():
+        return ref.sigma_grad_ref(dy32, x32, u32, v32)
+
+    # the fp32 routes in turns on the same inputs: 3xTF32, CUDA cores,
+    # CUDA cores, 3xTF32 (each the lesser of its two readings)
+    in_turns = {}
+    for new, old in ((fwd3, fwd_cc), (sig3, sig_cc)):
+        times = [cuda_ms(f, 5) for f in (new, old, old, new)]
+        in_turns[new] = (min(times[0], times[3]), (times[0], times[3]))
+        in_turns[old] = (min(times[1], times[2]), (times[1], times[2]))
     # (summary name or None, label, kernel, plain, fp32 one-call yardstick,
-    # bf16 yardstick or None, flops, bytes, tol, the kernel's own peak):
-    # the tensor-core routes first, then the CUDA-core wide routes forced
-    # on the same inputs
+    # second yardstick (bf16 or one-pass TF32) or None, flops, bytes, tol,
+    # the rate the kernel's products run at): the tensor-core routes on
+    # bf16 operands, the 3xTF32 routes on fp32 ones (3 TF32 passes: a third
+    # of the TF32 peak), then the CUDA-core wide routes forced on the same
+    # fp32 (forward, Σ-gradient) or bf16 (feedback) inputs
+    x3_peak = PEAK_TF32_FLOPS / 3
     rows = (
-        ("ptc_block_matmul_wide_tc", "ptc_block_matmul wide_tc",
+        ("ptc_block_matmul_wide_tc", "ptc_block_matmul wide_tc (bf16)",
          lambda: ptc_block_matmul(x, u, s, v),
          lambda: ref.ptc_block_matmul_ref(x, u, s, v), fwd_lib, fwd_b16,
-         fwd_flops, fwd_bytes, 2 ** -7, PEAK_BF16_FLOPS),
-        ("ptc_block_matmul_wide", "ptc_block_matmul wide (forced)",
-         lambda: ptc_block_matmul(x, u, s, v, force_route="wide"),
-         lambda: ref.ptc_block_matmul_ref(x, u, s, v), fwd_lib, fwd_b16,
-         fwd_flops, fwd_bytes, 2 ** -7, PEAK_FP32_FLOPS),
-        ("sigma_grad_wide_tc", "sigma_grad wide_tc, col given (hi + lo)",
-         lambda: sigma_grad(dy, x, u, v, col),
+         fwd_flops, op_bytes(2, x, u, s, v, out=t * p * k, out_eb=2),
+         2 ** -7, PEAK_BF16_FLOPS),
+        ("ptc_block_matmul_wide_3xtf32",
+         "ptc_block_matmul wide_3xtf32 (fp32)", fwd3, fwd32_plain, fwd_lib,
+         fwd_tf32, fwd_flops, op_bytes(4, x32, u32, s32, v32, out=t * p * k),
+         1e-5, x3_peak),
+        ("ptc_block_matmul_wide", "ptc_block_matmul wide (forced, fp32)",
+         fwd_cc, fwd32_plain, fwd_lib, fwd_tf32, fwd_flops,
+         op_bytes(4, x32, u32, s32, v32, out=t * p * k), 1e-4,
+         PEAK_FP32_FLOPS),
+        ("sigma_grad_wide_tc", "sigma_grad wide_tc (bf16), col given (hi + "
+         "lo)", lambda: sigma_grad(dy, x, u, v, col),
          lambda: ref.sigma_grad_ref(dy, x, u, v, col),
          (sig_lib(dyc32), "one fp32 einsum on col * dy"), sig_b16,
-         sig_flops, sig_bytes + 4 * t, 1e-4, PEAK_BF16_FLOPS),
-        (None, "sigma_grad wide_tc, col None",
+         sig_flops, op_bytes(2, dy, x, u, v, out=p * q * k + t), 1e-4,
+         PEAK_BF16_FLOPS),
+        (None, "sigma_grad wide_tc (bf16), col None",
          lambda: sigma_grad(dy, x, u, v),
          lambda: ref.sigma_grad_ref(dy, x, u, v),
-         (sig_lib(dy32), "one fp32 einsum"), sig_b16, sig_flops, sig_bytes,
-         1e-4, PEAK_BF16_FLOPS),
-        ("sigma_grad_wide", "sigma_grad wide (forced), col None",
-         lambda: sigma_grad(dy, x, u, v, force_route="wide"),
-         lambda: ref.sigma_grad_ref(dy, x, u, v),
-         (sig_lib(dy32), "one fp32 einsum"), sig_b16, sig_flops, sig_bytes,
-         1e-4, PEAK_FP32_FLOPS),
+         (sig_lib(dy32), "one fp32 einsum"), sig_b16, sig_flops,
+         op_bytes(2, dy, x, u, v, out=p * q * k), 1e-4, PEAK_BF16_FLOPS),
+        ("sigma_grad_wide_3xtf32", "sigma_grad wide_3xtf32 (fp32), col "
+         "given (off bf16's grid)",
+         lambda: sigma_grad(dy32, x32, u32, v32, col),
+         lambda: ref.sigma_grad_ref(dy32, x32, u32, v32, col),
+         (sig_lib(dyc32), "one fp32 einsum on col * dy"),
+         (tf32_call(sig_lib(dyc32)), "one-pass TF32 einsum on col * dy"),
+         sig_flops, op_bytes(4, dy32, x32, u32, v32, out=p * q * k + t),
+         1e-5, x3_peak),
+        (None, "sigma_grad wide_3xtf32 (fp32), col None", sig3, sig32_plain,
+         (sig_lib(dy32), "one fp32 einsum"), sig_tf32, sig_flops,
+         op_bytes(4, dy32, x32, u32, v32, out=p * q * k), 1e-5, x3_peak),
+        ("sigma_grad_wide", "sigma_grad wide (forced, fp32), col None",
+         sig_cc, sig32_plain, (sig_lib(dy32), "one fp32 einsum"), sig_tf32,
+         sig_flops, op_bytes(4, dy32, x32, u32, v32, out=p * q * k), 1e-4,
+         PEAK_FP32_FLOPS),
         ("feedback_matmul_wide_tc",
-         f"feedback_matmul wide_tc, btopk 0.6: {kept} of {p * q} blocks",
+         f"feedback_matmul wide_tc (bf16), btopk 0.6: {kept} of {p * q} "
+         f"blocks",
          lambda: feedback_matmul(dy, u, s, v, mask),
          lambda: ref.feedback_matmul_ref(dy, u, s, v, mask), fb_lib, fb_b16,
          fb_flops, fb_bytes, 2 ** -7, PEAK_BF16_FLOPS),
         ("feedback_matmul_wide",
-         f"feedback_matmul wide (forced), btopk 0.6: {kept} of {p * q} "
-         f"blocks",
+         f"feedback_matmul wide (forced, bf16), btopk 0.6: {kept} of "
+         f"{p * q} blocks",
          lambda: feedback_matmul(dy, u, s, v, mask, force_route="wide"),
          lambda: ref.feedback_matmul_ref(dy, u, s, v, mask), fb_lib, fb_b16,
          fb_flops, fb_bytes, 2 ** -7, PEAK_FP32_FLOPS),
     )
-    for (name, label, fn, plain_fn, (lib_fn, lib_what), b16, flops, nbytes,
+    peak_names = {PEAK_BF16_FLOPS: "bf16", x3_peak: "3 TF32 passes",
+                  PEAK_FP32_FLOPS: "fp32 CUDA-core"}
+    for (name, label, fn, plain_fn, (lib_fn, lib_what), alt, flops, nbytes,
          tol, peak) in rows:
         got, want = fn(), plain_fn()
         diff, rel = rel_err(got, want)
@@ -1084,31 +1139,43 @@ def wide_kernels(torch, gen) -> dict:
                                          f"scale {scale:.6f}")
             extra = f", least-squares scale {scale:.6f} (tol 5e-4)"
         _, lib_rel = rel_err(lib_fn(), want)
+        alt_err = ""
+        if alt is not None:
+            alt_out = alt[0]()
+            # the Σ-gradient's bf16 yardstick is G alone: no error to read
+            if alt_out.shape == want.shape:
+                alt_err = f" (rel err {rel_err(alt_out, want)[1]:.1e})"
+            del alt_out
         del got, want
-        tc = peak == PEAK_BF16_FLOPS
-        ms = cuda_ms(fn, 20 if tc else 5)
+        if fn in in_turns:
+            ms, turns = in_turns[fn]
+            extra += f"; in turns {turns[0]:.4f}, {turns[1]:.4f}"
+        else:
+            ms = cuda_ms(fn, 20 if peak == PEAK_BF16_FLOPS else 5)
         plain = cuda_ms(plain_fn, 2)
         lib = cuda_ms(lib_fn, 5)
-        b16_ms = cuda_ms(b16[0], 20) if b16 is not None else None
+        alt_ms = cuda_ms(alt[0], 20) if alt is not None else None
         b_ms, b_by = bound_ms(flops, nbytes, peak)
-        b_tc, _ = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        b_x3, _ = bound_ms(flops, nbytes, x3_peak)
         split = device_split(fn, 3)
         print(f"[time] {label}, olmo-1b up projection (T={t}, P={p}, Q={q}, "
-              f"k={k}, bf16): kernel {ms:.4f} ms ({100 * b_tc / ms:.1f}% of "
-              f"the bf16 bound {b_tc:.4f} ms"
-              + ("" if tc else f"; {100 * b_ms / ms:.0f}% of its fp32 bound "
-                               f"{b_ms:.4f} ms")
+              f"k={k}): kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its "
+              f"bound {b_ms:.4f} ms at the {peak_names[peak]} peak"
+              + ("" if peak == x3_peak else
+                 f"; {100 * b_x3 / ms:.1f}% of the 3xTF32 bound "
+                 f"{b_x3:.4f} ms")
               + "; by launch " + ", ".join(f"{n} {m:.4f}" for n, m in split)
               + f"), plain {plain:.4f} ms, library {lib_what} {lib:.4f} ms "
               f"(rel err {lib_rel:.1e})"
-              + (f", {b16[1]} {b16_ms:.4f} ms" if b16 is not None else "")
+              + (f", {alt[1]} {alt_ms:.4f} ms{alt_err}"
+                 if alt is not None else "")
               + f"; rel err {rel:.2e} (tol {tol:g}){extra}; bound by {b_by} "
               f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
         if name is not None:
             summary[name] = dict(max_abs_err=diff, ms=ms, plain_ms=plain,
                                  library_ms=lib, bound_ms=b_ms,
                                  bound_by=b_by)
-    del w32, wm32, w16, wm16, x32, dy32, dyc32
+    del w32, wm32, w16, wm16, x32, dy32, dyc32, u32, s32, v32
     for name in sweep:
         summary[name]["max_abs_err"] = max(worst[name][1],
                                            summary[name]["max_abs_err"])
@@ -1800,6 +1867,36 @@ def vgg8_phase(torch, steps: int = 30, batch: int = 32) -> None:
 BLOCKED_LM_TOL = 2 ** -7
 
 
+def warm_profile(torch, what: str, step, families) -> None:
+    """Print a warm step's wall, then its device time by kernel family
+    ((name, regex of device function names) pairs; the rest "other") from
+    ``torch.profiler`` over 3 warm steps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    print(f"[blocked_lm] {what} step again (warm): wall "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    split = device_split(step, 3)
+    by_family = {}
+    for kname, ms in split:
+        fam = next((f for f, pat in families if re.search(pat, kname)),
+                   "other")
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+    total = sum(by_family.values())
+    if total == 0:
+        print(f"[blocked_lm] the profiler saw no device time: the {what} "
+              f"step's kernel time not measured")
+        return
+    print(f"[blocked_lm] warm {what} step, device time by kernel "
+          f"(torch.profiler, 3 steps): {total:.3f} ms of kernels: "
+          + ", ".join(f"{f} {m:.3f} ms" for f, m in sorted(
+              by_family.items(), key=lambda kv: -kv[1]))
+          + "; by launch: " + ", ".join(
+              f"{n} {m:.3f}" for n, m in sorted(split,
+                                                key=lambda e: -e[1])[:8]))
+
+
 def blocked_lm_phase(torch) -> dict:
     """olmo-1b's seven PTC linears of one decoder layer in blocked mode at
     full width (k = 128, bf16 bases): one step, forward and autograd
@@ -1808,10 +1905,10 @@ def blocked_lm_phase(torch) -> dict:
     versions; then the up projection's 1,024 blocks realized through
     ``hw/device.py::realized_unitaries`` (2,048 reck meshes of k = 128).
     The bf16 step takes the three tensor-core routes; the same step with
-    fp32 bases the three CUDA-core wide routes.  Returns the wide routes'
-    launches: the tensor-core routes' over the bf16 step, the CUDA-core
-    routes' over the fp32 step, ``mesh_apply_wide``'s over the
-    realization."""
+    fp32 bases the two 3xTF32 routes and the CUDA-core wide feedback.
+    Returns the wide routes' launches: the tensor-core routes' over the
+    bf16 step, the 3xTF32 and CUDA-core routes' over the fp32 step,
+    ``mesh_apply_wide``'s over the realization."""
     from repro_torch.configs import get_config
     from repro_torch.core import subspace
     from repro_torch.core import unitary as un
@@ -1907,7 +2004,7 @@ def blocked_lm_phase(torch) -> dict:
                                     f"the plain versions")
         return errs
 
-    routes = WIDE_KERNELS + TC_KERNELS + NARROW_PTC
+    routes = WIDE_KERNELS + TC_KERNELS + TF32X3_KERNELS + NARROW_PTC
     build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1924,33 +2021,10 @@ def blocked_lm_phase(torch) -> dict:
               f"blocked_lm: {kernel} launched {counts[kernel]} times in the "
               f"bf16 step, not {want_n}")
     launches = {k: counts[k] for k in TC_KERNELS}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    print(f"[blocked_lm] step again (warm): wall "
-          f"{1e3 * (time.perf_counter() - t0):.1f} ms")
-    split = device_split(step, 3)
-    families = (("ptc_block_matmul_wide_tc", r"tc_(compose|product)_kernel"),
-                ("sigma_grad_wide_tc", r"tc_(col_split|sigma)_kernel"),
-                ("feedback_matmul_wide_tc", r"tc_(fcompose|feedback)_kernel"))
-    by_family = {}
-    for kname, ms in split:
-        fam = next((f for f, pat in families if re.search(pat, kname)),
-                   "other")
-        by_family[fam] = by_family.get(fam, 0.0) + ms
-    total = sum(by_family.values())
-    if total == 0:
-        print("[blocked_lm] the profiler saw no device time: step kernel "
-              "time not measured")
-    else:
-        print(f"[blocked_lm] warm step, device time by kernel (torch.profiler"
-              f", 3 steps): {total:.3f} ms of kernels: " + ", ".join(
-                  f"{f} {m:.3f} ms" for f, m in sorted(
-                      by_family.items(), key=lambda kv: -kv[1]))
-              + "; by launch: " + ", ".join(
-                  f"{n} {m:.3f}" for n, m in sorted(split,
-                                                    key=lambda e: -e[1])[:8]))
+    warm_profile(torch, "bf16", step, (
+        ("ptc_block_matmul_wide_tc", r"tc_(compose|product)_kernel"),
+        ("sigma_grad_wide_tc", r"tc_(col_split|sigma)_kernel"),
+        ("feedback_matmul_wide_tc", r"tc_(fcompose|feedback)_kernel")))
 
     # the same step through the plain versions, on the same masks
     want = plain(step)
@@ -1970,7 +2044,8 @@ def blocked_lm_phase(torch) -> dict:
           f"5e-4)")
     del got, want
 
-    # the same step with fp32 bases: the CUDA-core wide routes
+    # the same step with fp32 bases: the forward and Σ-gradient in 3xTF32,
+    # the feedback on the CUDA cores
     cfg32 = PTCLinearCfg(k=128, mode="blocked", base_dtype=torch.float32)
     layers32 = {n: dict(p, u=p["u"].float(), v=p["v"].float())
                 for n, p in layers.items()}
@@ -1983,20 +2058,29 @@ def blocked_lm_phase(torch) -> dict:
     step_s = time.perf_counter() - t0
     counts = {k: build.launch_counts[k] for k in routes}
     for kernel in routes:
-        want_n = len(OLMO_LINEARS) if kernel in WIDE_KERNELS else 0
+        want_n = len(OLMO_LINEARS) if kernel in FP32_STEP_KERNELS else 0
         check(counts[kernel] == want_n,
               f"blocked_lm: {kernel} launched {counts[kernel]} times in the "
               f"fp32 step, not {want_n}")
-    launches.update({k: counts[k] for k in WIDE_KERNELS
-                     if k not in launches})
+    # the CUDA-core forward and Σ-gradient: 0 on this path now
+    launches.update({k: counts[k] for k in WIDE_KERNELS + TF32X3_KERNELS})
     want = plain(lambda: step(layers32, cfg32, dys32))
     errs = compare(got, want, 1e-4, "fp32")
     print(f"[blocked_lm] the same step with fp32 bases: wall "
           f"{1e3 * step_s:.1f} ms, first call; launches "
-          + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+          + ", ".join(f"{k}={v}" for k, v in counts.items())
           + f"; kernels vs plain versions: max |err| over the largest entry "
-          f"{max(errs.values()):.1e} (tol 1e-4)")
-    del got, want, layers32, dys32
+          + ", ".join(f"{n} {e:.1e}" for n, e in errs.items())
+          + " (tol 1e-4)")
+    del got, want
+    warm_profile(torch, "fp32", lambda: step(layers32, cfg32, dys32), (
+        ("ptc_block_matmul_wide_3xtf32",
+         r"x3_(split|compose)_kernel|x3_product_kernel<0>"),
+        ("sigma_grad_wide_3xtf32",
+         r"x3_tsplit_kernel|x3_product_kernel<(64|128)>"),
+        ("feedback_matmul_wide",
+         r"ptc_wide_compose_kernel|ptc_wide_gemm_kernel<float, 1>")))
+    del layers32, dys32
 
     # realize the up projection's blocks: U and V* meshes of every block
     spec = un.mesh_spec(cfg.k, "reck")

@@ -175,7 +175,7 @@ def mesh_spec(k: int, kind: str = "reck") -> MeshSpec:
 def _layer_tables(spec: MeshSpec, device, transpose: bool = False):
     """The spec's (slot, partner, sign) layer tables as tensors; for the
     transpose, the layers in reverse with negated signs."""
-    slot, partner, sign, _ = layer_tables(spec.k, spec.kind, device)
+    slot, partner, sign = layer_tables(spec.k, spec.kind, device)
     if transpose:
         return slot.flip(0), partner.flip(0), -sign.flip(0)
     return slot, partner, sign

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (prefill_attn_tc.cu, ptc_wide_tc.cu): wgmma shared-memory descriptors and
-// products, mbarriers, TMA tile loads, and the host-side tensor-map encoder.
+// (prefill_attn_tc.cu, ptc_wide_tc.cu, ptc_wide_3xtf32.cu): wgmma
+// shared-memory descriptors and products (bf16 and tf32), mbarriers, TMA
+// tile loads, and the host-side tensor-map encoder.
 // Included by each .cu file, which is compiled into its own library
 // (kernels/build.py hashes every csrc/*.cuh header into every library name,
 // so an edited header is never served a stale build).
@@ -240,6 +241,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, fp32) (+)= A (64 x 8) * B (8 x 64), tf32 in, both from
+// shared memory and both K-major: wgmma has no transpose bit for tf32.  A
+// k8 step of a 128-byte-swizzled fp32 row is +32 B, as bf16's k16.  The
+// operands are fp32 words already on tf32's grid (low 13 bits zero): the
+// tensor cores ignore those bits, so a raw fp32 value would be truncated.
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HOPPER_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : HOPPER_OUT32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 8) * B (8 x 128), tf32 in, as above
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " HOPPER_D64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : HOPPER_OUT64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -272,18 +300,22 @@ static inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// a row-major (rows, cols) bf16 matrix as a 2-D tensor map (cols, rows),
-// 128-byte swizzle, boxes of box_cols x box_rows; loads past the edges
-// are zero-filled.  0, or kEncodeError + the driver's code.
+// a row-major (rows, cols) bf16 (or, with fp32 set, fp32) matrix as a 2-D
+// tensor map (cols, rows), 128-byte swizzle, boxes of box_cols x box_rows;
+// loads past the edges are zero-filled.  0, or kEncodeError + the
+// driver's code.
 static inline int map_2d(CUtensorMap* map, const void* ptr, long long rows,
-                         long long cols, int box_rows, int box_cols) {
+                         long long cols, int box_rows, int box_cols,
+                         bool fp32 = false) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return kEncodeError;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (fp32 ? 4 : 2)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUtensorMapDataType type = fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult res = fn(map, type, 2,
                           const_cast<void*>(ptr), dims, strides, box, estr,
                           CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B,

@@ -47,10 +47,6 @@
 //    from registers), so build_unitary writes U transposed in place.
 //  * Launches on the caller's stream, allocates nothing, and returns
 //    cudaGetLastError().
-// The layered kernel (mesh_apply_layered_kernel) is the narrow route's
-// design before the redesign above, kept to time beside it: CTAs of one
-// group each, a (layer, wire) table of phase slots scanned per rotation,
-// stores straight from registers.
 //
 // The wide route (mesh_apply_wide_kernel, any k > 32; k = 128 in every LM
 // config): a row's k wires no longer fit in one thread's registers, and a
@@ -72,98 +68,6 @@
 #include "ptc_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kSmemBytes = 48 * 1024;
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-mesh_apply_layered_kernel(const float* __restrict__ x, long long x_bstride,
-                  const float* __restrict__ phases,
-                  const float* __restrict__ d,
-                  const int* __restrict__ up_slot,
-                  float* __restrict__ y, long long y_bstride,
-                  long long y_rstride, long long y_wstride,
-                  int B, int R, int k, int T, int L,
-                  int meshes_per_block, int rows_per_block) {
-  extern __shared__ float smem[];
-  float* cs = smem;                                         // [mpb][T][2]
-  int* up = reinterpret_cast<int*>(smem + 2 * meshes_per_block * T);  // [L][K]
-
-  const int b0 = blockIdx.x * meshes_per_block;
-  const int r0 = blockIdx.y * rows_per_block;
-  const int nb = min(meshes_per_block, B - b0);
-  const int nr = min(rows_per_block, R - r0);
-
-  for (int i = threadIdx.x; i < L * K; i += blockDim.x) {
-    const int l = i / K, w = i % K;
-    up[i] = (w < k) ? up_slot[l * k + w] : -1;
-  }
-  for (int i = threadIdx.x; i < nb * T; i += blockDim.x) {
-    float sv, cv;
-    sincosf(phases[(long long)b0 * T + i], &sv, &cv);
-    cs[2 * i] = cv;
-    cs[2 * i + 1] = sv;
-  }
-  __syncthreads();
-
-  for (int item = threadIdx.x; item < nb * nr; item += blockDim.x) {
-    const int mb = item / nr;
-    const int r = r0 + item % nr;
-    const long long b = b0 + mb;
-    const float* xr = x + b * x_bstride + (long long)r * k;
-    const float* db = d != nullptr ? d + b * k : nullptr;
-    float v[K];
-#pragma unroll
-    for (int w = 0; w < K; ++w) {
-      float xv = 0.f;
-      if (w < k) {
-        xv = xr[w];
-        if (db != nullptr) xv *= db[w];
-      }
-      v[w] = xv;
-    }
-    const float* csb = cs + 2 * mb * T;
-    for (int l = 0; l < L; ++l) {
-#pragma unroll
-      for (int w = 0; w < K - 1; ++w) {
-        const int t = up[l * K + w];
-        if (t >= 0) {
-          const float c = csb[2 * t], s = csb[2 * t + 1];
-          const float a = v[w], bw = v[w + 1];
-          v[w] = c * a - s * bw;
-          v[w + 1] = s * a + c * bw;
-        }
-      }
-    }
-    float* yr = y + b * y_bstride + (long long)r * y_rstride;
-#pragma unroll
-    for (int w = 0; w < K; ++w) {
-      if (w < k) yr[w * y_wstride] = v[w];
-    }
-  }
-}
-
-template <int K>
-cudaError_t launch_layered(const float* x, long long x_bstride, const float* phases,
-                   const float* d, const int* up_slot, float* y,
-                   long long y_bstride, long long y_rstride,
-                   long long y_wstride, int B, int R, int k, int T, int L,
-                   cudaStream_t stream) {
-  const int rows_per_block = R < kThreads ? R : kThreads;
-  int meshes_per_block = kThreads / rows_per_block;
-  const int table_bytes = L * K * (int)sizeof(int);
-  const int max_meshes = (kSmemBytes - table_bytes) / (2 * T * (int)sizeof(float));
-  if (meshes_per_block > max_meshes) meshes_per_block = max_meshes;
-  if (meshes_per_block < 1) meshes_per_block = 1;
-  const dim3 grid((B + meshes_per_block - 1) / meshes_per_block,
-                  (R + rows_per_block - 1) / rows_per_block);
-  const size_t smem = 2 * (size_t)meshes_per_block * T * sizeof(float) + table_bytes;
-  mesh_apply_layered_kernel<K><<<grid, kThreads, smem, stream>>>(
-      x, x_bstride, phases, d, up_slot, y, y_bstride, y_rstride, y_wstride,
-      B, R, k, T, L, meshes_per_block, rows_per_block);
-  return cudaGetLastError();
-}
 
 // --- the narrow route -----------------------------------------------------
 
@@ -575,35 +479,9 @@ extern "C" int mesh_apply_f32(const float* x, long long x_bstride,
 #undef REPRO_NARROW
 }
 
-// The layered kernel (the narrow route's earlier design, for timing beside
-// it): x: (B or 1, R, k) fp32 rows, batch stride x_bstride (0 = shared by
-// all meshes); phases: (B, T) fp32; d: (B, k) fp32 or null; up_slot:
-// (L, k) int32, the phase slot of the rotation whose upper wire w is in
-// layer l, else -1; y[b, r, w] at b*y_bstride + r*y_rstride + w*y_wstride.
-extern "C" int mesh_apply_layered_f32(const float* x, long long x_bstride,
-                              const float* phases, const float* d,
-                              const int* up_slot, float* y,
-                              long long y_bstride, long long y_rstride,
-                              long long y_wstride, int B, int R, int k, int T,
-                              int L, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_MESH_LAUNCH(KK)                                                 \
-  return static_cast<int>(launch_layered<KK>(x, x_bstride, phases, d,        \
-                                              up_slot, y, y_bstride,          \
-                                              y_rstride, y_wstride, B, R, k,  \
-                                              T, L, s))
-  if (k <= 4) REPRO_MESH_LAUNCH(4);
-  if (k <= 8) REPRO_MESH_LAUNCH(8);
-  if (k == 9) REPRO_MESH_LAUNCH(9);
-  if (k <= 16) REPRO_MESH_LAUNCH(16);
-  if (k <= 32) REPRO_MESH_LAUNCH(32);
-#undef REPRO_MESH_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // The wide route, any k >= 2: rot_wire / rot_slot (T,) int32, each
 // rotation's upper wire and phase slot in layer order; layer_start (L + 1,)
-// int32.  Other arguments as mesh_apply_layered_f32.
+// int32.  Other arguments as mesh_apply_f32.
 extern "C" int mesh_apply_wide_f32(const float* x, long long x_bstride,
                                    const float* phases, const float* d,
                                    const int* rot_wire, const int* rot_slot,

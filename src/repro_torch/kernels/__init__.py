@@ -19,7 +19,9 @@ per-block one for one input block and few rows (the IC/PM probes), the
 product one for every other shape (:func:`.ptc_block_matmul.route`).
 Past k = 32 the PTC and mesh wrappers take wide routes, and the three PTC
 wrappers take bf16 operands at k 64 and 128 to the tensor cores
-(``"wide_tc"``; each ``route`` reads the dtype).
+(``"wide_tc"``), and the forward and Σ-gradient take fp32 operands there
+to the tensor cores in 3xTF32 (``"wide_3xtf32"``; each ``route`` reads
+the dtype).
 
 Each wrapper launches its CUDA kernel (``repro_torch/csrc``) on a CUDA
 tensor and runs its plain PyTorch version (:mod:`.ref`) on a CPU tensor.

@@ -5,12 +5,15 @@ for ``sm_90a`` into its own shared library under ``build/repro_torch/`` at
 the root of the checkout, at first use; the library is loaded with
 ``ctypes``.  A library may hold several kernels (``paged_kv.cu`` holds the
 gather and the scatter; ``ptc_wide.cu`` the k > 32 routes of the three
-PTC kernels; ``ptc_wide_tc.cu`` the tensor-core routes of the three),
+PTC kernels; ``ptc_wide_tc.cu`` the bf16 tensor-core routes of the three;
+``ptc_wide_3xtf32.cu`` the fp32 3xTF32 routes of the forward and the
+Σ-gradient),
 and one TPU kernel may have several routes
 (``prefill_attention`` on the tensor cores, ``prefill_attention_cudacore``
 for the pairs they do not take; ``mesh_apply`` and ``mesh_apply_wide``
-past k = 32; ``ptc_block_matmul_wide`` and ``ptc_block_matmul_wide_tc``
-for bf16 at k = 64 and 128): :data:`KERNELS` names each kernel's library.  Library
+past k = 32; ``ptc_block_matmul_wide``, ``ptc_block_matmul_wide_tc``
+for bf16 and ``ptc_block_matmul_wide_3xtf32`` for fp32 at k = 64 and
+128): :data:`KERNELS` names each kernel's library.  Library
 names carry a hash of the source and the flags, so an edited source is
 never served a stale build.  :func:`build` starts one
 ``nvcc`` per source, all at once.
@@ -45,6 +48,7 @@ SOURCES = {"mesh_apply": "mesh_apply.cu",
            "sigma_grad": "sigma_grad.cu",
            "ptc_wide": "ptc_wide.cu",
            "ptc_wide_tc": "ptc_wide_tc.cu",
+           "ptc_wide_3xtf32": "ptc_wide_3xtf32.cu",
            "feedback_matmul": "feedback_matmul.cu",
            "paged_kv": "paged_kv.cu",
            "prefill_attn": "prefill_attn.cu",
@@ -56,9 +60,11 @@ KERNELS = {"mesh_apply": "mesh_apply",
            "ptc_block_matmul_perblock": "ptc_block_matmul",
            "ptc_block_matmul_wide": "ptc_wide",
            "ptc_block_matmul_wide_tc": "ptc_wide_tc",
+           "ptc_block_matmul_wide_3xtf32": "ptc_wide_3xtf32",
            "sigma_grad": "sigma_grad",
            "sigma_grad_wide": "ptc_wide",
            "sigma_grad_wide_tc": "ptc_wide_tc",
+           "sigma_grad_wide_3xtf32": "ptc_wide_3xtf32",
            "feedback_matmul": "feedback_matmul",
            "feedback_matmul_wide": "ptc_wide",
            "feedback_matmul_wide_tc": "ptc_wide_tc",

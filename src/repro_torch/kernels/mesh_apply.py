@@ -44,8 +44,7 @@ def route(k: int) -> str:
 
 
 def mesh_lib():
-    """The loaded ``mesh_apply`` library (both routes, and the narrow
-    route's earlier layered kernel)."""
+    """The loaded ``mesh_apply`` library (both routes)."""
     lib = build.library(NAME)
     fn = lib.mesh_apply_f32
     if fn.argtypes is None:
@@ -54,10 +53,6 @@ def mesh_lib():
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong]
         fn.argtypes = head + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        # the narrow route's earlier design, timed beside it
-        layered = lib.mesh_apply_layered_f32
-        layered.argtypes = head + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        layered.restype = ctypes.c_int
         wide = lib.mesh_apply_wide_f32
         wide.argtypes = [ctypes.c_void_p, ctypes.c_longlong] \
             + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
@@ -69,15 +64,13 @@ def mesh_lib():
 @functools.lru_cache(maxsize=64)
 def layer_tables(k: int, kind: str, device: torch.device):
     """The spec's layer tables on ``device``: (slot, partner, sign) for the
-    plain version and the layered kernel's upper-wire slot table (the
-    narrow route's earlier design, timed beside it)."""
+    plain version."""
     from ..core.unitary import mesh_spec
     spec = mesh_spec(k, kind)
-    up = np.where(spec.layer_sign < 0, spec.layer_slot, -1).astype(np.int32)
     as_t = functools.partial(torch.as_tensor, device=device)
     return (as_t(spec.layer_slot.astype(np.int64)),
             as_t(spec.layer_partner.astype(np.int64)),
-            as_t(spec.layer_sign), as_t(up).contiguous())
+            as_t(spec.layer_sign))
 
 
 @functools.lru_cache(maxsize=64)
@@ -150,7 +143,7 @@ def mesh_apply_plain(spec, phases: torch.Tensor, x: torch.Tensor,
     """The plain PyTorch version of :func:`mesh_apply_batched`, on any
     device (the wrapper's path for CPU tensors; the kernel's reference on
     the card)."""
-    slot, partner, sign, _ = layer_tables(spec.k, spec.kind, x.device)
+    slot, partner, sign = layer_tables(spec.k, spec.kind, x.device)
     y = mesh_apply_ref(x.expand(phases.shape[0], -1, -1), phases[:, None],
                        slot, partner, sign, None if d is None else d[:, None])
     return y.transpose(1, 2).contiguous() if transpose_out else y.contiguous()

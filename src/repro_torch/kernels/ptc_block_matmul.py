@@ -24,7 +24,17 @@ shapes alone, each counting its launches under its own name:
   on the tensor cores: each block composed once by ``wgmma`` into a bf16
   (P·k, Q·k) scratch (U diag(s) and W each rounded once to bf16), then
   ``y = x Wᵀ`` by ``wgmma`` from a TMA-fed ring into 128 × 256 output
-  tiles (:data:`TC_TILE`).  fp32 operands and other k stay on ``"wide"``.
+  tiles (:data:`TC_TILE`);
+* ``"wide_3xtf32"`` (counter ``ptc_block_matmul_wide_3xtf32``,
+  ``csrc/ptc_wide_3xtf32.cu``): fp32 operands at k in :data:`TC_K`, on
+  the tensor cores in 3xTF32 (each operand split into tf32 hi + lo, the
+  product taken as lo·hi + hi·lo + hi·hi in fp32;
+  :func:`repro_torch.kernels.ref.ptc_block_matmul_3xtf32_ref` emulates
+  it): each block composed once by ``wgmma`` into W's tf32 hi and lo
+  planes (2, P·k, Q·k), x split once into its planes (2, T, Q·k), both
+  scratch this wrapper allocates, then ``y = x Wᵀ`` by ``wgmma`` from a
+  TMA-fed ring into 128 × 128 output tiles (:data:`TF32X3_TILE`).
+  Other k stay on ``"wide"``.
 
 On a CPU tensor it runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.ptc_block_matmul_ref`).
@@ -41,28 +51,34 @@ from . import build
 from .ref import ptc_block_matmul_ref
 
 __all__ = ["ptc_block_matmul", "route", "plan", "Plan", "kernel_k",
-           "wide_plan", "WidePlan", "wide_lib", "tc_lib", "tc_ok", "MAX_K",
-           "PER_BLOCK_MAX_T", "ROUTES", "K_STAGE", "WIDE_TILE", "TC_K",
-           "TC_TILE"]
+           "wide_plan", "WidePlan", "wide_route", "wide_lib", "tc_lib", "tc_ok",
+           "tf32x3_lib", "tf32x3_ok", "MAX_K", "PER_BLOCK_MAX_T", "ROUTES",
+           "K_STAGE", "WIDE_TILE", "TC_K", "TC_TILE", "TF32X3_TILE"]
 
 LIB = "ptc_block_matmul"
 LIB_WIDE = "ptc_wide"                     # the k > MAX_K routes of all three
 LIB_TC = "ptc_wide_tc"                    # the tensor-core routes of all three
+LIB_3X = "ptc_wide_3xtf32"                # the fp32 tensor-core routes
 NAME = "ptc_block_matmul"                 # launch counter, product route
 NAME_PER_BLOCK = "ptc_block_matmul_perblock"
 NAME_WIDE = "ptc_block_matmul_wide"
 NAME_WIDE_TC = "ptc_block_matmul_wide_tc"
+NAME_WIDE_3X = "ptc_block_matmul_wide_3xtf32"
 ROUTES = {"product": NAME, "per_block": NAME_PER_BLOCK, "wide": NAME_WIDE,
-          "wide_tc": NAME_WIDE_TC}
+          "wide_tc": NAME_WIDE_TC, "wide_3xtf32": NAME_WIDE_3X}
 MAX_K = 32                      # the widest block of the k <= 32 kernels
-# the block sizes of the tensor-core routes (bf16 only): a 128 × 128 tile
-# of G is one block at k = 128 and 2 × 2 blocks at k = 64
+# the block sizes of the tensor-core routes (bf16, and fp32 in 3xTF32): a
+# 128 × 128 tile of G is one block at k = 128 and 2 × 2 blocks at k = 64
 TC_K = (64, 128)
 # the tensor-core forward product's CTA output tile (rows, columns) and
 # reduction columns a stage (csrc/ptc_wide_tc.cu; the kernel reports its
 # own by ptc_tc_tile); its rows are the wide route's, so one grid check
 # (wide_plan) serves both
 TC_TILE = (128, 256, 64)
+# the 3xTF32 product's CTA output tile (rows, columns) and reduction
+# columns a stage (csrc/ptc_wide_3xtf32.cu; reported by ptc_3xtf32_tile);
+# its rows are the wide route's too
+TF32X3_TILE = (128, 128, 32)
 # the wide kernels' CTA output tile (rows, columns) and reduction steps a
 # stage (csrc/ptc_wide.cu; the kernel reports its own by ptc_wide_tile)
 WIDE_TILE = (128, 128, 16)
@@ -95,15 +111,31 @@ def tc_ok(k: int, dtype: torch.dtype | None) -> bool:
     return dtype == torch.bfloat16 and k in TC_K
 
 
+def tf32x3_ok(k: int, dtype: torch.dtype | None) -> bool:
+    """Whether the 3xTF32 routes take blocks of size k in ``dtype``: fp32
+    operands at k in :data:`TC_K`."""
+    return dtype == torch.float32 and k in TC_K
+
+
+def wide_route(k: int, dtype: torch.dtype | None) -> str:
+    """The route past :data:`MAX_K` of the forward and the Σ-gradient:
+    ``"wide_tc"`` for bf16 operands at k in :data:`TC_K`,
+    ``"wide_3xtf32"`` for fp32 ones there, else ``"wide"`` (other k, or
+    no dtype given)."""
+    if tc_ok(k, dtype):
+        return "wide_tc"
+    return "wide_3xtf32" if tf32x3_ok(k, dtype) else "wide"
+
+
 def route(t: int, p: int, q: int, k: int,
           dtype: torch.dtype | None = None) -> str:
-    """Past :data:`MAX_K`: ``"wide_tc"`` for bf16 operands at k in
-    :data:`TC_K`, else ``"wide"`` (fp32, other k, or no dtype given); up to
-    it ``"per_block"`` for one input block (Q = 1) and at most
-    :data:`PER_BLOCK_MAX_T` rows, ``"product"`` for every other shape.  The
-    rule reads nothing but its arguments."""
+    """Past :data:`MAX_K`: :func:`wide_route` (``"wide_tc"`` for bf16 and
+    ``"wide_3xtf32"`` for fp32 operands at k in :data:`TC_K`, else
+    ``"wide"``); up to it ``"per_block"`` for one input block (Q = 1) and
+    at most :data:`PER_BLOCK_MAX_T` rows, ``"product"`` for every other
+    shape.  The rule reads nothing but its arguments."""
     if k > MAX_K:
-        return "wide_tc" if tc_ok(k, dtype) else "wide"
+        return wide_route(k, dtype)
     return "per_block" if q == 1 and t <= PER_BLOCK_MAX_T else "product"
 
 
@@ -157,6 +189,22 @@ def tc_lib():
         lib.ptc_tc_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.ptc_tc_forward, lib.ptc_tc_sigma, lib.ptc_tc_feedback,
                    lib.ptc_tc_tile):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def tf32x3_lib():
+    """The loaded ``ptc_wide_3xtf32`` library (the 3xTF32 routes of
+    ``ptc_block_matmul`` and ``sigma_grad``)."""
+    lib = build.library(LIB_3X)
+    if lib.ptc_3xtf32_forward.argtypes is None:
+        lib.ptc_3xtf32_forward.argtypes = \
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ptc_3xtf32_sigma.argtypes = \
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ptc_3xtf32_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.ptc_3xtf32_forward, lib.ptc_3xtf32_sigma,
+                   lib.ptc_3xtf32_tile):
             fn.restype = ctypes.c_int
     return lib
 
@@ -245,13 +293,15 @@ def ptc_block_matmul(x: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         raise ValueError("ptc_block_matmul: inputs must be contiguous")
     which = force_route or route(t, p, q, k, x.dtype)
     serves = {"product": k <= MAX_K, "per_block": k <= MAX_K and q == 1,
-              "wide": k > MAX_K, "wide_tc": tc_ok(k, x.dtype)}
+              "wide": k > MAX_K, "wide_tc": tc_ok(k, x.dtype),
+              "wide_3xtf32": tf32x3_ok(k, x.dtype)}
     if not serves.get(which, False):
         raise ValueError(f"ptc_block_matmul: no route {which!r} for Q = {q},"
                          f" k = {k}, {x.dtype}")
-    if force_route == "wide_tc" and x.device.type != "cuda":
-        raise ValueError("ptc_block_matmul: the wide_tc route runs on a "
-                         f"CUDA tensor only, not on {x.device}")
+    if force_route in ("wide_tc", "wide_3xtf32") \
+            and x.device.type != "cuda":
+        raise ValueError(f"ptc_block_matmul: the {force_route} route runs "
+                         f"on a CUDA tensor only, not on {x.device}")
     if x.device.type == "cpu":
         return ptc_block_matmul_ref(x, u, s, v)
     if x.device.type != "cuda":
@@ -261,7 +311,17 @@ def ptc_block_matmul(x: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         return y.zero_()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if which == "wide_tc":
+        if which == "wide_3xtf32":
+            lib = LIB_3X
+            if wide_plan(t, p * k, k).row_tiles > _MAX_GRID_Y:
+                raise ValueError(f"ptc_block_matmul: grid too large (T={t})")
+            # x's and W's tf32 hi and lo planes
+            xs = torch.empty((2, t, q * k), dtype=x.dtype, device=x.device)
+            w = torch.empty((2, p * k, q * k), dtype=x.dtype, device=x.device)
+            status = tf32x3_lib().ptc_3xtf32_forward(
+                x.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                xs.data_ptr(), w.data_ptr(), y.data_ptr(), t, p, q, k, stream)
+        elif which == "wide_tc":
             lib = LIB_TC
             if wide_plan(t, p * k, k).row_tiles > _MAX_GRID_Y:
                 raise ValueError(f"ptc_block_matmul: grid too large (T={t})")

@@ -11,6 +11,8 @@ import torch
 
 __all__ = ["ptc_block_matmul_ref", "mesh_apply_ref", "sigma_grad_ref",
            "ptc_block_matmul_tc_ref", "sigma_grad_tc_ref", "split_bf16",
+           "split_tf32", "ptc_block_matmul_3xtf32_ref",
+           "sigma_grad_3xtf32_ref",
            "feedback_matmul_ref", "feedback_matmul_tc_ref", "paged_gather_ref", "paged_scatter_ref",
            "prefill_attention_ref", "NEG_INF"]
 
@@ -88,6 +90,60 @@ def sigma_grad_tc_ref(dy, x, u, v, col=None):
     h = sum(torch.einsum("pqai,pqab->pqib", u.to(f32), part.to(f32))
             for part in split_bf16(g))
     return (h * v.to(f32)).sum(-1)
+
+
+def split_tf32(a):
+    """fp32 ``a`` as tf32 ``(hi, lo)``, both fp32 words with their low 13
+    bits zero: hi rounds a to tf32's grid, to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``: add 0x1000 to the bits, clear the low 13),
+    lo rounds a - hi (exact in fp32) the same way; hi + lo lies within
+    about 2^-22 of |a|."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    a = a.to(torch.float32)
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the 3xTF32 kernels form it: lo·hi + hi·lo + hi·hi of the
+    tf32 splits (each product exact in fp32), summed in fp32; lo·lo
+    dropped."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ptc_block_matmul_3xtf32_ref(x, u, s, v):
+    """The 3xTF32 route's arithmetic of :func:`ptc_block_matmul_ref`: U_pq
+    diag(s_pq) formed in fp32, W_pq = (U diag(s)) V*_pq and y = x Wᵀ each
+    on 3xTF32 (:func:`split_tf32`), summed in fp32 (the kernel sums in
+    another order).
+
+    x: (T, Q·k); u,v: (P, Q, k, k); s: (P, Q, k), all fp32  →  y fp32
+    """
+    p, q, k, _ = u.shape
+    us = u * s[:, :, None, :]
+    w = _mm_3xtf32(us, v)                                      # (P, Q, i, j)
+    w = w.permute(0, 2, 1, 3).reshape(p * k, q * k)
+    return _mm_3xtf32(x, w.T)
+
+
+def sigma_grad_3xtf32_ref(dy, x, u, v, col=None):
+    """The 3xTF32 route's arithmetic of :func:`sigma_grad_ref`: ``col ⊙
+    δy`` formed in fp32, G = (col ⊙ δy)ᵀ x on 3xTF32 (:func:`split_tf32`),
+    then H_pq = U_pqᵀ G_pq and ds_pq[i] = Σ_b H_pq[i, b] V*_pq[i, b] in
+    fp32 (the kernel sums in another order).
+
+    dy: (T, P·k); x: (T, Q·k); u,v: (P, Q, k, k), all fp32; col: (T,) fp32
+    or None  →  ds: (P, Q, k) fp32
+    """
+    p, q, k, _ = u.shape
+    a = dy if col is None else dy * col[:, None]
+    g = _mm_3xtf32(a.T, x)                                     # (P·k, Q·k)
+    g = g.reshape(p, k, q, k).permute(0, 2, 1, 3)              # (P, Q, a, b)
+    h = torch.einsum("pqai,pqab->pqib", u, g)
+    return (h * v).sum(-1)
 
 
 def feedback_matmul_ref(dy, u, s, v, mask):

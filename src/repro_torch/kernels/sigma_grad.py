@@ -23,8 +23,14 @@ take the tensor-core route instead (``"wide_tc"``, counter
 against V*); a column mask first splits ``col ⊙ δy``, formed in fp32,
 into bf16 hi + lo, both reduced into one accumulator (lo only in the
 64-row stages where it is not all zero: a scale on bf16's grid, as the
-samplers' {0, 1} columns, costs one pass).  On a CPU tensor it
-runs the plain PyTorch version
+samplers' {0, 1} columns, costs one pass).  fp32 operands at k = 64
+and 128 take the 3xTF32 route (``"wide_3xtf32"``, counter
+``sigma_grad_wide_3xtf32``, ``csrc/ptc_wide_3xtf32.cu``): ``col ⊙ δy``
+(formed in fp32) and x split into tf32 hi + lo and transposed into
+T-contiguous planes this wrapper allocates, ``G = δyᵀx`` by ``wgmma`` as
+lo·hi + hi·lo + hi·hi over all T, projected in the same kernel in fp32
+(:func:`repro_torch.kernels.ref.sigma_grad_3xtf32_ref` emulates it).  On
+a CPU tensor it runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.sigma_grad_ref`).
 """
 
@@ -36,8 +42,9 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .ptc_block_matmul import (LIB_TC, LIB_WIDE, MAX_K, kernel_k, tc_lib,
-                               tc_ok, wide_lib, wide_plan)
+from .ptc_block_matmul import (LIB_3X, LIB_TC, LIB_WIDE, MAX_K, TF32X3_TILE,
+                               kernel_k, tc_lib, tc_ok, tf32x3_lib,
+                               tf32x3_ok, wide_lib, wide_plan, wide_route)
 from .ref import sigma_grad_ref
 
 __all__ = ["sigma_grad", "route", "plan", "Plan", "MAX_K", "ROUTES"]
@@ -45,7 +52,9 @@ __all__ = ["sigma_grad", "route", "plan", "Plan", "MAX_K", "ROUTES"]
 NAME = "sigma_grad"                 # launch counter, k <= MAX_K
 NAME_WIDE = "sigma_grad_wide"       # launch counter, k > MAX_K
 NAME_WIDE_TC = "sigma_grad_wide_tc"  # launch counter, bf16 at k in TC_K
-ROUTES = {"narrow": NAME, "wide": NAME_WIDE, "wide_tc": NAME_WIDE_TC}
+NAME_WIDE_3X = "sigma_grad_wide_3xtf32"  # launch counter, fp32 at TC_K
+ROUTES = {"narrow": NAME, "wide": NAME_WIDE, "wide_tc": NAME_WIDE_TC,
+          "wide_3xtf32": NAME_WIDE_3X}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (p-blocks, q-blocks) of a CTA's G tile by compiled k: 128 threads, each a
 # 9 x 9 (k = 9) or 8 x 8 tile of G
@@ -87,13 +96,12 @@ def plan(t: int, p: int, q: int, k: int, sms: int = 132) -> Plan:
 
 
 def route(k: int, dtype: torch.dtype | None = None) -> str:
-    """``"narrow"`` (the k <= 32 kernel); past it ``"wide_tc"`` (the
-    tensor cores) for bf16 operands at k in
-    :data:`~.ptc_block_matmul.TC_K`, else ``"wide"`` (fp32, other k, or no
-    dtype given).  Reads nothing but its arguments."""
-    if k <= MAX_K:
-        return "narrow"
-    return "wide_tc" if tc_ok(k, dtype) else "wide"
+    """``"narrow"`` (the k <= 32 kernel); past it
+    :func:`~.ptc_block_matmul.wide_route`: ``"wide_tc"`` (bf16) and
+    ``"wide_3xtf32"`` (fp32) at k in :data:`~.ptc_block_matmul.TC_K`, else
+    ``"wide"`` (other k, or no dtype given).  Reads nothing but its
+    arguments."""
+    return "narrow" if k <= MAX_K else wide_route(k, dtype)
 
 
 def _lib():
@@ -144,13 +152,15 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
         raise ValueError("sigma_grad: inputs must be contiguous")
     which = force_route or route(k, dy.dtype)
     serves = {"narrow": k <= MAX_K, "wide": k > MAX_K,
-              "wide_tc": tc_ok(k, dy.dtype)}
+              "wide_tc": tc_ok(k, dy.dtype),
+              "wide_3xtf32": tf32x3_ok(k, dy.dtype)}
     if not serves.get(which, False):
         raise ValueError(f"sigma_grad: no route {which!r} for k = {k}, "
                          f"{dy.dtype}")
-    if force_route == "wide_tc" and dy.device.type != "cuda":
-        raise ValueError("sigma_grad: the wide_tc route runs on a CUDA "
-                         f"tensor only, not on {dy.device}")
+    if force_route in ("wide_tc", "wide_3xtf32") \
+            and dy.device.type != "cuda":
+        raise ValueError(f"sigma_grad: the {force_route} route runs on a "
+                         f"CUDA tensor only, not on {dy.device}")
     if dy.device.type == "cpu":
         return sigma_grad_ref(dy, x, u, v, col)
     if dy.device.type != "cuda":
@@ -158,6 +168,23 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
     ds = torch.empty((p, q, k), dtype=torch.float32, device=dy.device)
     if t == 0 or p * q == 0:
         return ds.zero_()
+    if which == "wide_3xtf32":
+        if wide_plan(p * k, q * k, k).row_tiles > _MAX_GRID:
+            raise ValueError(f"sigma_grad: grid too large (P={p}, k={k})")
+        # col ⊙ δy's and x's tf32 hi and lo, transposed: T-contiguous rows
+        # of T rounded up to a stage, zero-padded by the kernel's first pass
+        tp = -(-t // TF32X3_TILE[2]) * TF32X3_TILE[2]
+        a = torch.empty((2, p * k, tp), dtype=dy.dtype, device=dy.device)
+        b = torch.empty((2, q * k, tp), dtype=dy.dtype, device=dy.device)
+        with torch.cuda.device(dy.device):
+            status = tf32x3_lib().ptc_3xtf32_sigma(
+                dy.data_ptr(), x.data_ptr(), u.data_ptr(), v.data_ptr(),
+                0 if col is None else col.data_ptr(), a.data_ptr(),
+                b.data_ptr(), ds.data_ptr(), t, p, q, k,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_status(LIB_3X, status)
+        build.launch_counts[NAME_WIDE_3X] += 1
+        return ds
     if which == "wide_tc":
         if wide_plan(p * k, q * k, k).row_tiles > _MAX_GRID:
             raise ValueError(f"sigma_grad: grid too large (P={p}, k={k})")

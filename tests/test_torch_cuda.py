@@ -54,6 +54,14 @@ package, so the repository's conftest is not needed)::
   ``force_route="wide"`` still reaches the CUDA cores for bf16 in all
   three, and ``"wide_tc"`` is refused for fp32 and k = 100; the kernel's
   tile is the wrapper's ``TC_TILE``.
+* The 3xTF32 routes (fp32 at k 64 and 128) of ``ptc_block_matmul`` and
+  ``sigma_grad`` against the fp32 plain versions and their 3xTF32
+  emulations, T 1, 127, 128, 129 and 300, P or Q odd at k = 64, with and
+  without a column scale off bf16's grid: y and ds within 1e-5 of the
+  largest entry, ds's least-squares scale within 5e-4 of 1; reruns
+  bitwise; ``force_route="wide"`` still reaches the CUDA cores for fp32,
+  ``"wide_3xtf32"`` is refused for bf16 and k 32 and 100; the kernel's
+  tile is the wrapper's ``TF32X3_TILE``.
 * The CUDA-core ``prefill_attention`` route (fp32 q; fp32 q over bf16
   K/V; bf16 at head dims other than 64 and 128) over the 12 (blk, window,
   cap) cases at 2e-5, head dims 5, 96, 200 and 256, reruns bitwise; a
@@ -75,8 +83,9 @@ from repro_torch.kernels import (build, feedback_matmul, prefill_attention,
 from repro_torch.kernels.prefill_attn import NAME, NAME_CUDA_CORES
 from repro_torch.kernels.ptc_block_matmul import (K_STAGE, PER_BLOCK_MAX_T,
                                                   ROUTES, TC_K, TC_TILE,
-                                                  WIDE_TILE, Plan, route,
-                                                  tc_lib, wide_lib)
+                                                  TF32X3_TILE, WIDE_TILE,
+                                                  Plan, route, tc_lib,
+                                                  tf32x3_lib, wide_lib)
 from repro_torch.kernels.ptc_block_matmul import plan as product_plan
 from repro_torch.kernels.sigma_grad import Plan as SigmaPlan
 from repro_torch.kernels.sigma_grad import plan as sigma_plan
@@ -388,21 +397,24 @@ def test_wide_ptc_routes_match_plain_version(card, t, p, q, k, dtype,
     gen = torch.Generator("cuda").manual_seed(t + k)
     mask = _masks(gen, q, p, density)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
-    # bf16 at k 64 and 128: the forward and Σ-gradient on the tensor cores
+    # at k 64 and 128: the three on the tensor cores for bf16, the forward
+    # and Σ-gradient in 3xTF32 for fp32 (the feedback on the CUDA cores)
     tc = "_tc" if dtype == torch.bfloat16 and k in TC_K else ""
+    x3 = "_3xtf32" if dtype == torch.float32 and k in TC_K else ""
     before = dict(build.launch_counts)
     y = ptc_block_matmul(x, u, s, v)
     ds = sigma_grad(dy, x, u, v)
     dx = feedback_matmul(dy, u, s, v, mask)
     torch.cuda.synchronize()
-    launched = ("ptc_block_matmul_wide" + tc, "sigma_grad_wide" + tc,
-                "feedback_matmul_wide" + tc)
+    launched = ("ptc_block_matmul_wide" + tc + x3,
+                "sigma_grad_wide" + tc + x3, "feedback_matmul_wide" + tc)
     for name in launched:
         assert build.launch_counts[name] - before[name] == 1, name
     for name in ("ptc_block_matmul", "ptc_block_matmul_perblock",
                  "sigma_grad", "feedback_matmul", "ptc_block_matmul_wide",
-                 "ptc_block_matmul_wide_tc", "sigma_grad_wide",
-                 "sigma_grad_wide_tc", "feedback_matmul_wide",
+                 "ptc_block_matmul_wide_tc", "ptc_block_matmul_wide_3xtf32",
+                 "sigma_grad_wide", "sigma_grad_wide_tc",
+                 "sigma_grad_wide_3xtf32", "feedback_matmul_wide",
                  "feedback_matmul_wide_tc"):
         if name not in launched:
             assert build.launch_counts[name] == before[name], name
@@ -595,6 +607,83 @@ def test_wide_tc_refuses_fp32_and_other_k_on_the_card(card):
             sigma_grad(dy, x, u, v, force_route="wide_tc")
         with pytest.raises(ValueError, match="no route"):
             feedback_matmul(dy, u, s, v, mask, force_route="wide_tc")
+
+
+# (T, P, Q, k): T at the 128-row tile's and the 32-row stage's edges; P
+# or Q odd at k = 64 (a 128 × 128 tile half past P·k or Q·k)
+_X3 = [(1, 2, 3, 128), (127, 3, 2, 128), (128, 2, 3, 128), (129, 3, 2, 128),
+       (300, 2, 2, 128), (1, 3, 5, 64), (127, 2, 3, 64), (128, 3, 3, 64),
+       (129, 5, 1, 64), (300, 3, 5, 64)]
+
+
+@pytest.mark.parametrize("t,p,q,k", _X3)
+@pytest.mark.parametrize("with_col", [False, True])
+def test_wide_3xtf32_matches_plain_version(card, t, p, q, k, with_col):
+    """fp32 at k 64 and 128 in 3xTF32: y and ds within 1e-5 of the largest
+    entry of the fp32 plain versions, with and without a column scale off
+    bf16's grid (its least-squares scale within 5e-4 of 1); reruns
+    bitwise; the CUDA-core wide counters untouched."""
+    dy, x, u, s, v = _sigma_inputs(t, p, q, k, seed=11)
+    gen = torch.Generator("cuda").manual_seed(t + k)
+    col = (torch.rand((t,), generator=gen, device="cuda") < 0.6).float() \
+        / 0.6 if with_col else None
+    before = dict(build.launch_counts)
+    y = ptc_block_matmul(x, u, s, v)
+    ds = sigma_grad(dy, x, u, v, col)
+    torch.cuda.synchronize()
+    for name in ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32"):
+        assert build.launch_counts[name] - before[name] == 1, name
+    for name in ("ptc_block_matmul_wide", "sigma_grad_wide",
+                 "ptc_block_matmul_wide_tc", "sigma_grad_wide_tc"):
+        assert build.launch_counts[name] == before[name], name
+    assert y.dtype == torch.float32 and ds.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(ds).all())
+    assert _rel(y, ref.ptc_block_matmul_ref(x, u, s, v)) < 1e-5
+    assert _rel(y, ref.ptc_block_matmul_3xtf32_ref(x, u, s, v)) < 1e-5
+    want = ref.sigma_grad_ref(dy, x, u, v, col)
+    assert _rel(ds, want) < 1e-5
+    assert _rel(ds, ref.sigma_grad_3xtf32_ref(dy, x, u, v, col)) < 1e-5
+    if bool(want.any()):
+        ratio = float((ds.double() * want.double()).sum()
+                      / (want.double() ** 2).sum())
+        assert abs(ratio - 1.0) < 5e-4
+    else:                                # T = 1 with its column dropped
+        assert not bool(ds.any())
+    assert torch.equal(y, ptc_block_matmul(x, u, s, v))
+    assert torch.equal(ds, sigma_grad(dy, x, u, v, col))
+
+
+@pytest.mark.parametrize("k", [64, 128])
+def test_wide_route_still_takes_fp32_when_forced(card, k):
+    dy, x, u, s, v = _sigma_inputs(129, 2, 3, k, seed=5)
+    before = dict(build.launch_counts)
+    y = ptc_block_matmul(x, u, s, v, force_route="wide")
+    ds = sigma_grad(dy, x, u, v, force_route="wide")
+    torch.cuda.synchronize()
+    for name in ("ptc_block_matmul_wide", "sigma_grad_wide"):
+        assert build.launch_counts[name] - before[name] == 1, name
+    for name in ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32"):
+        assert build.launch_counts[name] == before[name], name
+    assert _rel(y, ref.ptc_block_matmul_ref(x, u, s, v)) < 1e-4
+    assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v)) < 1e-4
+
+
+def test_wide_3xtf32_refuses_bf16_and_other_k_on_the_card(card):
+    for k, dtype in ((128, torch.bfloat16), (100, torch.float32),
+                     (32, torch.float32)):
+        dy, x, u, s, v = (a.to(dtype)
+                          for a in _sigma_inputs(16, 2, 2, k, seed=1))
+        with pytest.raises(ValueError, match="no route"):
+            ptc_block_matmul(x, u, s, v, force_route="wide_3xtf32")
+        with pytest.raises(ValueError, match="no route"):
+            sigma_grad(dy, x, u, v, force_route="wide_3xtf32")
+
+
+def test_3xtf32_kernel_tile_is_the_plan(card):
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    assert tf32x3_lib().ptc_3xtf32_tile(out) == 0
+    assert tuple(out) == TF32X3_TILE
 
 
 def test_tc_kernel_tile_is_the_plan(card):

@@ -76,7 +76,7 @@ def test_plan_runs_every_k_on_its_compiled_pattern(k, kind):
     d = torch.from_numpy(np.where(rng.random((3, k)) < 0.5, -1.0, 1.0)
                          .astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((3, 5, k)).astype(np.float32))
-    slot, partner, sign, _ = layer_tables(k, kind, torch.device("cpu"))
+    slot, partner, sign = layer_tables(k, kind, torch.device("cpu"))
     want = mesh_apply_ref(x, ph[:, None], slot, partner, sign, d[:, None])
     got = _emulate(k, kind, ph[:, None], x, d[:, None])
     assert float((got - want).abs().max()) < 1e-6

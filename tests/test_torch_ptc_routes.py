@@ -132,13 +132,16 @@ def test_each_route_counts_under_its_own_name_in_one_library():
     assert ROUTES == {"product": "ptc_block_matmul",
                       "per_block": "ptc_block_matmul_perblock",
                       "wide": "ptc_block_matmul_wide",
-                      "wide_tc": "ptc_block_matmul_wide_tc"}
+                      "wide_tc": "ptc_block_matmul_wide_tc",
+                      "wide_3xtf32": "ptc_block_matmul_wide_3xtf32"}
     for name in ROUTES.values():
         # the k <= 32 routes share one library; the wide routes of the
-        # three PTC kernels share another, the tensor-core routes a third
+        # three PTC kernels share another, the bf16 tensor-core routes a
+        # third, the 3xTF32 routes a fourth
         assert build.KERNELS[name] == (
             "ptc_wide" if name.endswith("_wide") else
             "ptc_wide_tc" if name.endswith("_wide_tc") else
+            "ptc_wide_3xtf32" if name.endswith("_wide_3xtf32") else
             "ptc_block_matmul")
         assert name in build.launch_counts
 

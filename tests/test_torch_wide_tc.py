@@ -6,8 +6,9 @@ and ``chip_smoke.py`` hold them against their plain versions); here, on
 the CPU:
 
 * The route rule: bf16 operands at k 64 and 128 take ``"wide_tc"`` in
-  both wrappers; fp32 at any k > 32, bf16 at other k > 32 (33, 100, 192)
-  and calls that name no dtype take ``"wide"``; k <= 32 is unchanged by
+  both wrappers; fp32 at other k > 32 (33, 100), bf16 at other k > 32
+  (33, 100, 192) and calls that name no dtype take ``"wide"`` (fp32 at k
+  64 and 128: ``tests/test_torch_3xtf32.py``); k <= 32 is unchanged by
   the dtype.  The new counters share one library.
 * Both wrappers refuse ``force_route="wide_tc"`` where it cannot serve:
   fp32 operands, k = 100, a CPU tensor.  On a CPU tensor they run their
@@ -51,10 +52,9 @@ def test_bf16_at_k_64_and_128_takes_the_tensor_cores(k, t, q):
     assert sigma_route(k, B16) == "wide_tc"
 
 
-@pytest.mark.parametrize("k,dtype", [(33, F32), (64, F32), (100, F32),
-                                     (128, F32), (33, B16), (100, B16),
-                                     (192, B16), (256, B16), (64, None),
-                                     (128, None)])
+@pytest.mark.parametrize("k,dtype", [(33, F32), (100, F32), (33, B16),
+                                     (100, B16), (192, B16), (256, B16),
+                                     (64, None), (128, None)])
 def test_other_wide_calls_stay_on_the_cuda_cores(k, dtype):
     assert not tc_ok(k, dtype)
     for t, q in ((1, 1), (129, 2), (4096, 16)):
@@ -75,7 +75,8 @@ def test_tensor_core_counters_share_one_library():
     assert TC_K == (64, 128) and all(k > MAX_K for k in TC_K)
     assert ROUTES["wide_tc"] == "ptc_block_matmul_wide_tc"
     assert SIGMA_ROUTES == {"narrow": "sigma_grad", "wide": "sigma_grad_wide",
-                            "wide_tc": "sigma_grad_wide_tc"}
+                            "wide_tc": "sigma_grad_wide_tc",
+                            "wide_3xtf32": "sigma_grad_wide_3xtf32"}
     for name in ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc"):
         assert build.KERNELS[name] == "ptc_wide_tc"
         assert name in build.launch_counts
