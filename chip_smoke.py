@@ -22,10 +22,12 @@ Phases:
    ``feedback_matmul`` and ``mesh_apply`` each a wide route for k > 32;
    the three PTC kernels a tensor-core route for bf16 at k 64 and 128,
    timed beside the CUDA-core wide route forced on the same inputs and
-   beside fp32 and bf16 one-call yardsticks; the forward and the
-   Σ-gradient a 3xTF32 tensor-core route for fp32 at k 64 and 128, timed
-   in turns with the CUDA-core wide route forced on the same fp32 inputs
-   and beside fp32 and one-pass TF32 one-call yardsticks), and hold each
+   beside fp32 and bf16 one-call yardsticks; the three a 3xTF32
+   tensor-core route for fp32 at k 64 and 128, timed in turns with the
+   CUDA-core wide route forced on the same fp32 inputs and beside fp32
+   and one-pass TF32 one-call yardsticks; ``mesh_apply`` an unrolled
+   wide route at k 64 and 128, timed in turns with the list-driven wide
+   kernel forced on the same meshes), and hold each
    against its plain PyTorch version on the card: the reference
    package's kernel-test
    geometries, ragged row counts, feedback masks of density 0, 0.5, 1
@@ -58,10 +60,10 @@ Phases:
    same step through the
    plain versions (the Σ-gradients' least-squares scale within 5e-4 of
    1), its device time by kernel from ``torch.profiler``; the same step
-   with fp32 bases on the two 3xTF32 routes and the CUDA-core wide
-   feedback, held at 1e-4 and profiled the same way; then the up
-   projection's 1,024 blocks realized through ``realized_unitaries``
-   (2,048 reck meshes of k = 128 on the wide mesh route).
+   with fp32 bases on the three 3xTF32 routes, held at 1e-4 and profiled
+   the same way; then the up projection's 1,024 blocks realized through
+   ``realized_unitaries`` (2,048 reck meshes of k = 128 on the unrolled
+   wide mesh route).
 6. ``gateway`` — qwen3-4b at full width (36 layers, d_model 2560, k = 128
    fused PTC with bf16 bases) serving 16 seeded Poisson requests through
    the continuous-batching gateway with paged KV and chunked prefill
@@ -79,8 +81,9 @@ counted over its main path with every count set to 0 just before it: the
 PTC kernels over the last quickstart path driven (full width, else
 parity), the tensor-core routes over the blocked_lm bf16 step, the
 3xTF32 and CUDA-core wide routes over its fp32 step (which launches the
-CUDA-core forward and Σ-gradient no more), the wide mesh route over its
-realization, the serving kernels over the gateway's
+CUDA-core routes no more), the two wide mesh routes over its realization
+(which launches the list-driven one no more), the serving kernels over
+the gateway's
 qwen3-4b run, the CUDA-core prefill route (which that bf16 run never
 takes) over the smoke-width fp32 gateways; they are null when that path
 did not run.  Any failed check raises (exit code not
@@ -143,7 +146,10 @@ REPLACES = {"ptc_block_matmul": "src/repro/kernels/ptc_block_matmul.py:46",
                 "src/repro/kernels/feedback_matmul.py:48",
             "ptc_block_matmul_wide_3xtf32":
                 "src/repro/kernels/ptc_block_matmul.py:46",
-            "sigma_grad_wide_3xtf32": "src/repro/kernels/sigma_grad.py:43"}
+            "sigma_grad_wide_3xtf32": "src/repro/kernels/sigma_grad.py:43",
+            "feedback_matmul_wide_3xtf32":
+                "src/repro/kernels/feedback_matmul.py:48",
+            "mesh_apply_wide_unrolled": "src/repro/kernels/mesh_apply.py:45"}
 # the port's kernels by their device function names (a wrapper may launch
 # several), for the profiles' per-kernel sums
 KERNEL_FAMILIES = {
@@ -809,11 +815,10 @@ OLMO_LINEARS = (("q", 2048, 2048), ("k", 2048, 2048), ("v", 2048, 2048),
 BLOCKED_LM_T = 4096     # one train_4k sequence (src/repro/configs/common.py:53)
 WIDE_KERNELS = ("ptc_block_matmul_wide", "sigma_grad_wide",
                 "feedback_matmul_wide")
-# the 3xTF32 routes of the forward and the Σ-gradient (fp32 at k 64 and
-# 128); with the CUDA-core wide feedback they are the blocked LM's fp32
-# step
-TF32X3_KERNELS = ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32")
-FP32_STEP_KERNELS = TF32X3_KERNELS + ("feedback_matmul_wide",)
+# the 3xTF32 routes of the three PTC kernels (fp32 at k 64 and 128): the
+# blocked LM's fp32 step takes these
+TF32X3_KERNELS = ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32",
+                  "feedback_matmul_wide_3xtf32")
 # the tensor-core routes of the three PTC kernels (bf16 at k 64 and 128):
 # the blocked LM's bf16 step takes these
 TC_KERNELS = ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc",
@@ -825,11 +830,13 @@ NARROW_PTC = ("ptc_block_matmul", "ptc_block_matmul_perblock", "sigma_grad",
 def wide_kernels(torch, gen) -> dict:
     """The k > 32 routes of the three PTC kernels and of ``mesh_apply``
     against their plain versions (k 33, 64, 100, 128; fp32 and bf16; T at
-    the 128-row tile's edges; feedback masks of density 0, 0.5, 1 and
-    btopk; reruns bitwise), then each timed at olmo-1b's up projection
-    (2048 → 8192, T 4096; bf16 operands, and fp32 ones for the 3xTF32
-    routes and the CUDA-core routes timed in turns with them) and at
-    2,048 reck meshes of k = 128."""
+    the 128-row tile's edges and 4096; feedback masks of density 0, 0.5, 1
+    and btopk, and btopk with a q row masked everywhere; reruns bitwise;
+    meshes with and without signs), then each timed at olmo-1b's up
+    projection (2048 → 8192, T 4096; bf16 operands, and fp32 ones for the
+    3xTF32 routes and the CUDA-core routes timed in turns with them) and
+    at 2,048 reck meshes of k = 128 (the unrolled route in turns with the
+    list-driven one)."""
     import ctypes
     from repro_torch.core import unitary as un
     from repro_torch.core.ptc import PTCParams, compose_weight, unblockize
@@ -875,9 +882,9 @@ def wide_kernels(torch, gen) -> dict:
     # bf16 at k 64 and 128 takes the tensor cores (y from U diag(s) and W
     # each rounded once to bf16: still one bf16 ulp of y, 2^-7; ds at 1e-4
     # with col ⊙ δy split into bf16 hi + lo), fp32 there the forward and
-    # the Σ-gradient in 3xTF32 (y and ds at 1e-5: about fp32's own sums),
-    # every other case the CUDA cores; the least-squares scale of every
-    # column-scaled ds within 5e-4 of 1
+    # the Σ-gradient and the feedback in 3xTF32 (y, ds and dx at 1e-5:
+    # about fp32's own sums), every other case the CUDA cores; the
+    # least-squares scale of every column-scaled ds within 5e-4 of 1
     sweep = WIDE_KERNELS + TC_KERNELS + TF32X3_KERNELS
     worst = {n: [0.0, 0.0] for n in sweep}      # rel, abs
     n_cases = dict.fromkeys(sweep, 0)
@@ -896,7 +903,8 @@ def wide_kernels(torch, gen) -> dict:
                          (127, 3, 3, 128), (128, 2, 3, 128), (129, 3, 2, 128),
                          (1, 1, 1, 128), (300, 1, 2, 128), (300, 3, 5, 64),
                          (257, 4, 3, 128), (1, 3, 3, 64), (127, 2, 3, 64),
-                         (128, 3, 2, 64), (129, 5, 3, 64)):
+                         (128, 3, 2, 64), (129, 5, 3, 64), (4096, 3, 5, 64),
+                         (4096, 5, 3, 128)):
         for dtype in (f32, bf16):
             tol = 1e-4 if dtype == f32 else 2 ** -7
             x, dy = mk(t, q * k, dtype=dtype), mk(t, p * k, dtype=dtype)
@@ -929,16 +937,30 @@ def wide_kernels(torch, gen) -> dict:
             check(abs(scale - 1) < 5e-4, f"{sig} {what} col: least-squares "
                                          f"scale {scale:.6f}")
             worst_scale = max(worst_scale, abs(scale - 1))
-            fb = "feedback_matmul_wide" + tc
+            fb = "feedback_matmul_wide" + tc + ("_3xtf32" if x3 else "")
+            tol_dx = 1e-5 if x3 else tol
             for label, mask in masks(q, p):
                 dx = feedback_matmul(dy, u, s, v, mask)
                 want = ref.feedback_matmul_ref(dy, u, s, v, mask)
-                record(fb, f"{what} {label}", dx, want, tol)
+                record(fb, f"{what} {label}", dx, want, tol_dx)
                 check(torch.equal(dx, feedback_matmul(dy, u, s, v, mask)),
                       f"{fb} {what} {label}: two runs differ")
                 if label == "density 0.0":
                     check(int(torch.count_nonzero(dx)) == 0,
                           f"{fb} {what}: density 0 is not an exact zero")
+                if label.startswith("btopk"):   # the last q row masked
+                    mask = mask.clone()
+                    mask[q - 1] = 0.0
+                    dx = feedback_matmul(dy, u, s, v, mask)
+                    want = ref.feedback_matmul_ref(dy, u, s, v, mask)
+                    record(fb, f"{what} {label}, q row {q - 1} masked", dx,
+                           want, tol_dx)
+                    check(torch.equal(dx, feedback_matmul(dy, u, s, v,
+                                                          mask)),
+                          f"{fb} {what} masked row: two runs differ")
+                    check(int(torch.count_nonzero(dx[:, (q - 1) * k:])) == 0,
+                          f"{fb} {what}: a q row masked everywhere is not "
+                          f"an exact zero")
     torch.cuda.synchronize()
     for name in sweep:
         check(build.launch_counts[name] - before[name] == 2 * n_cases[name],
@@ -950,35 +972,49 @@ def wide_kernels(torch, gen) -> dict:
               f"{n} {n_cases[n]} cases, max rel err {worst[n][0]:.2e}"
               for n in sweep)
           + " (tol 1e-4 fp32 and ds; 2^-7 for bf16 y and dx: one bf16 "
-            "rounding; 1e-5 for the 3xTF32 y and ds; bf16 at k 64 and 128 "
-            "on the tensor cores, fp32 there in 3xTF32 but the feedback, "
-            "the rest on the CUDA cores); ds also under a column scale of "
-            "1/0.6 "
+            "rounding; 1e-5 for the 3xTF32 y, ds and dx; bf16 at k 64 and "
+            "128 on the tensor cores, fp32 there in 3xTF32, the rest on the "
+            "CUDA cores); ds also under a column scale of 1/0.6 "
             f"(fp32; least-squares scale within {worst_scale:.1e} of 1, tol "
-            "5e-4); feedback masks of density 0, 0.5, 1 and btopk 0.6 "
-            "(density 0 an exact zero); reruns bitwise")
+            "5e-4); feedback masks of density 0, 0.5, 1 and btopk 0.6, and "
+            "btopk with the last q row masked (density 0 and the masked row "
+            "exact zeros); reruns bitwise")
 
-    # mesh_apply's wide route: build_unitary (the shared identity, output
-    # transposed) and rows of their own, both mesh kinds
-    mesh_worst, mesh_before = 0.0, build.launch_counts["mesh_apply_wide"]
+    # mesh_apply's wide routes: build_unitary (the shared identity, output
+    # transposed) and rows of their own, both mesh kinds; k 64 and 128 on
+    # the unrolled route, also without signs, 33 and 100 on the
+    # list-driven one
+    mesh_names = ("mesh_apply_wide", "mesh_apply_wide_unrolled")
+    mesh_worst = dict.fromkeys(mesh_names, 0.0)
+    mesh_before = {n: build.launch_counts[n] for n in mesh_names}
+    orth = 0.0
     for k in (33, 64, 100, 128):
+        name = mesh_names[k in (64, 128)]
         for kind in ("reck", "clements"):
             spec = un.mesh_spec(k, kind)
             ph = mk(37, spec.n_rot) * 3
-            d = torch.where(mk(37, k) < 0, -1.0, 1.0)
-            uu = un.build_unitary(spec, ph, d)
-            mesh_worst = max(mesh_worst, float((uu - mesh_apply_plain(
-                spec, ph, torch.eye(k, device=dev)[None], d,
-                transpose_out=True)).abs().max()))
-            xr = mk(37, 70, k)
-            mesh_worst = max(mesh_worst, float((mesh_apply_batched(
-                spec, ph, xr, d) - mesh_apply_plain(spec, ph, xr, d))
-                .abs().max()))
+            eye = torch.eye(k, device=dev)[None]
+            signs = (torch.where(mk(37, k) < 0, -1.0, 1.0), None)
+            for d in signs[:1 + (name == "mesh_apply_wide_unrolled")]:
+                uu = un.build_unitary(spec, ph, d)
+                err = float((uu - mesh_apply_plain(
+                    spec, ph, eye, d, transpose_out=True)).abs().max())
+                orth = max(orth, float((uu @ uu.transpose(1, 2) - eye)
+                                       .abs().max()))
+                xr = mk(37, 70, k)
+                err = max(err, float((mesh_apply_batched(spec, ph, xr, d)
+                                      - mesh_apply_plain(spec, ph, xr, d))
+                                     .abs().max()))
+                mesh_worst[name] = max(mesh_worst[name], err)
     torch.cuda.synchronize()
-    check(mesh_worst < 1e-5, f"mesh_apply_wide: max abs err "
-                             f"{mesh_worst:.2e} >= 1e-5")
-    check(build.launch_counts["mesh_apply_wide"] - mesh_before == 16,
-          "mesh_apply: a k > 32 call did not take the wide route")
+    for name in mesh_names:
+        check(mesh_worst[name] < 1e-5, f"{name}: max abs err "
+                                       f"{mesh_worst[name]:.2e} >= 1e-5")
+    check(orth < 1e-4, f"mesh_apply wide routes: U U^T - I {orth:.2e}")
+    check({n: build.launch_counts[n] - mesh_before[n] for n in mesh_names}
+          == {"mesh_apply_wide": 8, "mesh_apply_wide_unrolled": 16},
+          "mesh_apply: a k > 32 call did not take the wide route its rule "
+          "names")
 
     summary = {}
     # olmo-1b's up projection, bf16 operands as the blocked LM passes them;
@@ -1026,11 +1062,12 @@ def wide_kernels(torch, gen) -> dict:
         return call
 
     fb_flops = kept * (2 * k * k * t + 2 * k ** 3 + k * k)
-    # bf16 dy, the kept blocks' U, s and V*, dx; the fp32 mask
-    fb_bytes = 2 * (dy.numel() + kept * (2 * k * k + k) + t * q * k) \
-        + 4 * mask.numel()
+    # dy, the kept blocks' U, s and V*, dx at eb bytes; the fp32 mask
+    fb_bytes = {eb: eb * (dy.numel() + kept * (2 * k * k + k) + t * q * k)
+                + 4 * mask.numel() for eb in (2, 4)}
     fb_lib = (lambda: dy32 @ wm32, "fp32 dy @ masked composed unblockize(W)")
     fb_b16 = (lambda: dy @ wm16, "bf16 dy @ masked composed W")
+    fb_tf32 = (tf32_call(lambda: dy32 @ wm32), "one-pass TF32 dy @ W~")
     fwd_lib = (lambda: x32 @ w32.T, "fp32 x @ composed unblockize(W).T")
     fwd_b16 = (lambda: x @ w16.T, "bf16 x @ composed W.T")
     fwd_tf32 = (tf32_call(lambda: x32 @ w32.T), "one-pass TF32 x @ W.T")
@@ -1055,10 +1092,19 @@ def wide_kernels(torch, gen) -> dict:
     def sig32_plain():
         return ref.sigma_grad_ref(dy32, x32, u32, v32)
 
+    def fb3():
+        return feedback_matmul(dy32, u32, s32, v32, mask)
+
+    def fb_cc():
+        return feedback_matmul(dy32, u32, s32, v32, mask, force_route="wide")
+
+    def fb32_plain():
+        return ref.feedback_matmul_ref(dy32, u32, s32, v32, mask)
+
     # the fp32 routes in turns on the same inputs: 3xTF32, CUDA cores,
     # CUDA cores, 3xTF32 (each the lesser of its two readings)
     in_turns = {}
-    for new, old in ((fwd3, fwd_cc), (sig3, sig_cc)):
+    for new, old in ((fwd3, fwd_cc), (sig3, sig_cc), (fb3, fb_cc)):
         times = [cuda_ms(f, 5) for f in (new, old, old, new)]
         in_turns[new] = (min(times[0], times[3]), (times[0], times[3]))
         in_turns[old] = (min(times[1], times[2]), (times[1], times[2]))
@@ -1067,7 +1113,7 @@ def wide_kernels(torch, gen) -> dict:
     # the rate the kernel's products run at): the tensor-core routes on
     # bf16 operands, the 3xTF32 routes on fp32 ones (3 TF32 passes: a third
     # of the TF32 peak), then the CUDA-core wide routes forced on the same
-    # fp32 (forward, Σ-gradient) or bf16 (feedback) inputs
+    # fp32 inputs
     x3_peak = PEAK_TF32_FLOPS / 3
     rows = (
         ("ptc_block_matmul_wide_tc", "ptc_block_matmul wide_tc (bf16)",
@@ -1114,13 +1160,15 @@ def wide_kernels(torch, gen) -> dict:
          f"blocks",
          lambda: feedback_matmul(dy, u, s, v, mask),
          lambda: ref.feedback_matmul_ref(dy, u, s, v, mask), fb_lib, fb_b16,
-         fb_flops, fb_bytes, 2 ** -7, PEAK_BF16_FLOPS),
+         fb_flops, fb_bytes[2], 2 ** -7, PEAK_BF16_FLOPS),
+        ("feedback_matmul_wide_3xtf32",
+         f"feedback_matmul wide_3xtf32 (fp32), btopk 0.6: {kept} of "
+         f"{p * q} blocks", fb3, fb32_plain, fb_lib, fb_tf32, fb_flops,
+         fb_bytes[4], 1e-5, x3_peak),
         ("feedback_matmul_wide",
-         f"feedback_matmul wide (forced, bf16), btopk 0.6: {kept} of "
-         f"{p * q} blocks",
-         lambda: feedback_matmul(dy, u, s, v, mask, force_route="wide"),
-         lambda: ref.feedback_matmul_ref(dy, u, s, v, mask), fb_lib, fb_b16,
-         fb_flops, fb_bytes, 2 ** -7, PEAK_FP32_FLOPS),
+         f"feedback_matmul wide (forced, fp32), btopk 0.6: {kept} of "
+         f"{p * q} blocks", fb_cc, fb32_plain, fb_lib, fb_tf32, fb_flops,
+         fb_bytes[4], 1e-4, PEAK_FP32_FLOPS),
     )
     peak_names = {PEAK_BF16_FLOPS: "bf16", x3_peak: "3 TF32 passes",
                   PEAK_FP32_FLOPS: "fp32 CUDA-core"}
@@ -1180,39 +1228,67 @@ def wide_kernels(torch, gen) -> dict:
         summary[name]["max_abs_err"] = max(worst[name][1],
                                            summary[name]["max_abs_err"])
 
-    # mesh_apply's wide route at the realization's shape: 2,048 reck
-    # meshes of k = 128 (the up projection's U and V* meshes)
+    # mesh_apply's wide routes at the realization's shape: 2,048 reck
+    # meshes of k = 128 (the up projection's U and V* meshes), the unrolled
+    # route in turns with the list-driven one forced on the same meshes
     k, nm = 128, 2048
     spec = un.mesh_spec(k, "reck")
     ph = torch.rand(nm, spec.n_rot, generator=gen, device=dev) * 4 * torch.pi
     d = torch.where(torch.rand(nm, k, generator=gen, device=dev) < 0.5,
                     1.0, -1.0)
     eye = torch.eye(k, device=dev)[None]
-    uu = un.build_unitary(spec, ph, d)
-    err = float((uu - mesh_apply_plain(spec, ph, eye, d, transpose_out=True))
-                .abs().max())
-    check(err < 1e-5, f"mesh_apply_wide 2048 reck meshes: max abs err "
-                      f"{err:.2e} >= 1e-5")
-    mesh_worst = max(mesh_worst, err)
-    ms = cuda_ms(lambda: un.build_unitary(spec, ph, d), 5)
+
+    def mesh_new():
+        return un.build_unitary(spec, ph, d)
+
+    def mesh_old():
+        return mesh_apply_batched(spec, ph, eye, d, transpose_out=True,
+                                  force_route="wide")
+
+    want = mesh_apply_plain(spec, ph, eye, d, transpose_out=True)
+    for name, fn in zip(mesh_names, (mesh_old, mesh_new)):
+        uu = fn()
+        err = float((uu - want).abs().max())
+        check(err < 1e-5, f"{name} {nm} reck meshes: max abs err {err:.2e} "
+                          f">= 1e-5")
+        check(torch.equal(uu, fn()), f"{name} {nm} reck meshes: two runs "
+                                     f"differ")
+        mesh_worst[name] = max(mesh_worst[name], err)
+    orth = max(orth, float((uu @ uu.transpose(1, 2) - eye).abs().max()))
+    check(orth < 1e-4, f"mesh_apply wide routes: U U^T - I {orth:.2e}")
+    del uu, want
+    times = [cuda_ms(f, 5) for f in (mesh_new, mesh_old, mesh_old, mesh_new)]
     plain = cuda_ms(lambda: mesh_apply_plain(spec, ph, eye, d,
                                              transpose_out=True), 2)
     t_rot, layers = spec.n_rot, spec.n_layers
+    # per mesh: one sincos (counted as 2 operations) per phase, 6 per
+    # rotation per row, one sign multiply per wire per row; bytes: phases,
+    # signs, the identity and U (the list-driven route also reads its
+    # rotation tables)
     flops = nm * (2 * t_rot + k * (6 * t_rot + k))
-    nbytes = 4 * (nm * t_rot + nm * k + k * k + nm * k * k) \
-        + 4 * (2 * t_rot + layers + 1)
-    b_ms, b_by = bound_ms(flops, nbytes)
-    print(f"[check] mesh_apply_wide: k 33/64/100/128 x reck/clements, "
-          f"build_unitary and 70 rows of their own, and {nm} reck meshes "
-          f"of k = {k}: max abs err {mesh_worst:.2e} (tol 1e-5)")
-    print(f"[time] mesh_apply_wide build_unitary ({nm} reck meshes x {k} "
-          f"rows, {t_rot} phases in {layers} layers): kernel {ms:.4f} ms "
-          f"({100 * b_ms / ms:.0f}% of the bound), plain {plain:.4f} ms, no "
-          f"one-call yardstick, bound {b_ms:.4f} ms ({b_by}; "
-          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    summary["mesh_apply_wide"] = dict(max_abs_err=mesh_worst, ms=ms,
-                                      plain_ms=plain, library_ms=None,
-                                      bound_ms=b_ms, bound_by=b_by)
+    nbytes = 4 * (nm * t_rot + nm * k + k * k + nm * k * k)
+    print(f"[check] mesh_apply wide routes: k 33/64/100/128 x reck/clements "
+          f"(64 and 128 unrolled, with signs and without), build_unitary "
+          f"and 70 rows of their own, and {nm} reck meshes of k = {k} on "
+          f"both: max abs err " + ", ".join(
+              f"{n} {e:.2e}" for n, e in mesh_worst.items())
+          + f" (tol 1e-5); U U^T - I {orth:.1e} (tol 1e-4); reruns bitwise")
+    for name, (t0, t1), extra in (
+            ("mesh_apply_wide_unrolled", (times[0], times[3]), 0),
+            ("mesh_apply_wide", (times[1], times[2]),
+             4 * (2 * t_rot + layers + 1))):
+        ms = min(t0, t1)
+        b_ms, b_by = bound_ms(flops, nbytes + extra)
+        print(f"[time] {name} build_unitary ({nm} reck meshes x {k} rows, "
+              f"{t_rot} phases in {layers} layers"
+              + (", forced" if name == "mesh_apply_wide" else "")
+              + f"): kernel {ms:.4f} ms; in turns {t0:.4f}, {t1:.4f} "
+              f"({100 * b_ms / ms:.1f}% of the bound), plain {plain:.4f} ms, "
+              f"no one-call yardstick, bound {b_ms:.4f} ms ({b_by}; "
+              f"{flops / 1e9:.2f} GFLOP, {(nbytes + extra) / 1e6:.1f} MB)")
+        summary[name] = dict(max_abs_err=mesh_worst[name], ms=ms,
+                             plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                             bound_by=b_by)
     return summary
 
 
@@ -1905,10 +1981,10 @@ def blocked_lm_phase(torch) -> dict:
     versions; then the up projection's 1,024 blocks realized through
     ``hw/device.py::realized_unitaries`` (2,048 reck meshes of k = 128).
     The bf16 step takes the three tensor-core routes; the same step with
-    fp32 bases the two 3xTF32 routes and the CUDA-core wide feedback.
-    Returns the wide routes' launches: the tensor-core routes' over the
-    bf16 step, the 3xTF32 and CUDA-core routes' over the fp32 step,
-    ``mesh_apply_wide``'s over the realization."""
+    fp32 bases the three 3xTF32 routes.  Returns the wide routes'
+    launches: the tensor-core routes' over the bf16 step, the 3xTF32 and
+    CUDA-core routes' over the fp32 step, the wide mesh routes' over the
+    realization."""
     from repro_torch.configs import get_config
     from repro_torch.core import subspace
     from repro_torch.core import unitary as un
@@ -2044,8 +2120,7 @@ def blocked_lm_phase(torch) -> dict:
           f"5e-4)")
     del got, want
 
-    # the same step with fp32 bases: the forward and Σ-gradient in 3xTF32,
-    # the feedback on the CUDA cores
+    # the same step with fp32 bases: the three in 3xTF32
     cfg32 = PTCLinearCfg(k=128, mode="blocked", base_dtype=torch.float32)
     layers32 = {n: dict(p, u=p["u"].float(), v=p["v"].float())
                 for n, p in layers.items()}
@@ -2058,11 +2133,11 @@ def blocked_lm_phase(torch) -> dict:
     step_s = time.perf_counter() - t0
     counts = {k: build.launch_counts[k] for k in routes}
     for kernel in routes:
-        want_n = len(OLMO_LINEARS) if kernel in FP32_STEP_KERNELS else 0
+        want_n = len(OLMO_LINEARS) if kernel in TF32X3_KERNELS else 0
         check(counts[kernel] == want_n,
               f"blocked_lm: {kernel} launched {counts[kernel]} times in the "
               f"fp32 step, not {want_n}")
-    # the CUDA-core forward and Σ-gradient: 0 on this path now
+    # the CUDA-core routes: 0 on this path now
     launches.update({k: counts[k] for k in WIDE_KERNELS + TF32X3_KERNELS})
     want = plain(lambda: step(layers32, cfg32, dys32))
     errs = compare(got, want, 1e-4, "fp32")
@@ -2078,8 +2153,8 @@ def blocked_lm_phase(torch) -> dict:
          r"x3_(split|compose)_kernel|x3_product_kernel<0>"),
         ("sigma_grad_wide_3xtf32",
          r"x3_tsplit_kernel|x3_product_kernel<(64|128)>"),
-        ("feedback_matmul_wide",
-         r"ptc_wide_compose_kernel|ptc_wide_gemm_kernel<float, 1>")))
+        ("feedback_matmul_wide_3xtf32",
+         r"x3_(fsplit|fcompose|feedback)_kernel")))
     del layers32, dys32
 
     # realize the up projection's blocks: U and V* meshes of every block
@@ -2095,11 +2170,12 @@ def blocked_lm_phase(torch) -> dict:
     u, v = realized_unitaries(spec, phi[0], phi[1], real, model)
     torch.cuda.synchronize()
     real_s = time.perf_counter() - t0
-    mesh = {k: build.launch_counts[k] for k in ("mesh_apply",
-                                                "mesh_apply_wide")}
-    check(mesh == {"mesh_apply": 0, "mesh_apply_wide": 2},
-          f"blocked_lm: the realization launched {mesh}, not the wide mesh "
-          f"route twice")
+    mesh = {k: build.launch_counts[k] for k in (
+        "mesh_apply", "mesh_apply_wide", "mesh_apply_wide_unrolled")}
+    check(mesh == {"mesh_apply": 0, "mesh_apply_wide": 0,
+                   "mesh_apply_wide_unrolled": 2},
+          f"blocked_lm: the realization launched {mesh}, not the unrolled "
+          f"wide mesh route twice")
     eye = torch.eye(cfg.k, device=dev)[None]
     err = 0.0
     for got_u, ph, noise, d in ((u, phi[0], real.noise_u, real.d_u),
@@ -2115,11 +2191,12 @@ def blocked_lm_phase(torch) -> dict:
                        f"({orth:.2e})")
     print(f"[blocked_lm] up projection realized: {2 * p * q} reck meshes "
           f"of k = {cfg.k} ({spec.n_rot} phases, {spec.n_layers} layers) in "
-          f"{real_s * 1e3:.1f} ms wall, launches mesh_apply_wide="
-          f"{mesh['mesh_apply_wide']}, mesh_apply={mesh['mesh_apply']}; "
-          f"max abs err {err:.2e} against the plain version (tol 1e-5); "
-          f"U U^T - I {orth:.1e}")
-    return dict(launches, mesh_apply_wide=mesh["mesh_apply_wide"])
+          f"{real_s * 1e3:.1f} ms wall, launches " + ", ".join(
+              f"{n}={c}" for n, c in mesh.items())
+          + f"; max abs err {err:.2e} against the plain version (tol "
+          f"1e-5); U U^T - I {orth:.1e}")
+    return dict(launches, mesh_apply_wide=mesh["mesh_apply_wide"],
+                mesh_apply_wide_unrolled=mesh["mesh_apply_wide_unrolled"])
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,47 @@
 // A layer's (cos, sin, upper wire) are staged once per CTA, for the next
 // layer only, into one of two small buffers while the current layer is
 // applied: one barrier a layer, and the shared memory no longer grows with
-// the phase count.
+// the phase count.  Since the unrolled route took k = 64 and 128 it serves
+// only the other k > 32, which no configuration of the port uses.
+//
+// The unrolled route (mesh_apply_unrolled_kernel, k = 64 and 128): the
+// wide route's CTA closed each of a reck mesh's 253 layers at k = 128 with
+// a barrier and moved two wires of each row through shared memory per
+// rotation, at 6% of its bound.  Here, as in the narrow route, a thread
+// owns one row and holds its k wires in registers (k = 128: 128 of them),
+// and the rotation order is fixed at compile time per (kind, k):
+//  * A CTA owns one mesh and up to k of its rows (one thread a row; more
+//    rows take more CTAs along grid.y).  It first computes every phase's
+//    (cos, sin) once, with full-precision sincosf, into shared memory
+//    (8,128 pairs at k = 128, about 68 KB with the padding below: Hopper
+//    lets a kernel opt in to 227 KB), in a flat loop of independent
+//    iterations that keeps several phase loads in flight a thread; then
+//    each rotation is one broadcast shared load (all threads read the same
+//    address) and four FP instructions a row, with no barrier in the
+//    rotation loop.
+//  * What bounds it: each rotation delivers its 8 bytes of (cos, sin)
+//    from shared memory to every row's lane, 2.2 G row-rotations (18 GB
+//    of lane deliveries) for 2,048 reck meshes at k = 128, beside 13
+//    GFLOP of FP work (0.19 ms at 67 TFLOP/s); three CTAs an SM (the
+//    shared memory's limit) leave few warps to hide the loads.  The
+//    registers are capped at 168 for those three CTAs (the reck variant
+//    spills 76 bytes there; a cap of 255, two CTAs an SM, was slower).
+//  * Reck, in application order, is k - 1 sweeps: sweep c (c = k - 2 down
+//    to 0) rotates (c, c + 1), (c + 1, c + 2), ..., (k - 2, k - 1) on
+//    consecutive phase slots (core/unitary.py::mesh_spec(k, "reck").pairs).
+//    A sweep is stored from wire 8 (c / 8) on, its wires below c as
+//    identity rotations (cos 1, sin 0: exact), so it starts on a group of
+//    8 wires: the kernel runs the groups g >= c / 8 of one unrolled body of
+//    k / 8 groups (constant register indices; a uniform branch a group),
+//    each group's 8 (cos, sin) read as four 16-byte loads.  The padding
+//    adds 5% of rotations at k = 128.
+//  * Clements, k layers alternating even (pairs (0, 1), (2, 3), ...) and
+//    odd ((1, 2), (3, 4), ...): two unrolled layer bodies in alternation,
+//    their k / 2 and k / 2 - 1 rotations independent of each other.
+//  * Each thread stores its own row; in build_unitary's transposed layout
+//    (y_rstride 1) neighbouring threads write neighbouring addresses.
+// tests/test_torch_mesh_wide.py::unrolled_table mirrors the table's layout
+// and the application order for the CPU tests.
 
 #include <utility>
 
@@ -435,6 +475,173 @@ mesh_apply_wide_kernel(const float* __restrict__ x, long long x_bstride,
   }
 }
 
+
+// --- the unrolled route (k = 64, 128) ---------------------------------------
+
+// rotation (a, a + 1) of one row by r = (cos, sin)
+template <int K>
+__device__ __forceinline__ void rot(float (&v)[K], int a, float c, float s) {
+  const float x0 = v[a], x1 = v[a + 1];
+  v[a] = c * x0 - s * x1;
+  v[a + 1] = s * x0 + c * x1;
+}
+
+// group G of a reck sweep: rotations on wires 8 G .. 8 G + 7 (the last
+// group 7: wire K - 1 is no upper wire), their (cos, sin) at cs[0 .. 7]
+template <int K, int G>
+__device__ __forceinline__ void reck_group(float (&v)[K],
+                                           const float4* __restrict__ cs) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const float4 r = cs[h];
+    rot<K>(v, 8 * G + 2 * h, r.x, r.y);
+    if (8 * G + 2 * h + 2 < K) rot<K>(v, 8 * G + 2 * h + 1, r.z, r.w);
+  }
+}
+
+// one sweep entered at group g0: groups g0 .. K/8 - 1, group G's pairs at
+// cs[4 G ..] (cs points at the sweep's start less 4 g0)
+template <int K, int... G>
+__device__ __forceinline__ void reck_sweep(float (&v)[K],
+                                           const float4* __restrict__ cs,
+                                           int g0,
+                                           std::integer_sequence<int, G...>) {
+  ((G >= g0 ? reck_group<K, G>(v, cs + 4 * G) : void()), ...);
+}
+
+// the unrolled table's length in (cos, sin) pairs: reck, sweep c from wire
+// 8 (c / 8) to k - 1 (k - 1 a pad); clements, k / 2 layer pairs of k
+__host__ __device__ constexpr int unrolled_pairs(int K, int kind) {
+  int n = 0;
+  if (kind == kClements) return K * K / 2;
+  for (int c = 0; c < K - 1; ++c) n += K - 8 * (c / 8);
+  return n;
+}
+
+// Registers: at most 168 a thread at K = 128 (three CTAs an SM, as their
+// shared memory allows), 128 at K = 64.
+template <int K, int KIND>
+__global__ void __launch_bounds__(K, K == 128 ? 3 : 8)
+mesh_apply_unrolled_kernel(const float* __restrict__ x, long long x_bstride,
+                           const float* __restrict__ phases,
+                           const float* __restrict__ d,
+                           float* __restrict__ y, long long y_bstride,
+                           long long y_rstride, long long y_wstride, int R) {
+  constexpr int T = K * (K - 1) / 2;
+  extern __shared__ float4 usm[];
+  float2* tab = reinterpret_cast<float2*>(usm);
+  float* dd = reinterpret_cast<float*>(tab + unrolled_pairs(K, KIND));
+  int* spos = reinterpret_cast<int*>(dd + K);  // reck: each sweep's start
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.x;
+  const float* ph = phases + b * T;
+
+  // every phase's (cos, sin) once, into the unrolled layout: a flat loop
+  // of independent iterations (unrolled, so each thread keeps several
+  // phase loads in flight)
+  auto cs_of = [&](int slot) {
+    float sv, cv;
+    sincosf(ph[slot], &sv, &cv);
+    return make_float2(cv, sv);
+  };
+  if constexpr (KIND == kReck) {
+    // sweep i (application order) is c = K - 2 - i, its slots from i (i +
+    // 1) / 2, stored from spos[i] on, from wire 8 (c / 8): wires below c
+    // identities, wire K - 1 a pad
+    if (tid < K - 1) {
+      int pos = 0;
+      for (int i = 0; i < tid; ++i) pos += K - 8 * ((K - 2 - i) / 8);
+      spos[tid] = pos;
+    }
+    __syncthreads();
+    for (int e = tid; e < (K - 1) * 8; e += K) {
+      const int i = e / 8, j = e % 8, c = K - 2 - i, lo = 8 * (c / 8);
+      if (lo + j < c) tab[spos[i] + j] = make_float2(1.f, 0.f);
+      if (j == 0) tab[spos[i] + K - 1 - lo] = make_float2(1.f, 0.f);
+    }
+#pragma unroll 8
+    for (int t = tid; t < T; t += K) {
+      // t's sweep: the i with i (i + 1) / 2 <= t < (i + 1) (i + 2) / 2
+      int i = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+      i += (i + 1) * (i + 2) / 2 <= t;
+      i -= i * (i + 1) / 2 > t;
+      const int c = K - 2 - i, lo = 8 * (c / 8);
+      tab[spos[i] + c + t - i * (i + 1) / 2 - lo] = cs_of(t);
+    }
+  } else {
+    // layer pair m: the even layer's K/2 pairs, then the odd layer's K/2 -
+    // 1 and a pad; pair w of the two sits at slot m (K - 1) + w
+#pragma unroll 8
+    for (int i = tid; i < K * K / 2; i += K) {
+      const int m = i / K, w = i % K;
+      tab[i] = w < K - 1 ? cs_of(m * (K - 1) + w) : make_float2(1.f, 0.f);
+    }
+  }
+  if (d != nullptr && tid < K) dd[tid] = d[b * K + tid];
+  __syncthreads();
+
+  const int r = blockIdx.y * K + tid;
+  if (r >= R) return;
+  float v[K];
+  const float* xr = x + b * x_bstride + (long long)r * K;
+#pragma unroll
+  for (int w = 0; w < K; ++w) v[w] = xr[w];
+  if (d != nullptr) {
+#pragma unroll
+    for (int w = 0; w < K; ++w) v[w] *= dd[w];
+  }
+
+  if constexpr (KIND == kReck) {
+    for (int i = 0; i < K - 1; ++i) {
+      const int g0 = (K - 2 - i) / 8;
+      reck_sweep<K>(v,
+                    reinterpret_cast<const float4*>(tab + spos[i]) - 4 * g0,
+                    g0, std::make_integer_sequence<int, K / 8>{});
+    }
+  } else {
+    const float4* cs = usm;
+    for (int m = 0; m < K / 2; ++m, cs += K / 2) {
+#pragma unroll
+      for (int h = 0; h < K / 4; ++h) {  // even layer: (4h, +1), (4h+2, +3)
+        const float4 rr = cs[h];
+        rot<K>(v, 4 * h, rr.x, rr.y);
+        rot<K>(v, 4 * h + 2, rr.z, rr.w);
+      }
+#pragma unroll
+      for (int h = 0; h < K / 4; ++h) {  // odd layer: (4h+1, +2), (4h+3, +4)
+        const float4 rr = cs[K / 4 + h];
+        rot<K>(v, 4 * h + 1, rr.x, rr.y);
+        if (4 * h + 4 < K) rot<K>(v, 4 * h + 3, rr.z, rr.w);
+      }
+    }
+  }
+
+  float* yr = y + b * y_bstride + (long long)r * y_rstride;
+#pragma unroll
+  for (int w = 0; w < K; ++w) yr[w * y_wstride] = v[w];
+}
+
+template <int K, int KIND>
+cudaError_t launch_unrolled(const float* x, long long x_bstride,
+                            const float* phases, const float* d, float* y,
+                            long long y_bstride, long long y_rstride,
+                            long long y_wstride, int B, int R,
+                            cudaStream_t stream) {
+  auto kern = mesh_apply_unrolled_kernel<K, KIND>;
+  const int smem = (int)(sizeof(float2) * unrolled_pairs(K, KIND) +
+                         (sizeof(float) + sizeof(int)) * K);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  kern<<<dim3((unsigned)B, (unsigned)((R + K - 1) / K)), K, smem, stream>>>(
+      x, x_bstride, phases, d, y, y_bstride, y_rstride, y_wstride, R);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* repro_cuda_error_string(int status) {
@@ -506,4 +713,30 @@ extern "C" int mesh_apply_wide_f32(const float* x, long long x_bstride,
       x, x_bstride, phases, d, rot_wire, rot_slot, layer_start, y, y_bstride,
       y_rstride, y_wstride, R, k, T, L, rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The unrolled route, k = 64 and 128: arguments as mesh_apply_f32 (no slot
+// table, no offset).
+extern "C" int mesh_apply_unrolled_f32(const float* x, long long x_bstride,
+                                       const float* phases, const float* d,
+                                       float* y, long long y_bstride,
+                                       long long y_rstride,
+                                       long long y_wstride, int B, int R,
+                                       int k, int T, int kind, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((k != 64 && k != 128) || T != k * (k - 1) / 2 || B < 1 || R < 1 ||
+      (R + k - 1) / k > 65535 || (kind != kClements && kind != kReck))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_UNROLLED(KK)                                                  \
+  return static_cast<int>(                                                 \
+      kind == kClements                                                    \
+          ? launch_unrolled<KK, kClements>(x, x_bstride, phases, d, y,     \
+                                           y_bstride, y_rstride,           \
+                                           y_wstride, B, R, s)             \
+          : launch_unrolled<KK, kReck>(x, x_bstride, phases, d, y,         \
+                                       y_bstride, y_rstride, y_wstride, B, \
+                                       R, s))
+  if (k == 64) REPRO_UNROLLED(64);
+  REPRO_UNROLLED(128);
+#undef REPRO_UNROLLED
 }

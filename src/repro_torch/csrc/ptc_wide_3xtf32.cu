@@ -1,14 +1,17 @@
-// The blocked PTC forward and Sigma-gradient at k = 64 and 128 with fp32
-// operands, on the tensor cores in 3xTF32 (the "wide_3xtf32" route).
+// The blocked PTC forward, Sigma-gradient and error feedback at k = 64 and
+// 128 with fp32 operands, on the tensor cores in 3xTF32 (the "wide_3xtf32"
+// route).
 //
 // Replaces, for fp32 operands at k = 64 and 128 (k = 128 in every LM
 // config), the TPU kernels
 //   repro/kernels/ptc_block_matmul.py::ptc_block_matmul  y_p  = sum_q U_pq (s_pq * V*_pq x_q)
 //   repro/kernels/sigma_grad.py::sigma_grad              ds_pq = sum_t col_t (U_pq^T dy_p) * (V*_pq x_q)
+//   repro/kernels/feedback_matmul.py::feedback_matmul    dx_q = sum_p mask[q,p] V*_pq^T (s_pq * U_pq^T dy_p)
 // (dispatched by repro/kernels/ops.py).  Shapes: x (T, Q*k), dy (T, P*k),
 // u and v (P, Q, k, k) with v holding V*, s (P, Q, k), all fp32; col (T,)
-// fp32 or none; y (T, P*k) fp32, ds (P, Q, k) fp32.  bf16 operands take
-// the bf16 tensor-core route (ptc_wide_tc.cu), other k the CUDA cores
+// fp32 or none; mask (Q, P) fp32, already scaled; y (T, P*k) fp32, ds
+// (P, Q, k) fp32, dx (T, Q*k) fp32.  bf16 operands take the bf16
+// tensor-core route (ptc_wide_tc.cu), other k the CUDA cores
 // (ptc_wide.cu).
 //
 // 3xTF32: every fp32 operand a is split into tf32 hi = rna(a) and lo =
@@ -25,8 +28,10 @@
 // k = 128, T = 4096) the forward is 137.4 GFLOP of product and 4.3 of
 // composing, 0.86 ms at 3 passes against 2.1 ms at the fp32 CUDA-core
 // peak; the Sigma-gradient is the same product (G = dy^T x) and a 4.3
-// GFLOP projection.  Its bytes (x and W's planes, or dy's and x's, written
-// and read once more) take about 0.1-0.15 ms.
+// GFLOP projection; the feedback is the product over the kept blocks
+// alone (about 614 of 1,024 under btopk at alpha_W = 0.6: about 85 GFLOP,
+// 0.51 ms).  Their bytes (x and W's planes, or dy's and x's, written and
+// read once more) take about 0.1-0.15 ms.
 //
 // Design (fixed order of sums, no atomics: two runs give the same bits):
 //  * x3_compose_kernel: W_pq = (U_pq diag(s_pq)) V*_pq composed once per
@@ -62,6 +67,25 @@
 //    a register-tiled product (8 x 8 a thread), and ds[i] = sum_b H[i, b]
 //    V*[i, b] is reduced over the 16 threads that share a row.  G never
 //    reaches device memory.
+//  * The feedback, dx = dy W~ with W~_pq = mask[q, p] W_pq:
+//    - x3_fcompose_kernel: the compose above with its operands swapped,
+//      so each kept block is composed once and transposed, Wt_qp =
+//      (mask[q, p] U_pq diag(s_pq) V*_pq)^T, into Wt's planes (2, Q*k,
+//      P*k): A = V*^T, transposed while it is split; B = U diag(s) mask,
+//      both products formed in fp32 and then split, K-major as stored.
+//      A masked block's CTAs return at once, but at k = 64, where a
+//      product tile holds two q blocks, they write zeros where the tile's
+//      other q block keeps the p block (the product reads them there).
+//    - x3_fsplit_kernel: dy split once into its planes (2, T, P*k); the
+//      reduction runs over P*k, dy's contiguous axis: no transpose.
+//    - x3_feedback_kernel: the product above on (dy, Wt), over the live
+//      32-column stages only: a stage (32 columns of one p block) is live
+//      where the mask keeps that p block for a q block of the tile's 128
+//      columns (one q block at k = 128, so the skip keeps the mask's whole
+//      saving; two at k = 64).  The producer walks the tile's mask row(s)
+//      and loads the live stages; the consumers derive the same count,
+//      so no branch sits among the wgmmas.  A tile with no live stage
+//      stores exact zeros.
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or kEncodeError + the driver's code when a tensor
@@ -163,9 +187,10 @@ __device__ __forceinline__ void add_part(float (&acc)[R],
 // --- pre-passes ---------------------------------------------------------
 
 // hi, lo = split(a), n4 float4 each
-__global__ void __launch_bounds__(256)
-x3_split_kernel(const float4* __restrict__ a, float4* __restrict__ hi,
-                float4* __restrict__ lo, long long n4) {
+__device__ __forceinline__ void split_body(const float4* __restrict__ a,
+                                           float4* __restrict__ hi,
+                                           float4* __restrict__ lo,
+                                           long long n4) {
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
        i += (long long)gridDim.x * 256) {
     float4 h, l;
@@ -173,6 +198,20 @@ x3_split_kernel(const float4* __restrict__ a, float4* __restrict__ hi,
     hi[i] = h;
     lo[i] = l;
   }
+}
+
+// the forward's x
+__global__ void __launch_bounds__(256)
+x3_split_kernel(const float4* __restrict__ a, float4* __restrict__ hi,
+                float4* __restrict__ lo, long long n4) {
+  split_body(a, hi, lo, n4);
+}
+
+// the feedback's dy (its own name, so a profile tells the two apart)
+__global__ void __launch_bounds__(256)
+x3_fsplit_kernel(const float4* __restrict__ a, float4* __restrict__ hi,
+                 float4* __restrict__ lo, long long n4) {
+  split_body(a, hi, lo, n4);
 }
 
 // hi[m, t], lo[m, t] = split(col[t] * in[t, m]) for t < T, zero for
@@ -208,59 +247,84 @@ x3_tsplit_kernel(const float* __restrict__ in, const float* __restrict__ col,
 
 // --- compose -----------------------------------------------------------
 
-// W[p*KB + m0 + i, q*KB + n0 + j] = sum_a (U[i, a] s[a]) V*[a, j] for the
-// CTA's 64 x 64 tile (m0, n0) of block p*Q + q, written as tf32 hi and lo
-// planes: blockIdx.x = (p*Q + q) * (KB/64)^2 + tile
-template <int KB>
-__global__ void __launch_bounds__(128)
-x3_compose_kernel(const float* __restrict__ u, const float* __restrict__ s,
-                  const float* __restrict__ v, float* __restrict__ whi,
-                  float* __restrict__ wlo, int Q) {
+// The forward (FEED false): W[p*KB + m0 + i, q*KB + n0 + j] = sum_a (U[i, a]
+// s[a]) V*[a, j] for the CTA's 64 x 64 tile (m0, n0) of block p*Q + q,
+// written as tf32 hi and lo planes of W (P*KB, Q*KB).  The feedback (FEED
+// true): Wt[q*KB + m0 + j, p*KB + n0 + i] = sum_a V*[a, j] (U[i, a] s[a]
+// m), m = mask[q, p], into Wt's planes (Q*KB, P*KB); a masked block's
+// tile is not composed (KB = 64: zeros where the other q block of its
+// product tile keeps p).  blockIdx.x = (p*Q + q) * (KB/64)^2 + tile.
+template <int KB, bool FEED>
+__device__ __forceinline__ void compose_body(const float* __restrict__ u,
+                                             const float* __restrict__ s,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ mask,
+                                             float* __restrict__ whi,
+                                             float* __restrict__ wlo, int P,
+                                             int Q) {
   constexpr int nt = KB / 64;
   constexpr int kT = 64 * 128;  // 64 rows of 32 fp32: 8 KB
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base;
-  const uint32_t sbase = aligned_base(smem_raw, &base);
   const long long blk = blockIdx.x / (nt * nt);
   const int tile = blockIdx.x % (nt * nt);
   const int p = (int)(blk / Q), q = (int)(blk % Q);
+  float m = 1.f;
+  bool live = true;
+  if constexpr (FEED) {
+    m = mask[(long long)q * P + p];
+    live = m != 0.f;
+    // at KB = 64 the product's tile of 128 columns holds q blocks q and
+    // q ^ 1: it reads this block where the other one keeps p
+    if (!live && (KB == 128 || (q ^ 1) >= Q ||
+                  mask[(long long)(q ^ 1) * P + p] == 0.f))
+      return;
+  }
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base;
+  const uint32_t sbase = aligned_base(smem_raw, &base);
   const int m0 = (tile / nt) * 64, n0 = (tile % nt) * 64;
   const float* ub = u + blk * KB * KB;
   const float* sb = s + blk * KB;
   const float* vb = v + blk * KB * KB;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // U diag(s) (m) is the forward's A and the feedback's B; V*^T the other
+  const int us_off = FEED ? 2 * kT : 0, vt_off = FEED ? 0 : 2 * kT;
+  const int us_row0 = FEED ? n0 : m0, vt_row0 = FEED ? m0 : n0;
 
   float acc[32], part[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  for (int a0 = 0; a0 < KB; a0 += kBK) {
-    // A = U diag(s): row r is U's row m0 + r, K-major as stored
+  for (int a0 = 0; a0 < KB && live; a0 += kBK) {
+    // U diag(s) (m): row r is U's row us_row0 + r, K-major as stored; each
+    // product formed in fp32 before the split
     for (int e = tid; e < 64 * 8; e += 128) {
       const int r = e / 8, c = e % 8;
-      const float4 uv =
-          *reinterpret_cast<const float4*>(ub + (m0 + r) * KB + a0 + 4 * c);
+      const float4 uv = *reinterpret_cast<const float4*>(
+          ub + (us_row0 + r) * KB + a0 + 4 * c);
       const float4 sv = *reinterpret_cast<const float4*>(sb + a0 + 4 * c);
+      float4 w = make_float4(__fmul_rn(uv.x, sv.x), __fmul_rn(uv.y, sv.y),
+                             __fmul_rn(uv.z, sv.z), __fmul_rn(uv.w, sv.w));
+      if constexpr (FEED)
+        w = make_float4(__fmul_rn(w.x, m), __fmul_rn(w.y, m),
+                        __fmul_rn(w.z, m), __fmul_rn(w.w, m));
       float4 h, l;
-      split4(make_float4(__fmul_rn(uv.x, sv.x), __fmul_rn(uv.y, sv.y),
-                         __fmul_rn(uv.z, sv.z), __fmul_rn(uv.w, sv.w)),
-             h, l);
+      split4(w, h, l);
       const int off = r * 128 + ((c ^ (r & 7)) << 4);
-      *reinterpret_cast<float4*>(base + off) = h;
-      *reinterpret_cast<float4*>(base + kT + off) = l;
+      *reinterpret_cast<float4*>(base + us_off + off) = h;
+      *reinterpret_cast<float4*>(base + us_off + kT + off) = l;
     }
-    // B = V*^T: row j holds V*[a0 .. a0 + 31, n0 + j]
+    // V*^T: row j holds V*[a0 .. a0 + 31, vt_row0 + j]
     for (int e = tid; e < kBK * 16; e += 128) {
       const int a = e / 16, j4 = 4 * (e % 16);
-      const float4 vv =
-          *reinterpret_cast<const float4*>(vb + (a0 + a) * KB + n0 + j4);
+      const float4 vv = *reinterpret_cast<const float4*>(
+          vb + (a0 + a) * KB + vt_row0 + j4);
       const float vals[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float h, l;
         split(vals[jj], h, l);
         const int off = sw_off(j4 + jj, a);
-        *reinterpret_cast<float*>(base + 2 * kT + off) = h;
-        *reinterpret_cast<float*>(base + 3 * kT + off) = l;
+        *reinterpret_cast<float*>(base + vt_off + off) = h;
+        *reinterpret_cast<float*>(base + vt_off + kT + off) = l;
       }
     }
     fence_proxy_async();
@@ -277,15 +341,18 @@ x3_compose_kernel(const float* __restrict__ u, const float* __restrict__ s,
     __syncthreads();  // before the next chunk overwrites the tiles
   }
 
-  // rows m0 + 16 warp + lane / 4 (+ 8), columns n0 + 8 j + 2 (lane % 4)
-  const long long ldw = (long long)Q * KB;
+  // rows m0 + 16 warp + lane / 4 (+ 8) of the block's tile, columns n0 +
+  // 8 j + 2 (lane % 4): of W's block (p, q), or of Wt's block (q, p)
+  const long long ldw = (long long)(FEED ? P : Q) * KB;
+  const long long row0 = (long long)(FEED ? q : p) * KB;
+  const long long col0 = (long long)(FEED ? p : q) * KB;
   const int r = m0 + 16 * warp + lane / 4, c2 = n0 + 2 * (lane % 4);
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const long long row = (long long)p * KB + r + 8 * e;
+    const long long row = row0 + r + 8 * e;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const long long at = row * ldw + (long long)q * KB + c2 + 8 * j;
+      const long long at = row * ldw + col0 + c2 + 8 * j;
       float2 h, l;
       split(acc[4 * j + 2 * e], h.x, l.x);
       split(acc[4 * j + 2 * e + 1], h.y, l.y);
@@ -293,6 +360,23 @@ x3_compose_kernel(const float* __restrict__ u, const float* __restrict__ s,
       *reinterpret_cast<float2*>(wlo + at) = l;
     }
   }
+}
+
+template <int KB>
+__global__ void __launch_bounds__(128)
+x3_compose_kernel(const float* __restrict__ u, const float* __restrict__ s,
+                  const float* __restrict__ v, float* __restrict__ whi,
+                  float* __restrict__ wlo, int P, int Q) {
+  compose_body<KB, false>(u, s, v, nullptr, whi, wlo, P, Q);
+}
+
+template <int KB>
+__global__ void __launch_bounds__(128)
+x3_fcompose_kernel(const float* __restrict__ u, const float* __restrict__ s,
+                   const float* __restrict__ v,
+                   const float* __restrict__ mask, float* __restrict__ whi,
+                   float* __restrict__ wlo, int P, int Q) {
+  compose_body<KB, true>(u, s, v, mask, whi, wlo, P, Q);
 }
 
 // --- the product C = A B^T over K-major planes ----------------------------
@@ -429,25 +513,35 @@ __device__ __forceinline__ void project(float* gs, float* us,
   }
 }
 
+// whether the feedback tile of 128 columns from q block q0 keeps p block
+// pb: q0 alone at FKB = 128, q0 or q0 + 1 (where it exists) at FKB = 64
+template <int FKB>
+__device__ __forceinline__ bool fb_live(const float* __restrict__ mask,
+                                        int P, int Q, int q0, int pb) {
+  bool live = __ldg(mask + (long long)q0 * P + pb) != 0.f;
+  if constexpr (FKB == 64)
+    live = live || (q0 + 1 < Q &&
+                    __ldg(mask + (long long)(q0 + 1) * P + pb) != 0.f);
+  return live;
+}
+
 // C tile (blockIdx.y, blockIdx.x): rows 128 y .. of A's M, columns 128 x
-// .. of B's N, over K columns (a multiple of kBK).  KB = 0: the forward,
-// C stored to out (M, N) with rows >= M and columns >= N masked; KB = 64
-// or 128: the Sigma-gradient, C = G projected to out = ds (P, Q, KB).
-template <int KB>
-__global__ void __launch_bounds__(kThreads, 1)
-x3_product_kernel(__grid_constant__ const CUtensorMap ahi,
-                  __grid_constant__ const CUtensorMap alo,
-                  __grid_constant__ const CUtensorMap bhi,
-                  __grid_constant__ const CUtensorMap blo,
-                  float* __restrict__ out, int M, int N, int K,
-                  const float* __restrict__ u, const float* __restrict__ v,
-                  int P, int Q) {
+// .. of B's N, over K columns (a multiple of kBK).  KB = 0, FKB = 0: the
+// forward, C stored to out (M, N) with rows >= M and columns >= N masked;
+// KB = 64 or 128: the Sigma-gradient, C = G projected to out = ds (P, Q,
+// KB); FKB = 64 or 128: the feedback, C = dx stored as the forward's, K =
+// P*FKB walked over the live stages only (mask (Q, P)).
+template <int KB, int FKB>
+__device__ __forceinline__ void product_body(
+    const CUtensorMap* ahi, const CUtensorMap* alo, const CUtensorMap* bhi,
+    const CUtensorMap* blo, float* __restrict__ out, int M, int N, int K,
+    const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ mask, int P, int Q) {
   using L = Layout;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base;
   const uint32_t sbase = aligned_base(smem_raw, &base);
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int nk = K / kBK;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   auto full = [&](int st) { return sbase + L::bars + 8 * st; };
@@ -460,24 +554,42 @@ x3_product_kernel(__grid_constant__ const CUtensorMap ahi,
     mbar_init_fence();
   }
   __syncthreads();
+  // the feedback: the tile's first q block, and stages a p block
+  constexpr int per_p = FKB / kBK;
+  const int q0 = n0 / (FKB == 0 ? kBN : FKB);
 
   if (wg == 0) {  // producer: one thread issues every load
     if (tid == 0) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int st = kt % kStages;
-        if (kt >= kStages) mbar_wait(empty(st), (kt / kStages - 1) & 1);
+      auto load = [&](int vs, int k0) {  // stage vs from column k0
+        const int st = vs % kStages;
+        if (vs >= kStages) mbar_wait(empty(st), (vs / kStages - 1) & 1);
         const uint32_t dst = sbase + st * L::stage;
-        const int k0 = kt * kBK;
         mbar_expect_tx(full(st), L::stage);
-        tma_load_2d(dst, &ahi, full(st), k0, m0);
-        tma_load_2d(dst + kPlane, &alo, full(st), k0, m0);
-        tma_load_2d(dst + 2 * kPlane, &bhi, full(st), k0, n0);
-        tma_load_2d(dst + 3 * kPlane, &blo, full(st), k0, n0);
+        tma_load_2d(dst, ahi, full(st), k0, m0);
+        tma_load_2d(dst + kPlane, alo, full(st), k0, m0);
+        tma_load_2d(dst + 2 * kPlane, bhi, full(st), k0, n0);
+        tma_load_2d(dst + 3 * kPlane, blo, full(st), k0, n0);
+      };
+      if constexpr (FKB == 0) {
+        for (int kt = 0; kt < K / kBK; ++kt) load(kt, kt * kBK);
+      } else {
+        int vs = 0;
+        for (int pb = 0; pb < P; ++pb) {
+          if (!fb_live<FKB>(mask, P, Q, q0, pb)) continue;
+          for (int h = 0; h < per_p; ++h, ++vs) load(vs, pb * FKB + h * kBK);
+        }
       }
     }
     return;
   }
 
+  // the stages the producer sends
+  int nk = K / kBK;
+  if constexpr (FKB != 0) {
+    nk = 0;
+    for (int pb = 0; pb < P; ++pb) nk += fb_live<FKB>(mask, P, Q, q0, pb);
+    nk *= per_p;
+  }
   // each stage's products go to a fresh partial sum, added to acc on the
   // CUDA cores (rounded to nearest): the tensor cores' own fp32
   // accumulation is not rounded to nearest, and over all of K (3 K / 8
@@ -536,6 +648,33 @@ x3_product_kernel(__grid_constant__ const CUtensorMap ahi,
   }
 }
 
+// the forward (KB = 0) and the Sigma-gradient (KB = 64, 128)
+template <int KB>
+__global__ void __launch_bounds__(kThreads, 1)
+x3_product_kernel(__grid_constant__ const CUtensorMap ahi,
+                  __grid_constant__ const CUtensorMap alo,
+                  __grid_constant__ const CUtensorMap bhi,
+                  __grid_constant__ const CUtensorMap blo,
+                  float* __restrict__ out, int M, int N, int K,
+                  const float* __restrict__ u, const float* __restrict__ v,
+                  int P, int Q) {
+  product_body<KB, 0>(&ahi, &alo, &bhi, &blo, out, M, N, K, u, v, nullptr,
+                      P, Q);
+}
+
+// the feedback, blocks of FKB = 64 or 128
+template <int FKB>
+__global__ void __launch_bounds__(kThreads, 1)
+x3_feedback_kernel(__grid_constant__ const CUtensorMap ahi,
+                   __grid_constant__ const CUtensorMap alo,
+                   __grid_constant__ const CUtensorMap bhi,
+                   __grid_constant__ const CUtensorMap blo,
+                   float* __restrict__ out, int M, int N, int K,
+                   const float* __restrict__ mask, int P, int Q) {
+  product_body<0, FKB>(&ahi, &alo, &bhi, &blo, out, M, N, K, nullptr,
+                       nullptr, mask, P, Q);
+}
+
 // --- host side ----------------------------------------------------------
 
 template <typename Kern>
@@ -547,27 +686,51 @@ cudaError_t allow_smem(Kern kern, int bytes, bool* done) {
   return e;
 }
 
-// the four planes' tensor maps and the product's launch
-template <int KB>
+// the four planes' tensor maps and the product's launch: the forward or
+// the Sigma-gradient (FKB = 0; u, v for the projection), or the feedback
+// (FKB = 64, 128; mask)
+template <int KB, int FKB = 0>
 int product(const float* ahi, const float* alo, long long am,
             const float* bhi, const float* blo, long long bn, long long K,
-            float* out, int M, int N, const float* u, const float* v, int P,
-            int Q, cudaStream_t st) {
+            float* out, int M, int N, const float* u, const float* v,
+            const float* mask, int P, int Q, cudaStream_t st) {
   CUtensorMap mah, mal, mbh, mbl;
   int rc = map_2d(&mah, ahi, am, K, kBM, kBK, true);
   if (rc == 0) rc = map_2d(&mal, alo, am, K, kBM, kBK, true);
   if (rc == 0) rc = map_2d(&mbh, bhi, bn, K, kBN, kBK, true);
   if (rc == 0) rc = map_2d(&mbl, blo, bn, K, kBN, kBK, true);
   if (rc != 0) return rc;
-  auto kern = x3_product_kernel<KB>;
+  const dim3 grid((unsigned)((bn + kBN - 1) / kBN),
+                  (unsigned)((am + kBM - 1) / kBM));
   static bool smem_set = false;
-  const cudaError_t err = allow_smem(kern, Layout::bytes, &smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3((unsigned)((bn + kBN - 1) / kBN), (unsigned)((am + kBM - 1) / kBM)),
-         kThreads, Layout::bytes, st>>>(mah, mal, mbh, mbl, out, M, N, (int)K,
-                                        u, v, P, Q);
+  if constexpr (FKB == 0) {
+    auto kern = x3_product_kernel<KB>;
+    const cudaError_t err = allow_smem(kern, Layout::bytes, &smem_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, kThreads, Layout::bytes, st>>>(mah, mal, mbh, mbl, out, M,
+                                                N, (int)K, u, v, P, Q);
+  } else {
+    auto kern = x3_feedback_kernel<FKB>;
+    const cudaError_t err = allow_smem(kern, Layout::bytes, &smem_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, kThreads, Layout::bytes, st>>>(mah, mal, mbh, mbl, out, M,
+                                                N, (int)K, mask, P, Q);
+  }
   return static_cast<int>(cudaGetLastError());
 }
+
+// hi, lo = split(a) over n fp32 (a multiple of 4)
+template <typename Kern>
+cudaError_t split_launch(Kern kern, const float* a, float* hi, float* lo,
+                         long long n, cudaStream_t st) {
+  const long long n4 = n / 4, blocks = (n4 + 255) / 256;
+  kern<<<(unsigned)(blocks < 2048 ? blocks : 2048), 256, 0, st>>>(
+      reinterpret_cast<const float4*>(a), reinterpret_cast<float4*>(hi),
+      reinterpret_cast<float4*>(lo), n4);
+  return cudaGetLastError();
+}
+
+constexpr int kComposeSmem = 4 * 64 * 128 + 1024;
 
 template <int KB>
 int forward(const float* x, const float* u, const float* s, const float* v,
@@ -576,20 +739,14 @@ int forward(const float* x, const float* u, const float* s, const float* v,
   constexpr int nt = KB / 64;
   const long long N = (long long)P * KB, K = (long long)Q * KB;
   const long long nx = (long long)T * K;
-  const long long n4 = nx / 4, blocks = (n4 + 255) / 256;
-  x3_split_kernel<<<(unsigned)(blocks < 2048 ? blocks : 2048), 256, 0,
-                    st>>>(reinterpret_cast<const float4*>(x),
-                          reinterpret_cast<float4*>(xs),
-                          reinterpret_cast<float4*>(xs + nx), n4);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = split_launch(x3_split_kernel, x, xs, xs + nx, nx, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   x3_compose_kernel<KB><<<(unsigned)((long long)P * Q * nt * nt), 128,
-                          4 * 64 * 128 + 1024, st>>>(u, s, v, w, w + N * K,
-                                                     Q);
+                          kComposeSmem, st>>>(u, s, v, w, w + N * K, P, Q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return product<0>(xs, xs + nx, T, w, w + N * K, N, K, y, T, (int)N,
-                    nullptr, nullptr, P, Q, st);
+                    nullptr, nullptr, nullptr, P, Q, st);
 }
 
 template <int KB>
@@ -607,7 +764,26 @@ int sigma(const float* dy, const float* x, const float* u, const float* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return product<KB>(a, a + M * Tp, M, b, b + N * Tp, N, Tp, ds, (int)M,
-                     (int)N, u, v, P, Q, st);
+                     (int)N, u, v, nullptr, P, Q, st);
+}
+
+template <int KB>
+int feedback(const float* dy, const float* u, const float* s,
+             const float* v, const float* mask, float* dys, float* wt,
+             float* dx, int T, int P, int Q, cudaStream_t st) {
+  constexpr int nt = KB / 64;
+  const long long K = (long long)P * KB, N = (long long)Q * KB;
+  const long long ny = (long long)T * K;
+  cudaError_t err = split_launch(x3_fsplit_kernel, dy, dys, dys + ny, ny,
+                                 st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  x3_fcompose_kernel<KB><<<(unsigned)((long long)P * Q * nt * nt), 128,
+                           kComposeSmem, st>>>(u, s, v, mask, wt,
+                                               wt + N * K, P, Q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return product<0, KB>(dys, dys + ny, T, wt, wt + N * K, N, K, dx, T,
+                        (int)N, nullptr, nullptr, mask, P, Q, st);
 }
 
 bool bad(int T, int P, int Q, int k) {
@@ -683,4 +859,33 @@ extern "C" int ptc_3xtf32_sigma(const void* dy, const void* x, const void* u,
   return k == 64
              ? sigma<64>(dyf, xf, uf, vf, cf, af, bf, dsf, T, P, Q, st)
              : sigma<128>(dyf, xf, uf, vf, cf, af, bf, dsf, T, P, Q, st);
+}
+
+// dy, u, s, v, dx fp32, k 64 or 128; mask (Q, P) fp32, scaled.  Scratch:
+// dys (2, T, P*k) fp32, dy's tf32 hi and lo; wt (2, Q*k, P*k) fp32, the
+// kept blocks composed and transposed, hi and lo (a masked block's tiles
+// are written only where the product reads them: zeros).  dy, u, s, v,
+// dys and wt 16-byte aligned, dx 8-byte, mask 4-byte.
+extern "C" int ptc_3xtf32_feedback(const void* dy, const void* u,
+                                   const void* s, const void* v,
+                                   const void* mask, void* dys, void* wt,
+                                   void* dx, int T, int P, int Q, int k,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad(T, P, Q, k) || !aligned16(dy) || !aligned16(u) || !aligned16(s) ||
+      !aligned16(v) || !aligned16(dys) || !aligned16(wt) ||
+      (reinterpret_cast<uintptr_t>(dx) & 7u) ||
+      (reinterpret_cast<uintptr_t>(mask) & 3u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float *dyf = static_cast<const float*>(dy),
+              *uf = static_cast<const float*>(u),
+              *sf = static_cast<const float*>(s),
+              *vf = static_cast<const float*>(v),
+              *mf = static_cast<const float*>(mask);
+  float *dysf = static_cast<float*>(dys), *wtf = static_cast<float*>(wt),
+        *dxf = static_cast<float*>(dx);
+  return k == 64
+             ? feedback<64>(dyf, uf, sf, vf, mf, dysf, wtf, dxf, T, P, Q, st)
+             : feedback<128>(dyf, uf, sf, vf, mf, dysf, wtf, dxf, T, P, Q,
+                             st);
 }

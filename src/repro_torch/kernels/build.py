@@ -6,12 +6,12 @@ the root of the checkout, at first use; the library is loaded with
 ``ctypes``.  A library may hold several kernels (``paged_kv.cu`` holds the
 gather and the scatter; ``ptc_wide.cu`` the k > 32 routes of the three
 PTC kernels; ``ptc_wide_tc.cu`` the bf16 tensor-core routes of the three;
-``ptc_wide_3xtf32.cu`` the fp32 3xTF32 routes of the forward and the
-Σ-gradient),
+``ptc_wide_3xtf32.cu`` the fp32 3xTF32 routes of all three),
 and one TPU kernel may have several routes
 (``prefill_attention`` on the tensor cores, ``prefill_attention_cudacore``
-for the pairs they do not take; ``mesh_apply`` and ``mesh_apply_wide``
-past k = 32; ``ptc_block_matmul_wide``, ``ptc_block_matmul_wide_tc``
+for the pairs they do not take; ``mesh_apply``, and past k = 32
+``mesh_apply_wide_unrolled`` at k = 64 and 128 and ``mesh_apply_wide``
+at other k; ``ptc_block_matmul_wide``, ``ptc_block_matmul_wide_tc``
 for bf16 and ``ptc_block_matmul_wide_3xtf32`` for fp32 at k = 64 and
 128): :data:`KERNELS` names each kernel's library.  Library
 names carry a hash of the source and the flags, so an edited source is
@@ -56,6 +56,7 @@ SOURCES = {"mesh_apply": "mesh_apply.cu",
 # kernel name (the launch counter's key) -> library name
 KERNELS = {"mesh_apply": "mesh_apply",
            "mesh_apply_wide": "mesh_apply",
+           "mesh_apply_wide_unrolled": "mesh_apply",
            "ptc_block_matmul": "ptc_block_matmul",
            "ptc_block_matmul_perblock": "ptc_block_matmul",
            "ptc_block_matmul_wide": "ptc_wide",
@@ -68,6 +69,7 @@ KERNELS = {"mesh_apply": "mesh_apply",
            "feedback_matmul": "feedback_matmul",
            "feedback_matmul_wide": "ptc_wide",
            "feedback_matmul_wide_tc": "ptc_wide_tc",
+           "feedback_matmul_wide_3xtf32": "ptc_wide_3xtf32",
            "paged_gather": "paged_kv",
            "paged_scatter": "paged_kv",
            "prefill_attention": "prefill_attn_tc",

@@ -23,7 +23,16 @@ entry in fp32 and rounded once to bf16, W̃ rounded once to bf16), then
 ``dx = δy W̃`` by ``wgmma`` from a TMA-fed ring into tiles of 256 rows and
 one q block, over only the 64-row stages whose p block the tile's q block
 keeps (:func:`repro_torch.kernels.ref.feedback_matmul_tc_ref` emulates its
-roundings).  fp32 and other k stay on ``"wide"``.
+roundings).  fp32 operands at k = 64 and 128 take the 3xTF32 route
+(``"wide_3xtf32"``, counter ``feedback_matmul_wide_3xtf32``,
+``csrc/ptc_wide_3xtf32.cu``): each kept block composed once, transposed,
+by 3xTF32 ``wgmma`` into W̃ᵀ's tf32 hi and lo planes (2, Q·k, P·k) (U
+diag(s) and its mask entry applied in fp32 before the split), δy split
+once into its planes (2, T, P·k), both scratch this wrapper allocates,
+then ``dx = δy W̃`` by 3×TF32 ``wgmma`` from a TMA-fed ring into 128 × 128
+tiles over only the 32-column stages whose p block a q block of the tile
+keeps (:func:`repro_torch.kernels.ref.feedback_matmul_3xtf32_ref` emulates
+its arithmetic).  Other k stay on ``"wide"``.
 """
 
 from __future__ import annotations
@@ -33,8 +42,9 @@ import ctypes
 import torch
 
 from . import build
-from .ptc_block_matmul import (LIB_TC, LIB_WIDE, MAX_K, tc_lib, tc_ok,
-                               wide_lib, wide_plan)
+from .ptc_block_matmul import (LIB_3X, LIB_TC, LIB_WIDE, MAX_K, tc_lib,
+                               tc_ok, tf32x3_lib, tf32x3_ok, wide_lib,
+                               wide_plan)
 from .ref import feedback_matmul_ref
 
 __all__ = ["feedback_matmul", "route", "plan", "MAX_K", "ROUTES"]
@@ -42,7 +52,9 @@ __all__ = ["feedback_matmul", "route", "plan", "MAX_K", "ROUTES"]
 NAME = "feedback_matmul"            # launch counter, k <= MAX_K
 NAME_WIDE = "feedback_matmul_wide"  # launch counter, k > MAX_K
 NAME_WIDE_TC = "feedback_matmul_wide_tc"  # launch counter, bf16 at TC_K
-ROUTES = {"narrow": NAME, "wide": NAME_WIDE, "wide_tc": NAME_WIDE_TC}
+NAME_WIDE_3X = "feedback_matmul_wide_3xtf32"  # launch counter, fp32 at TC_K
+ROUTES = {"narrow": NAME, "wide": NAME_WIDE, "wide_tc": NAME_WIDE_TC,
+          "wide_3xtf32": NAME_WIDE_3X}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROW_TILES = 65535   # grid.y limit (the transpose's tiles are 32 rows)
 # the k the kernel is compiled for, and its most rows per lane (acc regs)
@@ -67,13 +79,16 @@ def plan(t: int, k: int) -> tuple[int, int, int]:
 
 
 def route(k: int, dtype: torch.dtype | None = None) -> str:
-    """``"narrow"`` (the k <= 32 kernel); past it ``"wide_tc"`` (the
-    tensor cores) for bf16 operands at k in
-    :data:`~.ptc_block_matmul.TC_K`, else ``"wide"`` (fp32, other k, or no
-    dtype given).  Reads nothing but its arguments."""
+    """``"narrow"`` (the k <= 32 kernel); past it, at k in
+    :data:`~.ptc_block_matmul.TC_K`, ``"wide_tc"`` (the tensor cores) for
+    bf16 operands and ``"wide_3xtf32"`` (the tensor cores in 3xTF32) for
+    fp32 ones, else ``"wide"`` (other k, or no dtype given).  Reads
+    nothing but its arguments."""
     if k <= MAX_K:
         return "narrow"
-    return "wide_tc" if tc_ok(k, dtype) else "wide"
+    if tc_ok(k, dtype):
+        return "wide_tc"
+    return "wide_3xtf32" if tf32x3_ok(k, dtype) else "wide"
 
 
 def _lib():
@@ -120,19 +135,36 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
         raise ValueError("feedback_matmul: inputs must be contiguous")
     which = force_route or route(k, dy.dtype)
     serves = {"narrow": k <= MAX_K, "wide": k > MAX_K,
-              "wide_tc": tc_ok(k, dy.dtype)}
+              "wide_tc": tc_ok(k, dy.dtype),
+              "wide_3xtf32": tf32x3_ok(k, dy.dtype)}
     if not serves.get(which, False):
         raise ValueError(f"feedback_matmul: no route {which!r} for k = {k}, "
                          f"{dy.dtype}")
-    if force_route == "wide_tc" and dy.device.type != "cuda":
-        raise ValueError("feedback_matmul: the wide_tc route runs on a CUDA "
-                         f"tensor only, not on {dy.device}")
+    if force_route in ("wide_tc", "wide_3xtf32") \
+            and dy.device.type != "cuda":
+        raise ValueError(f"feedback_matmul: the {force_route} route runs on "
+                         f"a CUDA tensor only, not on {dy.device}")
     if dy.device.type == "cpu":
         return feedback_matmul_ref(dy, u, s, v, mask)
     if dy.device.type != "cuda":
         raise ValueError(f"feedback_matmul: unsupported device {dy.device}")
     dx = torch.empty((t, q * k), dtype=dy.dtype, device=dy.device)
     if t == 0 or q == 0:
+        return dx
+    if which == "wide_3xtf32":
+        if wide_plan(t, q * k, k).row_tiles > _MAX_ROW_TILES:
+            raise ValueError(f"feedback_matmul: grid too large (T={t})")
+        # δy's tf32 hi and lo; the kept blocks composed and transposed, hi
+        # and lo (a masked block's tiles written only where read: zeros)
+        dys = torch.empty((2, t, p * k), dtype=dy.dtype, device=dy.device)
+        wt = torch.empty((2, q * k, p * k), dtype=dy.dtype, device=dy.device)
+        with torch.cuda.device(dy.device):
+            status = tf32x3_lib().ptc_3xtf32_feedback(
+                dy.data_ptr(), u.data_ptr(), s.data_ptr(), v.data_ptr(),
+                mask.data_ptr(), dys.data_ptr(), wt.data_ptr(), dx.data_ptr(),
+                t, p, q, k, torch.cuda.current_stream().cuda_stream)
+        build.check_status(LIB_3X, status)
+        build.launch_counts[NAME_WIDE_3X] += 1
         return dx
     if which == "wide_tc":
         if wide_plan(t, q * k, k).row_tiles > _MAX_ROW_TILES:

@@ -2,15 +2,19 @@
 
 Counterpart of ``repro/kernels/mesh_apply.py`` and the table pass of
 ``repro/kernels/ops.py::mesh_apply``.  On a CUDA tensor it launches one of
-the two hand-written kernels in ``csrc/mesh_apply.cu`` (both compute
-cos/sin themselves), picked by :func:`route` from k alone and each
-counting its launches under its own name: ``mesh_apply`` (k <= 32, a
-thread's rows' wires in its registers, the rotation sequence unrolled at
-compile time for the compiled widths 4, 8, 9, 16, 32 and each kind:
-:func:`narrow_plan` maps any other k onto the next of them) and
-``mesh_apply_wide`` (k > 32, a CTA's rows in shared memory, the rotations
-as a list in layer order).  On a CPU tensor it runs the plain PyTorch
-version (:func:`repro_torch.kernels.ref.mesh_apply_ref`).
+the three hand-written kernels in ``csrc/mesh_apply.cu`` (each computes
+cos/sin itself), picked by :func:`route` from k alone and each counting
+its launches under its own name: ``mesh_apply`` (k <= 32, a thread's
+rows' wires in its registers, the rotation sequence unrolled at compile
+time for the compiled widths 4, 8, 9, 16, 32 and each kind:
+:func:`narrow_plan` maps any other k onto the next of them),
+``mesh_apply_wide_unrolled`` (k = 64 and 128, :data:`UNROLLED_K`: a
+thread's row's k wires in its registers, a CTA's mesh's (cos, sin) in
+shared memory, the reck sweeps and clements layers unrolled at compile
+time) and ``mesh_apply_wide``
+(every other k > 32, a CTA's rows in shared memory, the rotations as a
+list in layer order).  On a CPU tensor it runs the plain PyTorch version
+(:func:`repro_torch.kernels.ref.mesh_apply_ref`).
 
 ``spec`` is a :class:`repro_torch.core.unitary.MeshSpec`; only its numpy
 layer tables are read here.
@@ -30,17 +34,25 @@ from .ptc_block_matmul import MAX_K, kernel_k
 from .ref import mesh_apply_ref
 
 __all__ = ["mesh_apply", "mesh_apply_batched", "mesh_apply_plain",
-           "layer_tables", "rotation_tables", "route", "narrow_plan", "NarrowPlan", "mesh_lib", "MAX_K"]
+           "layer_tables", "rotation_tables", "route", "narrow_plan",
+           "NarrowPlan", "mesh_lib", "MAX_K", "UNROLLED_K", "ROUTES"]
 
 NAME = "mesh_apply"                  # launch counter, k <= MAX_K
-NAME_WIDE = "mesh_apply_wide"        # launch counter, k > MAX_K
-_KINDS = {"clements": 0, "reck": 1}  # the narrow kernel's kind argument
+NAME_WIDE = "mesh_apply_wide"        # launch counter, other k > MAX_K
+NAME_UNROLLED = "mesh_apply_wide_unrolled"   # launch counter, UNROLLED_K
+ROUTES = {"narrow": NAME, "wide_unrolled": NAME_UNROLLED, "wide": NAME_WIDE}
+UNROLLED_K = (64, 128)               # the unrolled kernel's compiled widths
+_KINDS = {"clements": 0, "reck": 1}  # the kernels' kind argument
 
 
 def route(k: int) -> str:
     """``"narrow"`` (a row's wires in registers) for k <= :data:`MAX_K`,
-    ``"wide"`` for every larger k.  Reads nothing but its argument."""
-    return "narrow" if k <= MAX_K else "wide"
+    ``"wide_unrolled"`` (a row's wires in registers, the order compiled)
+    for k in :data:`UNROLLED_K`, ``"wide"`` for every other larger k.
+    Reads nothing but its argument."""
+    if k <= MAX_K:
+        return "narrow"
+    return "wide_unrolled" if k in UNROLLED_K else "wide"
 
 
 def mesh_lib():
@@ -58,6 +70,10 @@ def mesh_lib():
             + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         wide.restype = ctypes.c_int
+        unrolled = lib.mesh_apply_unrolled_f32
+        unrolled.argtypes = head[:4] + [ctypes.c_void_p] \
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        unrolled.restype = ctypes.c_int
     return lib
 
 
@@ -151,13 +167,16 @@ def mesh_apply_plain(spec, phases: torch.Tensor, x: torch.Tensor,
 
 def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
                        d: torch.Tensor | None = None, *,
-                       transpose_out: bool = False) -> torch.Tensor:
+                       transpose_out: bool = False,
+                       force_route: str | None = None) -> torch.Tensor:
     """Apply mesh ``b`` to the rows of ``x[b]`` for every mesh of a batch.
 
     phases: (B, T) fp32 contiguous; x: (B or 1, R, k) fp32 whose rows are
     contiguous (a leading 1 shares x across all meshes); d: (B, k) ±1 signs
     or None.  Returns (B, R, k), or (B, k, R) with ``transpose_out`` (for
     ``build_unitary``: row j of the applied identity is column j of U).
+    ``force_route`` overrides :func:`route` (for measuring the wide
+    kernels in turns; the callers in the port pass none).
     """
     k, t = spec.k, spec.n_rot
     if phases.dim() != 2 or phases.shape[1] != t:
@@ -178,6 +197,11 @@ def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
             or x.stride(2) != 1 or (x.shape[1] > 1 and x.stride(1) != k):
         raise ValueError("mesh_apply: phases, d and the rows of x must be "
                          "contiguous")
+    which = force_route or route(k)
+    serves = {"narrow": k <= MAX_K, "wide_unrolled": k in UNROLLED_K,
+              "wide": k > MAX_K}
+    if not serves.get(which, False):
+        raise ValueError(f"mesh_apply: no route {which!r} for k = {k}")
     r = x.shape[1]
     if x.device.type == "cpu":
         return mesh_apply_plain(spec, phases, x, d,
@@ -190,12 +214,16 @@ def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
         return out
     x_bstride = x.stride(0) if x.shape[0] == b and b > 1 else 0
     y_rstride, y_wstride = (1, r) if transpose_out else (k, 1)
-    wide = route(k) == "wide"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = mesh_lib()
         dptr = 0 if d is None else d.data_ptr()
-        if wide:
+        if which == "wide_unrolled":
+            status = lib.mesh_apply_unrolled_f32(
+                x.data_ptr(), x_bstride, phases.data_ptr(), dptr,
+                out.data_ptr(), r * k, y_rstride, y_wstride, b, r, k, t,
+                _KINDS[spec.kind], stream)
+        elif which == "wide":
             wire, slot, start = rotation_tables(k, spec.kind, x.device)
             status = lib.mesh_apply_wide_f32(
                 x.data_ptr(), x_bstride, phases.data_ptr(), dptr,
@@ -210,7 +238,7 @@ def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
                 r * k, y_rstride, y_wstride, b, r, k, t, _KINDS[spec.kind],
                 narrow_plan(k, spec.kind).off, stream)
     build.check_status(NAME, status)
-    build.launch_counts[NAME_WIDE if wide else NAME] += 1
+    build.launch_counts[ROUTES[which]] += 1
     return out
 
 

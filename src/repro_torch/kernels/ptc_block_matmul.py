@@ -195,16 +195,18 @@ def tc_lib():
 
 def tf32x3_lib():
     """The loaded ``ptc_wide_3xtf32`` library (the 3xTF32 routes of
-    ``ptc_block_matmul`` and ``sigma_grad``)."""
+    ``ptc_block_matmul``, ``sigma_grad`` and ``feedback_matmul``)."""
     lib = build.library(LIB_3X)
     if lib.ptc_3xtf32_forward.argtypes is None:
         lib.ptc_3xtf32_forward.argtypes = \
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ptc_3xtf32_sigma.argtypes = \
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ptc_3xtf32_feedback.argtypes = \
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ptc_3xtf32_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.ptc_3xtf32_forward, lib.ptc_3xtf32_sigma,
-                   lib.ptc_3xtf32_tile):
+                   lib.ptc_3xtf32_feedback, lib.ptc_3xtf32_tile):
             fn.restype = ctypes.c_int
     return lib
 

@@ -12,9 +12,10 @@ import torch
 __all__ = ["ptc_block_matmul_ref", "mesh_apply_ref", "sigma_grad_ref",
            "ptc_block_matmul_tc_ref", "sigma_grad_tc_ref", "split_bf16",
            "split_tf32", "ptc_block_matmul_3xtf32_ref",
-           "sigma_grad_3xtf32_ref",
-           "feedback_matmul_ref", "feedback_matmul_tc_ref", "paged_gather_ref", "paged_scatter_ref",
-           "prefill_attention_ref", "NEG_INF"]
+           "sigma_grad_3xtf32_ref", "feedback_matmul_ref",
+           "feedback_matmul_tc_ref", "feedback_matmul_3xtf32_ref",
+           "paged_gather_ref", "paged_scatter_ref", "prefill_attention_ref",
+           "NEG_INF"]
 
 NEG_INF = -2.0 ** 30    # prefill attention's finite floor for masked logits
 
@@ -178,6 +179,22 @@ def feedback_matmul_tc_ref(dy, u, s, v, mask):
     w = torch.einsum("pqia,pqaj->piqj", us.to(b16).to(f32), v.to(f32))
     w = w.to(b16).to(f32).reshape(p * k, q * k)
     return (dy.to(f32) @ w).to(b16)
+
+
+def feedback_matmul_3xtf32_ref(dy, u, s, v, mask):
+    """The 3xTF32 route's arithmetic of :func:`feedback_matmul_ref`: U_pq
+    diag(s_pq) scaled by mask[q, p] in fp32, W̃ᵀ_pq = V*_pqᵀ (U diag(s)
+    mask)ᵀ and dx = δy W̃ each on 3xTF32 (:func:`split_tf32`), summed in
+    fp32 (the kernel sums in another order and skips the masked blocks,
+    which add zeros here).
+
+    dy: (T, P·k); u,v: (P, Q, k, k); s: (P, Q, k), all fp32; mask: (Q, P)
+    scaled fp32  →  dx: (T, Q·k) fp32
+    """
+    p, q, k, _ = u.shape
+    us = (u * s[:, :, None, :]) * mask.T[:, :, None, None]
+    wt = _mm_3xtf32(v.transpose(-1, -2), us.transpose(-1, -2))  # (P, Q, j, i)
+    return _mm_3xtf32(dy, wt.permute(0, 3, 1, 2).reshape(p * k, q * k))
 
 
 def mesh_apply_ref(x, phases, layer_slot, layer_partner, layer_sign, d=None):

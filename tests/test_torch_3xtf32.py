@@ -6,10 +6,11 @@ and ``chip_smoke.py`` hold them against the fp32 plain versions at 1e-5 of
 the largest entry); here, on the CPU:
 
 * The route rule: fp32 operands at k 64 and 128 take ``"wide_3xtf32"`` in
-  ``ptc_block_matmul`` (T 1, 100, 4096; Q 1, 3, 16) and ``sigma_grad``;
-  ``feedback_matmul`` keeps ``"wide"``; bf16 there keeps ``"wide_tc"``;
-  fp32 at other k > 32, and calls that name no dtype, keep ``"wide"``.
-  The new counters share one library of their own.
+  ``ptc_block_matmul`` (T 1, 100, 4096; Q 1, 3, 16), ``sigma_grad`` and
+  ``feedback_matmul``; bf16 there keeps ``"wide_tc"``; fp32 at other
+  k > 32, and calls that name no dtype, keep ``"wide"``.  The three
+  counters share one library of their own (the feedback's own tests are
+  in ``tests/test_torch_feedback_3xtf32.py``).
 * Both wrappers refuse ``force_route="wide_3xtf32"`` where it cannot
   serve: a CPU tensor, bf16 operands, k other than 64 and 128.  On a CPU
   tensor they run their fp32 plain versions.
@@ -32,6 +33,7 @@ import torch
 
 from repro.kernels import ops
 from repro_torch.kernels import build, ptc_block_matmul, ref, sigma_grad
+from repro_torch.kernels.feedback_matmul import ROUTES as FEEDBACK_ROUTES
 from repro_torch.kernels.feedback_matmul import route as feedback_route
 from repro_torch.kernels.ptc_block_matmul import (MAX_K, ROUTES, TC_K,
                                                   TF32X3_TILE, WIDE_TILE,
@@ -50,8 +52,7 @@ def test_fp32_at_k_64_and_128_takes_3xtf32(k, t, q):
     assert tf32x3_ok(k, F32) and not tc_ok(k, F32)
     assert route(t, 64, q, k, F32) == "wide_3xtf32"
     assert sigma_route(k, F32) == "wide_3xtf32"
-    # the feedback's fp32 route is unchanged
-    assert feedback_route(k, F32) == "wide"
+    assert feedback_route(k, F32) == "wide_3xtf32"
 
 
 @pytest.mark.parametrize("k,dtype,want", [
@@ -80,11 +81,12 @@ def test_3xtf32_counters_share_one_library():
     assert TC_K == (64, 128) and all(k > MAX_K for k in TC_K)
     assert ROUTES["wide_3xtf32"] == "ptc_block_matmul_wide_3xtf32"
     assert SIGMA_ROUTES["wide_3xtf32"] == "sigma_grad_wide_3xtf32"
-    for name in ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32"):
+    assert FEEDBACK_ROUTES["wide_3xtf32"] == "feedback_matmul_wide_3xtf32"
+    for name in ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32",
+                 "feedback_matmul_wide_3xtf32"):
         assert build.KERNELS[name] == "ptc_wide_3xtf32"
         assert name in build.launch_counts
     assert build.SOURCES["ptc_wide_3xtf32"] == "ptc_wide_3xtf32.cu"
-    assert "feedback_matmul_wide_3xtf32" not in build.KERNELS
     # the wrappers check the grids by wide_plan: the row tiles agree
     assert TF32X3_TILE[0] == WIDE_TILE[0]
 

@@ -40,8 +40,10 @@ package, so the repository's conftest is not needed)::
   1 and btopk; reruns bitwise, every call on the wide route; the kernel's
   tile is the wrapper's ``WIDE_TILE``.  ``mesh_apply``'s narrow route
   (k 2 to 32, each compiled pattern and the slot tables, both output
-  layouts) and wide route (``build_unitary`` and rows of their own, reck
-  and clements) at 1e-5.
+  layouts) and wide routes (``build_unitary`` and rows of their own, reck
+  and clements; the unrolled kernel at k 64 and 128 also over 1000 rows
+  in both layouts, with and without signs, U Uᵀ - I below 1e-4, and the
+  list-driven kernel forced beside it) at 1e-5.
 * The tensor-core routes (bf16 at k 64 and 128) of ``ptc_block_matmul``,
   ``sigma_grad`` and ``feedback_matmul`` against their plain versions and
   the plain emulations of their roundings (the feedback at masks of
@@ -61,7 +63,12 @@ package, so the repository's conftest is not needed)::
   largest entry, ds's least-squares scale within 5e-4 of 1; reruns
   bitwise; ``force_route="wide"`` still reaches the CUDA cores for fp32,
   ``"wide_3xtf32"`` is refused for bf16 and k 32 and 100; the kernel's
-  tile is the wrapper's ``TF32X3_TILE``.
+  tile is the wrapper's ``TF32X3_TILE``.  The 3xTF32 ``feedback_matmul``
+  (fp32 at k 64 and 128) against the fp32 plain version and its 3xTF32
+  emulation at 1e-5: T 1 to 4096, P or Q odd, olmo-1b's up projection,
+  masks of density 0, 0.5, 1 and btopk (density 0, and a q row masked
+  everywhere in either half of a 128-column tile, exact zeros); reruns
+  bitwise.
 * The CUDA-core ``prefill_attention`` route (fp32 q; fp32 q over bf16
   K/V; bf16 at head dims other than 64 and 128) over the 12 (blk, window,
   cap) cases at 2e-5, head dims 5, 96, 200 and 256, reruns bitwise; a
@@ -397,17 +404,19 @@ def test_wide_ptc_routes_match_plain_version(card, t, p, q, k, dtype,
     gen = torch.Generator("cuda").manual_seed(t + k)
     mask = _masks(gen, q, p, density)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
-    # at k 64 and 128: the three on the tensor cores for bf16, the forward
-    # and Σ-gradient in 3xTF32 for fp32 (the feedback on the CUDA cores)
+    # at k 64 and 128: the three on the tensor cores, for bf16 in bf16, for
+    # fp32 in 3xTF32 (dx then within 1e-5)
     tc = "_tc" if dtype == torch.bfloat16 and k in TC_K else ""
     x3 = "_3xtf32" if dtype == torch.float32 and k in TC_K else ""
+    tol_dx = 1e-5 if x3 else tol
     before = dict(build.launch_counts)
     y = ptc_block_matmul(x, u, s, v)
     ds = sigma_grad(dy, x, u, v)
     dx = feedback_matmul(dy, u, s, v, mask)
     torch.cuda.synchronize()
     launched = ("ptc_block_matmul_wide" + tc + x3,
-                "sigma_grad_wide" + tc + x3, "feedback_matmul_wide" + tc)
+                "sigma_grad_wide" + tc + x3,
+                "feedback_matmul_wide" + tc + x3)
     for name in launched:
         assert build.launch_counts[name] - before[name] == 1, name
     for name in ("ptc_block_matmul", "ptc_block_matmul_perblock",
@@ -415,7 +424,7 @@ def test_wide_ptc_routes_match_plain_version(card, t, p, q, k, dtype,
                  "ptc_block_matmul_wide_tc", "ptc_block_matmul_wide_3xtf32",
                  "sigma_grad_wide", "sigma_grad_wide_tc",
                  "sigma_grad_wide_3xtf32", "feedback_matmul_wide",
-                 "feedback_matmul_wide_tc"):
+                 "feedback_matmul_wide_tc", "feedback_matmul_wide_3xtf32"):
         if name not in launched:
             assert build.launch_counts[name] == before[name], name
     assert y.dtype == dtype and dx.dtype == dtype
@@ -427,7 +436,7 @@ def test_wide_ptc_routes_match_plain_version(card, t, p, q, k, dtype,
     if density == 0.0:
         assert int(torch.count_nonzero(dx)) == 0
     else:
-        assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < tol
+        assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < tol_dx
 
 
 @pytest.mark.parametrize("t,p,q,k", [(100, 3, 5, 9), (129, 2, 2, 32),
@@ -656,16 +665,21 @@ def test_wide_3xtf32_matches_plain_version(card, t, p, q, k, with_col):
 @pytest.mark.parametrize("k", [64, 128])
 def test_wide_route_still_takes_fp32_when_forced(card, k):
     dy, x, u, s, v = _sigma_inputs(129, 2, 3, k, seed=5)
+    mask = _masks(torch.Generator("cuda").manual_seed(k), 3, 2, "btopk")
     before = dict(build.launch_counts)
     y = ptc_block_matmul(x, u, s, v, force_route="wide")
     ds = sigma_grad(dy, x, u, v, force_route="wide")
+    dx = feedback_matmul(dy, u, s, v, mask, force_route="wide")
     torch.cuda.synchronize()
-    for name in ("ptc_block_matmul_wide", "sigma_grad_wide"):
+    for name in ("ptc_block_matmul_wide", "sigma_grad_wide",
+                 "feedback_matmul_wide"):
         assert build.launch_counts[name] - before[name] == 1, name
-    for name in ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32"):
+    for name in ("ptc_block_matmul_wide_3xtf32", "sigma_grad_wide_3xtf32",
+                 "feedback_matmul_wide_3xtf32"):
         assert build.launch_counts[name] == before[name], name
     assert _rel(y, ref.ptc_block_matmul_ref(x, u, s, v)) < 1e-4
     assert _rel(ds, ref.sigma_grad_ref(dy, x, u, v)) < 1e-4
+    assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < 1e-4
 
 
 def test_wide_3xtf32_refuses_bf16_and_other_k_on_the_card(card):
@@ -673,10 +687,65 @@ def test_wide_3xtf32_refuses_bf16_and_other_k_on_the_card(card):
                      (32, torch.float32)):
         dy, x, u, s, v = (a.to(dtype)
                           for a in _sigma_inputs(16, 2, 2, k, seed=1))
+        mask = torch.ones((2, 2), device="cuda")
         with pytest.raises(ValueError, match="no route"):
             ptc_block_matmul(x, u, s, v, force_route="wide_3xtf32")
         with pytest.raises(ValueError, match="no route"):
             sigma_grad(dy, x, u, v, force_route="wide_3xtf32")
+        with pytest.raises(ValueError, match="no route"):
+            feedback_matmul(dy, u, s, v, mask, force_route="wide_3xtf32")
+
+
+# (T, P, Q, k): T 1, 127, 129, 300 and 4096; P or Q odd (at k = 64 a
+# 128-column tile half past Q·k); olmo-1b's up projection last
+_X3_FB = [(1, 2, 3, 128), (127, 3, 2, 128), (129, 3, 3, 128),
+          (300, 5, 1, 128), (1, 3, 5, 64), (127, 2, 3, 64), (129, 5, 3, 64),
+          (300, 3, 2, 64), (4096, 4, 3, 64), (4096, 64, 16, 128)]
+
+
+@pytest.mark.parametrize("t,p,q,k", _X3_FB)
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0, "btopk"])
+def test_wide_3xtf32_feedback_matches_plain_version(card, t, p, q, k,
+                                                    density):
+    """fp32 at k 64 and 128 in 3xTF32: dx within 1e-5 of the largest entry
+    of the fp32 plain version and of the route's emulation; density 0 an
+    exact zero; reruns bitwise; only the 3xTF32 counter moves."""
+    dy, _, u, s, v = _sigma_inputs(t, p, q, k, seed=13)
+    mask = _masks(torch.Generator("cuda").manual_seed(t + p + k), q, p,
+                  density)
+    before = dict(build.launch_counts)
+    dx = feedback_matmul(dy, u, s, v, mask)
+    torch.cuda.synchronize()
+    assert build.launch_counts["feedback_matmul_wide_3xtf32"] \
+        - before["feedback_matmul_wide_3xtf32"] == 1
+    for name in ("feedback_matmul_wide", "feedback_matmul_wide_tc",
+                 "feedback_matmul"):
+        assert build.launch_counts[name] == before[name], name
+    assert dx.dtype == torch.float32 and bool(torch.isfinite(dx).all())
+    assert torch.equal(dx, feedback_matmul(dy, u, s, v, mask))
+    if not bool(mask.any()):
+        assert int(torch.count_nonzero(dx)) == 0
+        return
+    assert _rel(dx, ref.feedback_matmul_ref(dy, u, s, v, mask)) < 1e-5
+    assert _rel(dx, ref.feedback_matmul_3xtf32_ref(dy, u, s, v, mask)) < 1e-5
+
+
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("row", [0, 1, 2])
+def test_wide_3xtf32_feedback_masked_q_row_is_zero(card, k, row):
+    """A q block that keeps no p block gives exact zeros, whichever half of
+    a 128-column tile it is at k = 64, beside blocks that keep some."""
+    t, p, q = 130, 4, 3
+    dy, _, u, s, v = _sigma_inputs(t, p, q, k, seed=row)
+    mask = _masks(torch.Generator("cuda").manual_seed(k), q, p, "btopk")
+    mask[row] = 0.0
+    dx = feedback_matmul(dy, u, s, v, mask)
+    torch.cuda.synchronize()
+    assert int(torch.count_nonzero(dx[:, row * k:(row + 1) * k])) == 0
+    keep = torch.ones(q * k, dtype=torch.bool, device="cuda")
+    keep[row * k:(row + 1) * k] = False
+    assert _rel(dx[:, keep], ref.feedback_matmul_ref(
+        dy, u, s, v, mask)[:, keep]) < 1e-5
 
 
 def test_3xtf32_kernel_tile_is_the_plan(card):
@@ -741,23 +810,80 @@ def test_narrow_mesh_apply_matches_plain_version(card, k, kind):
 def test_wide_mesh_apply_matches_plain_version(card, k, kind):
     from repro_torch.core import unitary as un
     from repro_torch.kernels import mesh_apply_plain
+    from repro_torch.kernels.mesh_apply import ROUTES as MESH_ROUTES
     from repro_torch.kernels.mesh_apply import mesh_apply_batched
+    from repro_torch.kernels.mesh_apply import route as mesh_route
     spec = un.mesh_spec(k, kind)
     gen = torch.Generator("cuda").manual_seed(k)
     ph = torch.randn((37, spec.n_rot), generator=gen, device="cuda") * 3
     d = torch.where(torch.rand((37, k), generator=gen, device="cuda") < 0.5,
                     1.0, -1.0)
     x = torch.randn((37, 70, k), generator=gen, device="cuda")
-    before = build.launch_counts["mesh_apply_wide"]
+    # k 64 and 128 take the unrolled kernel, 33 and 100 the list-driven one
+    name = MESH_ROUTES[mesh_route(k)]
+    assert name == ("mesh_apply_wide_unrolled" if k in (64, 128)
+                    else "mesh_apply_wide")
+    before = dict(build.launch_counts)
     u = un.build_unitary(spec, ph, d)
     y = mesh_apply_batched(spec, ph, x, d)
     torch.cuda.synchronize()
-    assert build.launch_counts["mesh_apply_wide"] - before == 2
+    assert build.launch_counts[name] - before[name] == 2
+    for other in ("mesh_apply", "mesh_apply_wide",
+                  "mesh_apply_wide_unrolled"):
+        if other != name:
+            assert build.launch_counts[other] == before[other], other
     eye = torch.eye(k, device="cuda")[None]
     assert float((u - mesh_apply_plain(spec, ph, eye, d, transpose_out=True))
                  .abs().max()) < 1e-5
     assert float((y - mesh_apply_plain(spec, ph, x, d)).abs().max()) < 1e-5
     assert torch.equal(y, mesh_apply_batched(spec, ph, x, d))
+
+
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("kind", ["reck", "clements"])
+@pytest.mark.parametrize("signs", [True, False])
+def test_unrolled_mesh_apply_matches_plain_version(card, k, kind, signs):
+    """The unrolled kernel at k 64 and 128: build_unitary (U U^T - I below
+    1e-4), rows of their own, one mesh over 1000 rows (8 or 16 row groups)
+    in both output layouts, with signs d and without: 1e-5; reruns
+    bitwise; the list-driven kernel forced on the same inputs agrees."""
+    from repro_torch.core import unitary as un
+    from repro_torch.kernels import mesh_apply_plain
+    from repro_torch.kernels.mesh_apply import mesh_apply_batched
+    spec = un.mesh_spec(k, kind)
+    gen = torch.Generator("cuda").manual_seed(k + signs)
+    ph = torch.rand((19, spec.n_rot), generator=gen, device="cuda") \
+        * 4 * torch.pi
+    d = torch.where(torch.rand((19, k), generator=gen, device="cuda") < 0.5,
+                    1.0, -1.0) if signs else None
+    x = torch.randn((19, 3, k), generator=gen, device="cuda")
+    x1 = torch.randn((1, 1000, k), generator=gen, device="cuda")
+    before = dict(build.launch_counts)
+    u = un.build_unitary(spec, ph, d)
+    y = mesh_apply_batched(spec, ph, x, d)
+    y1 = mesh_apply_batched(spec, ph[:1], x1)
+    y1t = mesh_apply_batched(spec, ph[:1], x1, transpose_out=True)
+    torch.cuda.synchronize()
+    assert build.launch_counts["mesh_apply_wide_unrolled"] \
+        - before["mesh_apply_wide_unrolled"] == 4
+    assert build.launch_counts["mesh_apply_wide"] == before["mesh_apply_wide"]
+    eye = torch.eye(k, device="cuda")[None]
+    want_u = mesh_apply_plain(spec, ph, eye, d, transpose_out=True)
+    assert float((u - want_u).abs().max()) < 1e-5
+    assert float((u @ u.transpose(1, 2) - eye).abs().max()) < 1e-4
+    assert float((y - mesh_apply_plain(spec, ph, x, d)).abs().max()) < 1e-5
+    assert float((y1 - mesh_apply_plain(spec, ph[:1], x1)).abs().max()) \
+        < 1e-5
+    assert float((y1t - mesh_apply_plain(spec, ph[:1], x1,
+                                         transpose_out=True)).abs().max()) \
+        < 1e-5
+    assert torch.equal(u, un.build_unitary(spec, ph, d))
+    forced = mesh_apply_batched(spec, ph, eye, d, transpose_out=True,
+                                force_route="wide")
+    torch.cuda.synchronize()
+    assert build.launch_counts["mesh_apply_wide"] \
+        - before["mesh_apply_wide"] == 1
+    assert float((forced - u).abs().max()) < 1e-5
 
 
 _CC_PREFILL = [(3, 5, 4, 2, 8, 24, [0, 7, 19]),       # the reference test

@@ -5,7 +5,8 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it against its plain version); here, on the CPU:
 
 * The route rule: bf16 operands at k 64 and 128 take ``"wide_tc"``; fp32
-  at any k > 32, bf16 at other k > 32 and calls that name no dtype take
+  there takes ``"wide_3xtf32"`` (``tests/test_torch_feedback_3xtf32.py``);
+  fp32 and bf16 at other k > 32 and calls that name no dtype take
   ``"wide"``; k <= 32 takes ``"narrow"`` whatever the dtype.  The new
   counter lives in the tensor-core library.
 * The wrapper refuses ``force_route="wide_tc"`` where it cannot serve:
@@ -44,12 +45,15 @@ def test_bf16_at_k_64_and_128_takes_the_tensor_cores(k):
     assert route(k, B16) == "wide_tc"
 
 
-@pytest.mark.parametrize("k,dtype", [(33, F32), (64, F32), (100, F32),
-                                     (128, F32), (33, B16), (100, B16),
-                                     (192, B16), (256, B16), (64, None),
-                                     (128, None)])
-def test_other_wide_calls_stay_on_the_cuda_cores(k, dtype):
-    assert route(k, dtype) == "wide"
+@pytest.mark.parametrize("k,dtype,want", [
+    (33, F32, "wide"), (64, F32, "wide_3xtf32"), (100, F32, "wide"),
+    (128, F32, "wide_3xtf32"), (33, B16, "wide"), (100, B16, "wide"),
+    (192, B16, "wide"), (256, B16, "wide"), (64, None, "wide"),
+    (128, None, "wide")])
+def test_other_wide_calls_stay_on_the_cuda_cores(k, dtype, want):
+    # fp32 at k 64 and 128 takes the tensor cores in 3xTF32; the rest the
+    # CUDA cores
+    assert route(k, dtype) == want
 
 
 @pytest.mark.parametrize("k", [1, 4, 9, 13, 16, 32])
@@ -67,7 +71,8 @@ def test_route_without_a_dtype_is_unchanged(k):
 def test_tensor_core_counter_lives_in_the_tensor_core_library():
     assert ROUTES == {"narrow": "feedback_matmul",
                       "wide": "feedback_matmul_wide",
-                      "wide_tc": "feedback_matmul_wide_tc"}
+                      "wide_tc": "feedback_matmul_wide_tc",
+                      "wide_3xtf32": "feedback_matmul_wide_3xtf32"}
     assert build.KERNELS["feedback_matmul_wide_tc"] == "ptc_wide_tc"
     assert build.KERNELS["feedback_matmul_wide"] == "ptc_wide"
     assert "feedback_matmul_wide_tc" in build.launch_counts

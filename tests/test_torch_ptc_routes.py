@@ -4,8 +4,8 @@
   takes the per-block route, serve, the convolutions and FC at T = 32 the
   product route, and the crossover sits at ``PER_BLOCK_MAX_T``.
 * Every k > 32 goes to the wide route of all four kernels, at every T
-  and Q (the per-block route never takes it), and ``kernel_k`` names k
-  itself there; the wide plan's 128 × 128 tiles cover every row, every
+  and Q (the per-block route never takes it; the mesh's k = 64 and 128 its
+  unrolled wide kernel), and ``kernel_k`` names k itself there; the wide plan's 128 × 128 tiles cover every row, every
   output column and every block's rows and columns exactly once, for the
   forward (T, P·k), the feedback (T, Q·k) and the Σ-gradient's G
   (P·k, Q·k).
@@ -91,7 +91,9 @@ def test_serve_and_wide_inputs_take_the_product_route(shape):
 @pytest.mark.parametrize("q", [1, 16])
 def test_every_wide_k_takes_the_wide_route(k, t, q):
     assert route(t, 64, q, k) == "wide"
-    assert sigma_route(k) == feedback_route(k) == mesh_route(k) == "wide"
+    assert sigma_route(k) == feedback_route(k) == "wide"
+    # the mesh's k = 64 and 128 take its unrolled wide kernel
+    assert mesh_route(k) == ("wide_unrolled" if k in (64, 128) else "wide")
     assert kernel_k(k) == k
 
 
