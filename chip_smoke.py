@@ -9,6 +9,9 @@
                                                # + an earlier tree's PTC
                                                # and CUDA-core prefill
                                                # kernels timed beside
+    python3 chip_smoke.py --phases tables,serve [--budget normal]
+                                               # the paper's tables and
+                                               # the solo serve path
 
 Phases:
 
@@ -71,6 +74,20 @@ Phases:
    the prefill attention, one step is held against the plain versions,
    and at smoke width (fp32) chunked prefill must emit the one-token
    path's tokens.
+7. ``serve`` — the solo serve path (``repro_torch.launch.serve.run``,
+   greedy decode against the dense KV cache) at qwen3-4b full width in
+   bf16, batch 4, prompt 64, 32 new tokens: tokens/s and the step wall;
+   its last-prompt logits against the gateway's for the same prompts
+   (``SERVE_TOL``), and at smoke width in fp32 every request served alone
+   emits the gateway's tokens.
+8. ``tables`` — the paper's six table benchmarks through
+   ``repro_torch.benchmarks.run`` on the card (``--budget``, default
+   ``quick``; ``normal`` adds k = 24 and 32 and about 7 minutes): each
+   table's rows, wall and launches; Fig. 8 and Table 3
+   recomputed with the kernels swapped for their plain versions on the
+   same draws (``TABLE_TOL``), the ZO tables held to ``TABLE_LIMITS``
+   beside the reference's CPU rows, and the card's busy share from a
+   profiled slice of each benchmark.
 
 Every stage of a main path prints its wall time and its launches of each
 kernel, and must have launched each kernel it uses (``STAGE_KERNELS``),
@@ -85,8 +102,9 @@ CUDA-core routes no more), the two wide mesh routes over its realization
 (which launches the list-driven one no more), the serving kernels over
 the gateway's
 qwen3-4b run, the CUDA-core prefill route (which that bf16 run never
-takes) over the smoke-width fp32 gateways; they are null when that path
-did not run.  Any failed check raises (exit code not
+takes) over the smoke-width fp32 gateways, and the k <= 32 PTC kernels
+over the tables phase where no quickstart path ran; they are null when
+that path did not run.  Any failed check raises (exit code not
 0).  Without a CUDA device, or without the repository beside this script,
 it exits with code 2 and prints no result.
 """
@@ -94,6 +112,7 @@ it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -101,7 +120,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "parity", "full", "vgg8", "blocked_lm", "gateway")
+PHASES = ("kernels", "parity", "full", "vgg8", "blocked_lm", "gateway",
+          "serve", "tables")
 # the kernels each stage of quickstart.run launches, and each busy step of
 # serving gateway.  ptc_block_matmul has two routes, each counted under its
 # own name: the IC/PM probes take the per-block route
@@ -307,7 +327,7 @@ def kernel_phase(torch, parent=None) -> dict:
     worst = 0.0
     before = build.launch_counts["mesh_apply"]
     n_calls = 0
-    for k in (2, 4, 8, 9, 13, 16, 32):
+    for k in (2, 4, 8, 9, 12, 13, 16, 24, 32):
         for kind in ("clements", "reck"):
             spec = un.mesh_spec(k, kind)
             ph = (torch.rand(spec.n_rot, generator=gen, device=dev) * 2 - 1) \
@@ -359,8 +379,8 @@ def kernel_phase(torch, parent=None) -> dict:
     check(full_err < 1e-5, f"mesh_apply full width: max abs err "
                            f"{full_err:.2e} >= 1e-5")
     worst = max(worst, full_err)
-    print(f"[check] mesh_apply: k in 2,4,8,9,13,16,32 x clements,reck, 24 "
-          f"and 1000 rows (both output layouts), batched (identity and rows "
+    print(f"[check] mesh_apply: k in 2,4,8,9,12,13,16,24,32 x clements,reck, "
+          f"24 and 1000 rows (both output layouts), batched (identity and rows "
           f"of their own); full width {nb} meshes x 9 rows: max abs err "
           f"{worst:.2e} (tol 1e-5)")
     del ur
@@ -439,7 +459,11 @@ def ptc_kernels(torch, gen, parent=None) -> dict:
               (31, 300, 1, 9), (32, 300, 1, 9), (33, 300, 1, 9),
               (PER_BLOCK_MAX_T, 300, 1, 9), (PER_BLOCK_MAX_T + 1, 300, 1, 9),
               (9, 64, 1, 4), (9, 64, 1, 8), (13, 64, 1, 13), (16, 64, 1, 16),
-              (32, 20, 1, 32)]
+              (32, 20, 1, 32),
+              # k = 12 and 24 inside the k = 16 and 32 instances (the paper
+              # tables' block sizes): both routes, the probes' Q = 1 too
+              (12, 64, 1, 12), (24, 20, 1, 24), (128, 8, 8, 12),
+              (300, 3, 5, 12), (128, 3, 3, 24), (129, 2, 5, 24)]
     for (t, p, q, k) in shapes:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 6e-2)):
             if dtype == torch.bfloat16 and t * p * q > 1e6:
@@ -665,7 +689,10 @@ def backward_kernels(torch, gen, parent=None) -> dict:
               (100, 2, 3, 4), (129, 2, 2, 32),       # the other widths
               (37, 3, 5, 9), (1000, 3, 5, 13),       # ragged T
               (1024, 57, 456, 9),                    # FC W1 of VGG-8
-              (32768, 8, 64, 9), (32768, 8, 3, 9)]   # VGG-8 conv l1, l0
+              (32768, 8, 64, 9), (32768, 8, 3, 9),   # VGG-8 conv l1, l0
+              # the paper tables' k = 12 and 24 (padded instances)
+              (128, 8, 8, 12), (37, 3, 5, 12), (128, 3, 3, 24),
+              (300, 2, 5, 24)]
     worst = {"sigma_grad": [0.0, 0.0], "feedback_matmul": [0.0, 0.0]}
 
     def record(name, what, out, want):
@@ -1746,11 +1773,36 @@ def main_path(torch, name: str, geometry: tuple, **kw) -> tuple[dict, dict]:
     return res, launches
 
 
+def busy_share(torch, job):
+    """(host wall ms, kernel ms, launches, kernel events) of ``job()``: run
+    once to warm up, once timed on the host (the card synchronized after),
+    once under ``torch.profiler`` to sum its kernels' device time; None
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def synced():
+        job()
+        torch.cuda.synchronize()
+
+    synced()                                # warm-up
+    t0 = time.perf_counter()
+    synced()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        synced()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        return None
+    return wall_ms, busy_ms, sum(e.count for e in kernels), kernels
+
+
 def zo_busy_share(torch, res, steps: int = 20) -> None:
     """How busy the card is during an in-situ ZO job at full width: a
     short ``zo_refine`` on the mapped W1 chip, timed on the host, then
     run again under ``torch.profiler`` to sum its kernels' device time."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.mapping import default_pm_config
     from repro_torch.core.ptc import blockize
 
@@ -1758,27 +1810,13 @@ def zo_busy_share(torch, res, steps: int = 20) -> None:
     k = driver.k
     w_blocks = blockize(res["weights"][0], k).reshape(-1, k, k)
     cfg = default_pm_config(k * (k - 1) // 2)._replace(steps=steps)
-
-    def job():
-        driver.zo_refine(w_blocks, torch.Generator("cuda").manual_seed(0),
-                         cfg)
-        torch.cuda.synchronize()
-
-    job()                                   # warm-up
-    t0 = time.perf_counter()
-    job()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        job()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    if busy_ms == 0:
+    got = busy_share(torch, lambda: driver.zo_refine(
+        w_blocks, torch.Generator("cuda").manual_seed(0), cfg))
+    if got is None:
         print("[profile] zo_refine: the profiler saw no device time; "
               "device busy share not measured")
         return
+    wall_ms, busy_ms, launches, kernels = got
     print(f"[profile] zo_refine, {steps} ZCD steps on {driver.n_blocks} "
           f"blocks: host wall {wall_ms:.1f} ms ({wall_ms / steps:.2f} "
           f"ms/step), kernel time {busy_ms:.1f} ms in {launches} launches "
@@ -1992,7 +2030,7 @@ def blocked_lm_phase(torch) -> dict:
     from repro_torch.core.ptc import PTCParams
     from repro_torch.core.sparsity import SparsityConfig
     from repro_torch.hw.device import realized_unitaries, sample_device
-    from repro_torch.kernels import build, mesh_apply_plain, ref
+    from repro_torch.kernels import build, mesh_apply_plain
     from repro_torch.models.layers import (PTCLinearCfg, apply_ptc_linear,
                                            init_ptc_linear)
 
@@ -2047,23 +2085,9 @@ def blocked_lm_phase(torch) -> dict:
         return out
 
     def plain(fn):
-        """fn() with the three PTC kernels swapped for their plain
-        versions; checks that nothing was launched."""
-        kernels = (subspace.ptc_block_matmul, subspace.sigma_grad,
-                   subspace.feedback_matmul)
-        before = dict(build.launch_counts)
-        subspace.ptc_block_matmul = ref.ptc_block_matmul_ref
-        subspace.sigma_grad = ref.sigma_grad_ref
-        subspace.feedback_matmul = ref.feedback_matmul_ref
-        try:
-            out = fn()
-        finally:
-            (subspace.ptc_block_matmul, subspace.sigma_grad,
-             subspace.feedback_matmul) = kernels
-        torch.cuda.synchronize()
-        check(build.launch_counts == before,
-              "blocked_lm: the plain-version step launched a kernel")
-        return out
+        """fn() with the PTC kernels swapped for their plain versions."""
+        with plain_kernels(torch, "blocked_lm"):
+            return fn()
 
     def compare(got, want, tol, what):
         errs = {}
@@ -2220,10 +2244,35 @@ def _leaves(tree):
 GATEWAY_TOL = 3e-2
 
 
-def gateway_phase(torch, check_step: int = 12) -> dict:
-    """qwen3-4b at full width (k = 128 fused PTC, bf16 bases) served
-    through the gateway with chunked prefill; returns the launches of the
-    three serving kernels over that run.
+def qwen3_4b_params(torch) -> dict:
+    """qwen3-4b's seeded parameters at full width, made on the card (for
+    the gateway and serve phases)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_model(torch.Generator(dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[qwen3-4b] {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, PTC k="
+          f"{cfg.ptc.k} {cfg.ptc.mode} {cfg.ptc.base_dtype}; init "
+          f"{init_s:.1f} s on the card, parameters {n_bytes / 1e9:.2f} GB, "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return params
+
+
+def gateway_phase(torch, params, check_step: int = 12) -> dict:
+    """qwen3-4b at full width (k = 128 fused PTC, bf16 bases; ``params``
+    from :func:`qwen3_4b_params`) served through the gateway with chunked
+    prefill; returns the launches of the three serving kernels over that
+    run.
 
     Busy step ``check_step`` is also checked: its gathered views and its
     scattered pools bitwise against the plain versions, and (after the
@@ -2241,19 +2290,6 @@ def gateway_phase(torch, check_step: int = 12) -> dict:
 
     dev = torch.device("cuda")
     cfg = get_config("qwen3-4b")
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = lm.init_model(torch.Generator(dev).manual_seed(0), cfg)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"[gateway] qwen3-4b: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
-          f"heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, PTC k="
-          f"{cfg.ptc.k} {cfg.ptc.mode} {cfg.ptc.base_dtype}; init "
-          f"{init_s:.1f} s on the card, parameters {n_bytes / 1e9:.2f} GB, "
-          f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     pages = PageConfig(page_size=16, n_pages=320, max_pages_per_slot=40)
     gcfg = GatewayConfig(slots=8, pages=pages, prefill_chunk=64, kv_block=64)
@@ -2456,7 +2492,7 @@ def gateway_phase(torch, check_step: int = 12) -> dict:
         print("[profile] top device operations per step: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms x"
             f"{e.count / 5:.0f}" for e in top))
-    del params, gw, captured
+    del gw, captured
     torch.cuda.empty_cache()
 
     # smoke width, fp32, on the card: chunked prefill emits the one-token
@@ -2489,6 +2525,346 @@ def gateway_phase(torch, check_step: int = 12) -> dict:
     return dict(launches, **{NAME_CC: build.launch_counts[NAME_CC]})
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the paper's tables
+# ---------------------------------------------------------------------------
+
+# the kernels the tables' path launches: the IC and PM probes (the narrow
+# mesh and the per-block forward), Fig. 8's blocked layer (the product
+# forward, the Σ-gradient and the feedback)
+TABLE_KERNELS = QUICKSTART_KERNELS
+# the reference's rows at each budget on a CPU (`PYTHONPATH=src python -m
+# benchmarks.run --budget B --only NAME`, JAX 0.9.0), printed beside the
+# card's ZO tables: Fig. 4 (method: final loss, identity MSE), Fig. 5
+# (method: err_init, err_after_zo, err_after_osp), Table 4 (k: IC MSE),
+# Table 5 (k: accuracy %), and Table 3 (k: rel_err) beside its card rows
+REFERENCE_TABLES = {
+    "quick": dict(
+        fig4={"zgd": (0.04504, 0.1091), "zcd": (0.02246, 0.0807),
+              "ztp": (0.00849, 0.0599)},
+        fig5={"zgd": (0.03588, 0.00096, 0.00096),
+              "zcd": (0.03588, 0.0322, 0.03184),
+              "ztp": (0.03588, 0.00631, 0.00628)},
+        t3={8: 0.0752, 9: 0.0817, 12: 0.0942, 16: 0.1046},
+        t4={8: 0.0487, 9: 0.0326, 12: 0.0537, 16: 0.0398},
+        t5={8: 100.0, 9: 100.0, 12: 99.61, 16: 99.02}),
+    "normal": dict(
+        fig4={"zgd": (0.02515, 0.1047), "zcd": (0.01616, 0.0811),
+              "ztp": (0.00596, 0.0519)},
+        fig5={"zgd": (0.03588, 0.0008, 0.0008),
+              "zcd": (0.03588, 0.0322, 0.03184),
+              "ztp": (0.03588, 0.00388, 0.00387)},
+        t3={8: 0.0752, 9: 0.0817, 12: 0.0942, 16: 0.1046, 24: 0.1315,
+            32: 0.135},
+        t4={8: 0.0713, 9: 0.0098, 12: 0.0313, 16: 0.0368, 24: 0.0211,
+            32: 0.0269},
+        t5={8: 100.0, 9: 100.0, 12: 99.8, 16: 99.61, 24: 98.83,
+            32: 97.27}),
+}
+# the ZO tables' limits (the port draws its own randomness, so it lands
+# near the reference's rows, not on them): every IC identity MSE of Fig. 4
+# under 0.15 and of Table 4 under 0.1 (the reference's worst rows 0.1091
+# and 0.0713); Fig. 5's err_init in (0.02, 0.06), err_osp <= err_zo <=
+# err_init, and ZGD's and ZTP's err_osp under a quarter of err_init (the
+# reference's 0.0008 and 0.0039 against 0.0359); every Table 5 accuracy
+# at least 95% (the reference's worst 97.27)
+TABLE_LIMITS = dict(fig4_mse=0.15, t4_mse=0.1, fig5_init=(0.02, 0.06),
+                    fig5_drop=0.25, t5_acc=95.0)
+# the deterministic tables against the same tables with the kernels
+# swapped for their plain versions, on the card, on the same draws: the
+# largest difference of a Fig. 8 metric, and Table 3's relative difference
+TABLE_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def plain_kernels(torch, what: str):
+    """The k <= 32 PTC kernels and the mesh swapped for their plain
+    versions where the port calls them (the twin's probes, the realized
+    meshes, the blocked layer); checks that ``what`` launched nothing."""
+    from repro_torch.core import ptc, subspace, unitary
+    from repro_torch.hw import jobs, twin
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.mesh_apply import mesh_apply_plain
+
+    swaps = [(m, "ptc_block_matmul", ref.ptc_block_matmul_ref)
+             for m in (jobs, twin, ptc, subspace)]
+    swaps += [(subspace, "sigma_grad", ref.sigma_grad_ref),
+              (subspace, "feedback_matmul", ref.feedback_matmul_ref),
+              (unitary, "mesh_apply_batched", mesh_apply_plain)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    before = dict(build.launch_counts)
+    for m, name, fn in swaps:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    torch.cuda.synchronize()
+    check(build.launch_counts == before,
+          f"{what}: the plain versions launched a kernel")
+
+
+def tables_phase(torch, budget: str) -> dict:
+    """The six paper benchmarks through ``repro_torch.benchmarks.run`` on
+    the card, with every launch count set to 0 just before and read just
+    after; returns those counts."""
+    from repro_torch.benchmarks import (blocksize_tables as bt,
+                                        grad_fidelity as gf, ic_convergence,
+                                        mapping_osp, run)
+    from repro_torch.benchmarks.common import cpu_generator, to_device
+    from repro_torch.core.calibration import calibrate_identity
+    from repro_torch.core.noise import NoiseModel
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    build.build([build.KERNELS[k] for k in TABLE_KERNELS])
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = run.run(budget, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {k: build.launch_counts[k] for k in TABLE_KERNELS}
+    other = {k: v for k, v in build.launch_counts.items()
+             if v and k not in TABLE_KERNELS}
+    print(f"[tables] budget {budget}: six benchmarks in {wall:.1f} s of host "
+          f"wall (the card synchronized at each end); launches "
+          + ", ".join(f"{k}={v}" for k, v in launches.items())
+          + (f"; other kernels {other}" if other else "; no other kernel"))
+    for rec in recs:           # (the runner printed each table's rows)
+        print(f"[tables] {rec['name']}: {rec['seconds']:.2f} s, launches "
+              + (", ".join(f"{k}={v}" for k, v in rec["launches"].items())
+                 or "none (the cost model only)"))
+    for kernel, n in launches.items():
+        check(n > 0, f"tables: {kernel} was not launched on the path")
+    check(not other, f"tables: launched kernels off its path: {other}")
+    tables = {name: rows for rec in recs for name, rows in
+              rec["tables"].items()}
+    refs = REFERENCE_TABLES[budget]
+
+    # the deterministic tables against their plain versions, same draws
+    d = to_device(gf.draw(cpu_generator(0), gf.n_mc(budget)), dev)
+    card = gf.fig8ab(d) + gf.fig8cd(d)
+    with plain_kernels(torch, "tables"):
+        plain = gf.fig8ab(d) + gf.fig8cd(d)
+    fig8_err = max(abs(a - b) for rk, rp in zip(card, plain)
+                   for a, b in zip(rk[-2:], rp[-2:]))
+    check(fig8_err <= TABLE_TOL, f"tables: Fig. 8 kernels vs plain versions "
+                                 f"differ by {fig8_err:.2e} > {TABLE_TOL}")
+    ks = bt.block_sizes(budget)
+    devs = to_device(bt.draw_t3(cpu_generator(0), ks), dev)
+    w = bt.t3_weight().to(dev)
+    t3 = bt.table3(w, devs, dev)
+    with plain_kernels(torch, "tables"):
+        t3_plain = bt.table3(w, devs, dev)
+    t3_err = max(abs(a[1] - b[1]) / b[1] for a, b in zip(t3, t3_plain))
+    check(t3_err <= TABLE_TOL, f"tables: Table 3 kernels vs plain versions "
+                               f"differ by {t3_err:.2e} (relative) > "
+                               f"{TABLE_TOL}")
+    print(f"[tables] Fig. 8 (a)-(d) recomputed on the same draws, kernels vs "
+          f"plain versions on the card: largest metric difference "
+          f"{fig8_err:.2e} (tol {TABLE_TOL:.0e}); Table 3 rel_err relative "
+          f"difference {t3_err:.2e} (tol {TABLE_TOL:.0e}); Table 3 rows "
+          + ", ".join(f"k {k} {e:.4f} (reference CPU {refs['t3'][k]})"
+                      for k, e, _ in t3))
+    check(tables["table2_vgg8"] and tables["table2_resnet18"]
+          and tables["fig10_scalability"], "tables: a cost-model table is "
+                                           "empty")
+
+    # the ZO tables by their result metrics, beside the reference's rows
+    lim = TABLE_LIMITS
+    for method, loss, mse, _ in tables["fig4_ic_convergence"]:
+        ref_loss, ref_mse = refs["fig4"][method]
+        print(f"[tables] Fig. 4 {method}: loss {loss} identity MSE {mse} "
+              f"(reference CPU {ref_loss}, {ref_mse}; limit MSE < "
+              f"{lim['fig4_mse']})")
+        check(mse < lim["fig4_mse"], f"tables: Fig. 4 {method} MSE {mse}")
+    for method, init, zo, osp in tables["fig5_mapping_osp"]:
+        print(f"[tables] Fig. 5 {method}: err_init {init}, err_zo {zo}, "
+              f"err_osp {osp} (reference CPU {refs['fig5'][method]})")
+        check(lim["fig5_init"][0] < init < lim["fig5_init"][1]
+              and osp <= zo * (1 + 1e-3) and zo <= init * (1 + 1e-3),
+              f"tables: Fig. 5 {method}: err_init {init}, err_zo {zo}, "
+              f"err_osp {osp}")
+        if method != "zcd":
+            check(osp < lim["fig5_drop"] * init,
+                  f"tables: Fig. 5 {method} err_osp {osp} not under "
+                  f"{lim['fig5_drop']} of err_init {init}")
+    for k, mse, _ in tables["table4_ic_mse_vs_k"]:
+        check(mse < lim["t4_mse"], f"tables: Table 4 k {k} MSE {mse}")
+    for k, acc, _, _ in tables["table5_subspace_acc_vs_k"]:
+        check(acc >= lim["t5_acc"], f"tables: Table 5 k {k} accuracy {acc}")
+    print("[tables] Table 4 IC MSE by k: " + ", ".join(
+        f"{k} {m} (reference CPU {refs['t4'][k]})"
+        for k, m, _ in tables["table4_ic_mse_vs_k"])
+        + f"; limit < {lim['t4_mse']}")
+    print("[tables] Table 5 accuracy % by k: " + ", ".join(
+        f"{k} {a} (reference CPU {refs['t5'][k]})"
+        for k, a, _, _ in tables["table5_subspace_acc_vs_k"])
+        + f"; limit >= {lim['t5_acc']}")
+
+    # where the phase's time goes: a profiled slice of each kind of work
+    gen = cpu_generator(1)
+    ic_draws = to_device(ic_convergence.draw(
+        gen, ic_convergence.zo_config("quick")._replace(steps=50),
+        NoiseModel()), dev)
+    cfg_ic = ic_convergence.zo_config("quick")._replace(steps=50)
+    cfg_pm = mapping_osp.zo_config("quick")._replace(steps=50)
+    pm_draws = to_device(mapping_osp.draw(gen, cfg_pm,
+                                          mapping_osp.harsh_model()), dev)
+    cfg_t4 = {32: bt.t4_config(32, "quick")._replace(steps=50)}
+    t4_draws = to_device(bt.draw_t4(gen, cfg_t4, restarts=1), dev)
+    d2 = to_device(gf.draw(cpu_generator(0), 2), dev)
+    t5p = to_device(bt.draw_t5(gen, [9]), dev)[9]
+    x5, y5 = (torch.as_tensor(a, device=dev) for a in bt.t5_data()[:2])
+    slices = {
+        "fig4_ic_convergence": ("50 ZCD steps, k 9, 4 blocks", 50,
+                                lambda: calibrate_identity(
+                                    None, 4, 9, NoiseModel(), cfg=cfg_ic,
+                                    dev=ic_draws["dev"], restarts=1,
+                                    device=dev,
+                                    draws=ic_draws["zcd"][:1])),
+        "fig5_mapping_osp": ("50 ZTP steps, k 9, 9 blocks", 50,
+                             lambda: mapping_osp.fig5(
+                                 mapping_osp.weight().to(dev), pm_draws,
+                                 cfg_pm, mapping_osp.harsh_model(), dev)),
+        "tables345_blocksize": ("50 ZCD steps, k 32, 4 blocks", 50,
+                                lambda: bt.table4(t4_draws, cfg_t4, dev)),
+        "fig8_grad_fidelity": ("2 samples of the 22 configurations", 44,
+                               lambda: (gf.fig8ab(d2), gf.fig8cd(d2))),
+        "table5": ("10 AdamW steps, k 9", 10,
+                   lambda: bt.train_sigma(*t5p, x5, y5, 10)),
+    }
+    shares = {}
+    for name, (what, units, job) in slices.items():
+        got = busy_share(torch, job)
+        if got is None:
+            print(f"[profile] tables {name}: the profiler saw no device "
+                  f"time; busy share not measured")
+            continue
+        wall_ms, busy_ms, n, _ = got
+        if name == "fig5_mapping_osp":     # three methods per call
+            units *= 3
+        shares[name] = busy_ms / wall_ms
+        print(f"[profile] tables {name}, {what}: host wall {wall_ms:.1f} ms "
+              f"({wall_ms / units:.3f} ms a unit), kernel time "
+              f"{busy_ms:.2f} ms in {n} launches ({n / units:.0f} a unit): "
+              f"device busy {100 * busy_ms / wall_ms:.0f}%")
+    secs = {rec["name"]: rec["seconds"] for rec in recs}
+    if all(name in shares for name in secs if name in slices):
+        busy = sum(secs[n] * shares[n] for n in secs if n in shares)
+        print(f"[profile] tables phase: device busy about "
+              f"{100 * busy / sum(secs.values()):.0f}% of its wall "
+              f"(each benchmark's wall times its slice's share; "
+              f"tables345 by its Table 4 slice, the cost-model tables idle)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: solo serving
+# ---------------------------------------------------------------------------
+
+# the solo path's last-prompt logits against the gateway's for the same
+# prompt: the gateway phase's limit (bf16 through 36 layers)
+SERVE_TOL = 3e-2
+
+
+def serve_phase(torch, params) -> None:
+    """``repro_torch.launch.serve.run`` at qwen3-4b full width (bf16 bases,
+    batch 4, prompt 64, 32 new tokens) timed; its last-prompt logits held
+    against the gateway's for the same prompts; at smoke width in fp32 its
+    tokens equal to the gateway's for every request."""
+    import argparse
+    import numpy as np
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import greedy_decode
+    from repro_torch.models import lm
+    from repro_torch.serving import (GatewayConfig, PageConfig, Request,
+                                     ServingGateway, poisson_workload)
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-4b")
+    batch, plen, gen = 4, 64, 32
+    args = argparse.Namespace(arch=cfg, batch=batch, prompt_len=plen,
+                              gen=gen, seed=0, device=dev,
+                              params_override=params)
+    t0 = time.perf_counter()
+    serve.run(argparse.Namespace(**{**vars(args), "gen": 2}))   # warm-up
+    print(f"[serve] warm-up (2 new tokens): "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = serve.run(args)
+    steps = plen + gen - 1
+    check(out["gen"].shape == (batch, gen)
+          and bool(((out["gen"] >= 0) & (out["gen"] < cfg.vocab)).all()),
+          "serve: bad generated tokens")
+    print(f"[serve] qwen3-4b full width ({cfg.ptc.mode} PTC, k "
+          f"{cfg.ptc.k}, {cfg.ptc.base_dtype}), batch {batch}, prompt "
+          f"{plen}, {gen} new tokens: {out['gen'].size} tokens in "
+          f"{out['wall_s']:.2f} s of wall ({out['tokens_per_s']:.1f} "
+          f"tokens/s), {steps} steps, {1e3 * out['wall_s'] / steps:.1f} ms "
+          f"a step; {card_line()}")
+
+    # the gateway on the same prompts: its first busy step ingests each
+    # whole prompt (chunk 64), so its logits are the last prompt position's
+    prompts = lm_batch(0, 0, batch, plen, cfg.vocab)["tokens"]
+    gw = ServingGateway(cfg, params, GatewayConfig(
+        slots=batch, pages=PageConfig(16, 8 * batch, 8), prefill_chunk=plen,
+        kv_block=64), device=dev)
+    first, step_fn = [], gw._step_fn
+
+    def step(prm, views, b):
+        res = step_fn(prm, views, b)
+        if not first:
+            first.append(res[0].float())
+        return res
+
+    gw._step_fn = step
+    rep = gw.run([Request(rid=i, prompt=prompts[i], max_new=gen)
+                  for i in range(batch)])
+    gw_logits = first[0]
+    gw_tokens = np.asarray([r["tokens"] for r in rep["requests"]])
+    check(bool((gw_tokens[:, 0] == gw_logits.argmax(-1).cpu().numpy())
+               .all()), "serve: the gateway's slots are not its requests")
+    trace = []
+    greedy_decode(lm.build_serve_step(cfg), params,
+                  lm.init_decode_cache(cfg, batch, plen + 1, device=dev),
+                  prompts, 1, logits_out=trace)
+    solo = torch.as_tensor(trace[-1], device=dev)
+    _, rel = rel_err(solo, gw_logits)
+    same = float((out["gen"] == gw_tokens).mean())
+    check(rel < SERVE_TOL, f"serve: solo vs gateway last-prompt logits rel "
+                           f"err {rel:.2e} >= {SERVE_TOL}")
+    print(f"[serve] solo vs gateway (chunked prefill, the prefill kernel) "
+          f"on the same prompts: last-prompt logits within {rel:.2e} of the "
+          f"largest (tol {SERVE_TOL:.0e}); {100 * same:.1f}% of the "
+          f"{gw_tokens.size} generated tokens identical")
+    del gw, first, solo, trace
+
+    # smoke width, fp32: each request served alone emits the gateway's
+    # tokens (the check of tests/test_serving_gateway.py)
+    scfg = smoke_config("qwen3-4b")
+    sp = lm.init_model(torch.Generator(dev).manual_seed(1), scfg)
+    for chunk in (1, 8):
+        # fresh requests: the gateway fills each one's out_tokens
+        reqs = poisson_workload(1, 8, 0.5, scfg.vocab, prompt_len=(4, 40),
+                                max_new=(4, 16))
+        rep = ServingGateway(scfg, sp, GatewayConfig(
+            slots=4, pages=PageConfig(8, 64, 8), prefill_chunk=chunk,
+            kv_block=8 if chunk > 1 else None), device=dev).run(reqs)
+        for r, got in zip(reqs, rep["requests"]):
+            solo = serve.run(argparse.Namespace(
+                arch=scfg, batch=1, prompt_len=r.prompt_len, gen=r.max_new,
+                seed=0, device=dev, params_override=sp,
+                prompt_tokens=np.asarray(r.prompt)[None]))
+            check([int(t) for t in solo["gen"][0]] == got["tokens"],
+                  f"serve {scfg.name}: request {r.rid} alone differs from "
+                  f"the gateway at chunk {chunk}")
+    print(f"[serve] {scfg.name} (fp32): each of 8 requests served alone "
+          f"emits the gateway's tokens exactly, at prefill chunk 1 and 8")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2499,6 +2875,12 @@ def main(argv=None) -> int:
                          "sigma_grad.cu and prefill_attn.cu are built and "
                          "timed beside this tree's kernels in the kernels "
                          "phase")
+    # quick keeps every phase inside half the run's time limit: at normal
+    # the tables phase alone took 548.9 s on an H100 (Table 4's 163,520
+    # ZCD steps at about 3 ms each), at quick Table 4 is 25,000 steps
+    ap.add_argument("--budget", default="quick",
+                    choices=["quick", "normal"],
+                    help="the tables phase's budget (the benchmarks')")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in PHASES for p in phases):
@@ -2524,9 +2906,10 @@ def main(argv=None) -> int:
     summary = kernel_phase(torch, args.parent) if "kernels" in phases \
         else {}
     # launches of each kernel on its main path in this run: the last
-    # quickstart path driven (full width, else parity) for the PTC kernels,
-    # the blocked_lm step and realization for the wide routes, the gateway
-    # for the serving kernels; null where none was driven
+    # quickstart path driven (full width, else parity, else the tables) for
+    # the PTC kernels, the blocked_lm step and realization for the wide
+    # routes, the gateway for the serving kernels; null where none was
+    # driven
     launches = dict.fromkeys(build.KERNELS)
 
     if "parity" in phases:
@@ -2579,8 +2962,20 @@ def main(argv=None) -> int:
     if "blocked_lm" in phases:
         launches.update(blocked_lm_phase(torch))
 
-    if "gateway" in phases:
-        launches.update(gateway_phase(torch))
+    if "gateway" in phases or "serve" in phases:
+        params = qwen3_4b_params(torch)
+        if "gateway" in phases:
+            launches.update(gateway_phase(torch, params))
+        if "serve" in phases:
+            serve_phase(torch, params)
+        del params
+        torch.cuda.empty_cache()
+
+    if "tables" in phases:
+        counts = tables_phase(torch, args.budget)
+        # a quickstart path driven in this run keeps its counts
+        launches.update({k: v for k, v in counts.items()
+                         if launches[k] is None})
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)                     # name, power limit: as nvidia-smi has it

@@ -1,0 +1,75 @@
+"""Benchmark driver of the port: one function per paper table/figure.
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.run \\
+        [--budget quick|normal] [--only SUBSTR] [--device cpu|cuda]
+
+Counterpart of ``benchmarks/run.py`` for its six paper benchmarks (the
+runtime, driver and serving benchmarks wait for their slices of the
+port).  Each table is written under ``bench_artifacts/torch/`` and
+printed.  Without ``--device`` the tables run on ``cuda`` (and a host
+without CUDA refuses); ``--device cpu`` runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ..device import resolve_device
+from ..kernels import build
+from . import (blocksize_tables, grad_fidelity, ic_convergence,
+               mapping_osp, sampling_table2, scalability)
+from .common import Timer
+
+__all__ = ["BENCHES", "run", "main"]
+
+# the reference runner's names and order (benchmarks/run.py:63-70)
+BENCHES = (
+    ("fig4_ic_convergence", ic_convergence.main),
+    ("tables345_blocksize", blocksize_tables.main),
+    ("fig5_mapping_osp", mapping_osp.main),
+    ("fig8_grad_fidelity", grad_fidelity.main),
+    ("table2_sampling", sampling_table2.main),
+    ("fig10_scalability", scalability.main),
+)
+
+
+def run(budget: str = "quick", only: str | None = None,
+        device=None) -> list[dict]:
+    """Run every benchmark whose name contains ``only``; returns one
+    record per benchmark: its ``name``, host wall ``seconds`` (the card
+    synchronized at both ends), ``tables`` ({table: rows}) and
+    ``launches`` (each kernel counter's increase over it)."""
+    dev = resolve_device(device)
+    out = []
+    for name, fn in BENCHES:
+        if only and only not in name:
+            continue
+        print(f"\n=== {name} (budget={budget}, device={dev}) ===",
+              flush=True)
+        before = dict(build.launch_counts)
+        with Timer(dev) as tm:
+            tables = fn(budget, device=dev)
+        launches = {k: build.launch_counts[k] - before[k]
+                    for k in build.launch_counts
+                    if build.launch_counts[k] != before[k]}
+        print(f"=== {name} done in {tm.dt:.1f}s ===", flush=True)
+        out.append(dict(name=name, seconds=tm.dt, tables=tables,
+                        launches=launches))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="the paper's tables on the PyTorch port")
+    ap.add_argument("--budget", default="quick", choices=["quick", "normal"])
+    ap.add_argument("--only", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions of the kernels)")
+    args = ap.parse_args(argv)
+    run(args.budget, args.only, args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,15 +1,45 @@
 """Synthetic, deterministic, learnable datasets (numpy).
 
-Copied from ``repro/data/synthetic.py`` (``synthetic_vision`` only):
-class-templated inputs plus Gaussian noise, a pure function of
-(seed, step), so the port and the reference see the same data.
+Copied from ``repro/data/synthetic.py`` (``lm_batch`` and
+``synthetic_vision``): an order-1 Markov token stream with a fixed random
+transition table, and class-templated inputs plus Gaussian noise, each a
+pure function of (seed, step), so the port and the reference see the same
+data.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_vision"]
+__all__ = ["lm_batch", "synthetic_vision"]
+
+
+def _markov_table(vocab: int, seed: int = 0, branch: int = 4) -> np.ndarray:
+    """(vocab, branch) table: each context allows `branch` next tokens."""
+    rng = np.random.default_rng(seed)
+    table = np.zeros((vocab, branch), dtype=np.int64)
+    for c in range(vocab):
+        table[c] = rng.choice(vocab, size=branch, replace=False)
+    return table
+
+
+_TABLES: dict = {}
+
+
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int
+             ) -> dict[str, np.ndarray]:
+    """One (tokens, labels) LM batch — order-1 Markov with 4-way branching."""
+    key = (vocab, seed)
+    if key not in _TABLES:
+        _TABLES[key] = _markov_table(vocab, seed)
+    table = _TABLES[key]
+    rng = np.random.default_rng((seed + 1) * 1_000_003 + step)
+    toks = np.empty((batch, seq + 1), dtype=np.int32)
+    toks[:, 0] = rng.integers(0, vocab, batch)
+    choices = rng.integers(0, table.shape[1], (batch, seq))
+    for t in range(seq):
+        toks[:, t + 1] = table[toks[:, t], choices[:, t]]
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def _templates(n_classes: int, shape: tuple, seed: int) -> np.ndarray:

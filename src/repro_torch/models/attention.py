@@ -2,13 +2,15 @@
 
 Counterpart of the decode part of ``repro/models/attention.py``: grouped
 KV heads, qk-norm (qwen3), logit soft-capping (gemma2), sliding-window
-local layers (gemma2) and partial rotary (chatglm), against page-assembled
-KV views with per-slot cache lengths (the continuous-batching gateway).
+local layers (gemma2) and partial rotary (chatglm), against a dense
+(B, S, Hkv, Dh) KV cache with one shared length (the solo serve path) and
+against page-assembled KV views with per-slot cache lengths (the
+continuous-batching gateway).
 
 GQA expands KV head h // rep to query head h (``repeat_interleave``,
 ``jnp.repeat``'s semantics).  The training paths (``attention``,
-``_sdpa`` / ``_sdpa_chunked``), the dense-cache decode and cross-attention
-belong to later slices of the port.
+``_sdpa`` / ``_sdpa_chunked``) and cross-attention belong to later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ from .layers import (PTCLinearCfg, apply_ptc_linear, apply_rotary,
                      init_ptc_linear, init_rmsnorm, rmsnorm, rotary_cache,
                      softcap)
 
-__all__ = ["AttnCfg", "init_attention", "decode_attention_paged",
-           "decode_attention_paged_chunked"]
+__all__ = ["AttnCfg", "init_attention", "init_kv_cache", "decode_attention",
+           "decode_attention_paged", "decode_attention_paged_chunked"]
 
 Params = dict
 NEG_INF = -2.0 ** 30
@@ -90,6 +92,61 @@ def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
+def _attend_one(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, q, k, v,
+                lens) -> torch.Tensor:
+    """One query token per row against (B, S, Hkv, Dh) keys and values
+    whose valid entries end at ``lens`` (an int or (B, 1, 1, 1)): scaled,
+    soft-capped, windowed softmax attention in fp32 logits, then the
+    output projection."""
+    b, sk = q.shape[0], k.shape[1]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kr = k.repeat_interleave(rep, dim=2)
+    vr = v.repeat_interleave(rep, dim=2)
+    logits = _einsum("bqhd,bkhd->bhqk", q, kr).float()
+    logits = logits * (cfg.head_dim ** -0.5)
+    logits = softcap(logits, cfg.attn_softcap)
+    ki = torch.arange(sk, device=q.device)[None, None, None, :]
+    ok = ki <= lens
+    if cfg.window is not None:
+        ok = ok & (ki > lens - cfg.window)
+    logits = torch.where(ok, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = _einsum("bhqk,bkhd->bqhd", w, vr)
+    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return apply_ptc_linear(p["wo"], o, lin, d_out=cfg.d_model, name="wo")
+
+
+def init_kv_cache(batch: int, max_len: int, cfg: AttnCfg,
+                  dtype=torch.bfloat16, device=None) -> Params:
+    """A zeroed dense KV cache, ``{"k", "v"}`` of (B, S, Hkv, Dh), in bf16
+    whatever the model's dtype, as the reference keeps it."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, x, cache,
+                     cache_len: int):
+    """One-token decode against a populated dense KV cache (plain PyTorch:
+    no TPU kernel computes it).
+
+    x: (B, 1, d); cache k/v: (B, S, Hkv, Dh); cache_len: the number of
+    valid cache entries, shared by the batch.  The new K/V row is written
+    into ``cache`` in place at ``cache_len`` (clamped to the cache, as
+    ``dynamic_update_slice`` clamps its start); returns ``(out, cache)``.
+    """
+    b = x.shape[0]
+    cache_len = int(cache_len)
+    positions = torch.full((b, 1), cache_len, dtype=torch.int32,
+                           device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, lin, x, positions)
+    at = min(max(cache_len, 0), cache["k"].shape[1] - 1)
+    cache["k"][:, at] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, at] = v_new[:, 0].to(cache["v"].dtype)
+    return _attend_one(p, cfg, lin, q, cache["k"], cache["v"],
+                       cache_len), cache
+
+
 def decode_attention_paged(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, x,
                            k_view, v_view, lens):
     """One-token decode against page-assembled per-slot KV views with
@@ -112,22 +169,7 @@ def decode_attention_paged(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, x,
     v = v_view.clone()
     k[rows, at] = k_new[:, 0].to(k.dtype)
     v[rows, at] = v_new[:, 0].to(v.dtype)
-    rep = cfg.n_heads // cfg.n_kv_heads
-    kr = k.repeat_interleave(rep, dim=2)
-    vr = v.repeat_interleave(rep, dim=2)
-    logits = _einsum("bqhd,bkhd->bhqk", q, kr).float()
-    logits = logits * (cfg.head_dim ** -0.5)
-    logits = softcap(logits, cfg.attn_softcap)
-    ki = torch.arange(sk, device=x.device)[None, None, None, :]
-    ln = lens[:, None, None, None]
-    ok = ki <= ln
-    if cfg.window is not None:
-        ok = ok & (ki > ln - cfg.window)
-    logits = torch.where(ok, logits, NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    o = _einsum("bhqk,bkhd->bqhd", w, vr)
-    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    out = apply_ptc_linear(p["wo"], o, lin, d_out=cfg.d_model, name="wo")
+    out = _attend_one(p, cfg, lin, q, k, v, lens[:, None, None, None])
     return out, k_new, v_new
 
 

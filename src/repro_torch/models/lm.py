@@ -1,6 +1,7 @@
 """LM assembly from PTC layers: decoder-only dense attention stacks.
 
-Counterpart of ``repro/models/lm.py`` for what the serving gateway runs:
+Counterpart of ``repro/models/lm.py`` for what the serving paths run (the
+solo serve step over a dense decode cache, and the gateway's steps):
 architectures are described by :class:`ArchConfig` and composed as
 ``n_periods`` repetitions of a static *period plan* (gemma2's local/global
 alternation is a period of two attention sub-layers); per-position
@@ -12,7 +13,7 @@ loop (the reference scans them), pushing the reference's PTC scope names
 Only the dense attention family is ported.  ssm, hybrid, MoE, vlm and
 encdec configurations raise (ROADMAP.md, queue 1, "LM families beyond
 dense attention"); training (``forward``, ``build_train_step``,
-``inject_masks``) and the solo serve step belong to later slices.
+``inject_masks``) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -22,15 +23,17 @@ from typing import Callable
 
 import torch
 
-from .attention import (AttnCfg, decode_attention_paged,
-                        decode_attention_paged_chunked, init_attention)
+from .attention import (AttnCfg, decode_attention, decode_attention_paged,
+                        decode_attention_paged_chunked, init_attention,
+                        init_kv_cache)
 from .ffn import FFNCfg, init_mlp, mlp
 from .layers import (PTCLinearCfg, embed, init_embedding, init_layernorm,
                      init_rmsnorm, layernorm, layernorm_np, ptc_scope,
                      rmsnorm, softcap)
 
 __all__ = ["ArchConfig", "SubLayerPlan", "period_plan", "init_model",
-           "build_gateway_step", "build_gateway_prefill_step"]
+           "init_decode_cache", "build_serve_step", "build_gateway_step",
+           "build_gateway_prefill_step"]
 
 Params = dict
 
@@ -179,20 +182,22 @@ def init_model(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# gateway steps
+# serve and gateway steps
 # ---------------------------------------------------------------------------
 
 
-def _build_step(cfg: ArchConfig, attend: Callable, last_column: Callable):
-    """The shared body of the gateway steps: embed, walk every period's
-    sub-layers with ``attend`` (one of the paged attention functions),
-    final norm, logits; ``last_column(logits, batch)`` picks each slot's
-    (B, vocab) row."""
+def _build_step(cfg: ArchConfig, attend: Callable, last_column: Callable,
+                collect: Callable):
+    """The shared body of the serving steps: embed, walk every period's
+    sub-layers with ``attend(p, acfg, lin, h, state, batch) -> (h, new)``
+    on that layer's slice of the per-position ``state`` tree, final norm,
+    logits; ``last_column(logits, batch)`` picks each row's (B, vocab)
+    logits and ``collect(state, outs)`` makes the returned state from the
+    per-period ``new`` trees."""
     plan, n_periods = period_plan(cfg)
 
     @torch.no_grad()
-    def step(params, views, batch):
-        lens = batch["lens"]
+    def step(params, state, batch):
         x = embed(params["embed"], batch["token"])
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -205,10 +210,9 @@ def _build_step(cfg: ArchConfig, attend: Callable, last_column: Callable):
                     p = _tree_map(lambda a: a[pi], params[name])
                     h = _apply_norm(cfg, p["ln1"], x)
                     with ptc_scope(f"s{i}.attn"):
-                        h, k_new, v_new = attend(
+                        h, new[name] = attend(
                             p["attn"], cfg.attn_cfg(sub.window), cfg.ptc, h,
-                            views[name]["k"][pi], views[name]["v"][pi], lens)
-                    new[name] = {"k": k_new, "v": v_new}
+                            _tree_map(lambda a: a[pi], state[name]), batch)
                     if cfg.post_norm:
                         h = _apply_norm(cfg, p["pn1"], h)
                     x = x + h
@@ -219,13 +223,47 @@ def _build_step(cfg: ArchConfig, attend: Callable, last_column: Callable):
                         h = _apply_norm(cfg, p["pn2"], h)
                     x = x + h
             outs.append(new)
-        new_kv = _tree_map(lambda *xs: torch.stack(xs), *outs)
         x = _apply_norm(cfg, params["final_norm"], x)
         w = params["embed"]["e"] if cfg.tie_embed else params["unembed"]["w"]
         logits = softcap(x @ w.T, cfg.final_softcap)
-        return last_column(logits, batch), new_kv
+        return last_column(logits, batch), collect(state, outs)
 
     return step
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
+                      device=None) -> Params:
+    """The solo serve path's dense KV cache: per plan position ``{"k",
+    "v"}`` of (n_periods, B, max_len, Hkv, Dh), zeroed, in bf16."""
+    plan, n_periods = period_plan(cfg)
+    cache: Params = {}
+    for i, sub in enumerate(plan):
+        one = init_kv_cache(batch, max_len, cfg.attn_cfg(sub.window),
+                            device=device)
+        cache[f"pos{i}"] = {kk: a.new_zeros((n_periods,) + tuple(a.shape))
+                            for kk, a in one.items()}
+    return cache
+
+
+def build_serve_step(cfg: ArchConfig):
+    """Returns ``serve_step(params, cache, batch) -> (logits, cache)``: one
+    new token per row against the dense decode cache.
+
+    ``batch``: {"token": (B, 1) int, "cache_len": int} — every row at the
+    same position.  Each layer's new K/V row is written into ``cache`` in
+    place (the reference returns an updated copy); the same tree is
+    returned.  Logits: (B, vocab).  PTC scope names are the gateway
+    steps' (``p{period}.s{sub}.attn.wq`` ...)."""
+    def attend(p, acfg, lin, h, layer_cache, batch):
+        return decode_attention(p, acfg, lin, h, layer_cache,
+                                batch["cache_len"])
+
+    return _build_step(cfg, attend, lambda logits, batch: logits[:, 0],
+                       lambda cache, outs: cache)
+
+
+def _stack_new_kv(views, outs):
+    return _tree_map(lambda *xs: torch.stack(xs), *outs)
 
 
 def build_gateway_step(cfg: ArchConfig):
@@ -238,8 +276,13 @@ def build_gateway_step(cfg: ArchConfig):
     from the page pool.  ``new_kv`` holds each position's NEW (n_periods, B,
     1, Hkv, Dh) rows, which the engine scatters into the pool.  Logits:
     (B, vocab)."""
-    return _build_step(cfg, decode_attention_paged,
-                       lambda logits, batch: logits[:, 0])
+    def attend(p, acfg, lin, h, view, batch):
+        h, k_new, v_new = decode_attention_paged(p, acfg, lin, h, view["k"],
+                                                 view["v"], batch["lens"])
+        return h, {"k": k_new, "v": v_new}
+
+    return _build_step(cfg, attend, lambda logits, batch: logits[:, 0],
+                       _stack_new_kv)
 
 
 def build_gateway_prefill_step(cfg: ArchConfig, kv_block: int | None = None):
@@ -255,12 +298,14 @@ def build_gateway_prefill_step(cfg: ArchConfig, kv_block: int | None = None):
     (B, vocab).  ``kv_block`` sets the prefill kernel's KV block (None =
     the whole view).  PTC scope names equal :func:`build_gateway_step`'s.
     """
-    def attend(p, acfg, lin, h, k_view, v_view, lens):
-        return decode_attention_paged_chunked(p, acfg, lin, h, k_view,
-                                              v_view, lens, kv_block=kv_block)
+    def attend(p, acfg, lin, h, view, batch):
+        h, k_new, v_new = decode_attention_paged_chunked(
+            p, acfg, lin, h, view["k"], view["v"], batch["lens"],
+            kv_block=kv_block)
+        return h, {"k": k_new, "v": v_new}
 
     def last_column(logits, batch):
         col = (batch["n_valid"].long() - 1)[:, None, None]
         return torch.take_along_dim(logits, col, dim=1)[:, 0]
 
-    return _build_step(cfg, attend, last_column)
+    return _build_step(cfg, attend, last_column, _stack_new_kv)

@@ -1,0 +1,252 @@
+"""Port parity: the solo serve path (``repro_torch.launch.serve``,
+``greedy_decode``, the dense decode cache) against the reference on the
+CPU, with the reference's parameters carried over (``convert.lm_params``).
+
+* ``lm_batch``: bitwise (both are numpy).
+* ``decode_attention`` (one layer) and ``build_serve_step`` (the whole
+  model) over 12 steps at ``smoke:qwen3-4b`` and ``smoke:gemma2-27b``
+  (sliding window 8 and soft-caps; 12 steps pass the window), each step
+  from the reference's cache of the step before: outputs within 1e-5 of
+  the largest reference entry.  Both keep K/V in bf16, so a new row whose
+  fp32 value lies within rounding of a bf16 tie may round the other way:
+  the new cache rows are equal but for such entries, each within one bf16
+  step (2^-7 relative) and at most one in a thousand.  The step's token
+  attends to its own new row, so a step whose rows hold such a flip is
+  held at 5e-5 instead (gemma2: one flip of -0.6836 to -0.6875 moves the
+  logits by 1.3e-5); at most a third of the steps may have one.
+* ``greedy_decode``: the reference's tokens and per-step predictions, and
+  its ``eos_id`` early termination.
+* The port's solo tokens equal the port's gateway tokens for the same
+  requests (the check of ``tests/test_serving_gateway.py``).
+* ``serve.main`` refuses the fleet and hardware-in-the-loop flags.
+"""
+
+import argparse
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as jsmoke_config
+from repro.data import lm_batch as j_lm_batch
+from repro.launch.steps import greedy_decode as j_greedy_decode
+from repro.models import attention as jattn
+from repro.models import lm as jlm
+from repro_torch import convert
+from repro_torch.configs import smoke_config
+from repro_torch.data.synthetic import lm_batch
+from repro_torch.launch import serve
+from repro_torch.launch.steps import greedy_decode
+from repro_torch.models import attention as tattn
+from repro_torch.models import lm as tlm
+from repro_torch.serving import (GatewayConfig, PageConfig, ServingGateway,
+                                 poisson_workload)
+
+TOL = 1e-5
+TIE_TOL = 5e-5      # a step whose new bf16 K/V rows hold a rounding tie
+NAMES = ("qwen3-4b", "gemma2-27b")
+
+
+@functools.lru_cache(maxsize=None)
+def _params(name):
+    return jlm.init_model(jax.random.PRNGKey(1), jsmoke_config(name))
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / (np.abs(want).max() + 1e-12))
+
+
+@pytest.mark.parametrize("seed,step,batch,seq,vocab",
+                         [(0, 0, 4, 16, 256), (3, 7, 2, 64, 151_936),
+                          (5, 1, 1, 1, 50)])
+def test_lm_batch_bitwise(seed, step, batch, seq, vocab):
+    want = j_lm_batch(seed, step, batch, seq, vocab)
+    got = lm_batch(seed, step, batch, seq, vocab)
+    for key in ("tokens", "labels"):
+        assert got[key].dtype == want[key].dtype
+        assert np.array_equal(got[key], want[key])
+
+
+def _bf16_cache_close(got: torch.Tensor, want) -> bool:
+    """Equal, but for at most one entry in a thousand, each within one
+    bf16 step of the reference's (a tie rounded the other way)."""
+    want = torch.as_tensor(np.asarray(want).astype(np.float32))
+    got = got.float()
+    off = got != want
+    return bool((got - want).abs()[off].le(
+        2.0 ** -7 * want.abs()[off] + 1e-30).all()) \
+        and int(off.sum()) <= max(1, want.numel() // 1000)
+
+
+def _carry(jtree):
+    """A reference cache tree as the port's (bf16 leaves stay bf16)."""
+    return convert.lm_params(jtree)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_decode_attention_matches_reference(name):
+    jcfg, tcfg = jsmoke_config(name), smoke_config(name)
+    window = jcfg.sliding_window          # a windowed layer where there is one
+    jp = jax.tree.map(lambda a: a[0], _params(name)["pos0"]["attn"])
+    tp = convert.lm_params(jp)
+    jac, tac = jcfg.attn_cfg(window), tcfg.attn_cfg(window)
+    b, s, steps = 2, 16, 12
+    rng = np.random.default_rng(0)
+    jdecode = jax.jit(jattn.decode_attention, static_argnums=(1, 2))
+    jcache = jattn.init_kv_cache(b, s, jac)
+    tcache = tattn.init_kv_cache(b, s, tac)
+    assert all(tcache[kk].dtype == torch.bfloat16 for kk in ("k", "v"))
+    for t in range(steps):
+        x = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
+        tcache = _carry(jcache)
+        jout, jcache = jdecode(jp, jac, jcfg.ptc, jnp.asarray(x), jcache,
+                               jnp.asarray(t, jnp.int32))
+        tout, tcache = tattn.decode_attention(tp, tac, tcfg.ptc,
+                                              torch.from_numpy(x), tcache, t)
+        assert tout.shape == jout.shape
+        assert _rel(tout, jout) < TOL, (t, _rel(tout, jout))
+        for kk in ("k", "v"):
+            assert _bf16_cache_close(tcache[kk], jcache[kk]), (t, kk)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_serve_step_matches_reference(name):
+    jcfg, tcfg = jsmoke_config(name), smoke_config(name)
+    jp = _params(name)
+    tp = convert.lm_params(jp)
+    b, steps = 3, 12
+    toks = lm_batch(2, 0, b, steps, jcfg.vocab)["tokens"]
+    jstep = jax.jit(jlm.build_serve_step(jcfg))
+    tstep = tlm.build_serve_step(tcfg)
+    jcache = jlm.init_decode_cache(jcfg, b, steps)
+    tcache = tlm.init_decode_cache(tcfg, b, steps, device="cpu")
+    assert set(tcache) == set(jcache)
+    for pos in jcache:
+        for kk in ("k", "v"):
+            assert tcache[pos][kk].shape == jcache[pos][kk].shape
+            assert tcache[pos][kk].dtype == torch.bfloat16
+    ties = 0
+    for t in range(steps):
+        tcache = _carry(jcache)
+        jl, jcache = jstep(jp, jcache, {
+            "token": jnp.asarray(toks[:, t:t + 1]),
+            "cache_len": jnp.asarray(t, jnp.int32)})
+        tl, tcache = tstep(tp, tcache, {
+            "token": torch.from_numpy(toks[:, t:t + 1]), "cache_len": t})
+        assert tl.shape == jl.shape == (b, jcfg.vocab)
+        tie = False
+        for pos in jcache:
+            for kk in ("k", "v"):
+                assert _bf16_cache_close(tcache[pos][kk], jcache[pos][kk]), \
+                    (t, pos, kk)
+                tie |= not torch.equal(tcache[pos][kk].float(), torch.as_tensor(
+                    np.asarray(jcache[pos][kk]).astype(np.float32)))
+        ties += tie
+        assert _rel(tl, jl) < (TIE_TOL if tie else TOL), (t, _rel(tl, jl))
+    assert ties <= steps // 3
+
+
+def _greedy(name, prompt, gen, **kw):
+    """(reference tokens, port tokens, reference preds, port preds)."""
+    jcfg, tcfg = jsmoke_config(name), smoke_config(name)
+    jp = _params(name)
+    b, n = prompt.shape
+    jpreds, tpreds = [], []
+    jgen, _ = j_greedy_decode(jax.jit(jlm.build_serve_step(jcfg)), jp,
+                              jlm.init_decode_cache(jcfg, b, n + gen),
+                              prompt, gen, preds_out=jpreds, **kw)
+    tgen, _ = greedy_decode(tlm.build_serve_step(tcfg),
+                            convert.lm_params(jp),
+                            tlm.init_decode_cache(tcfg, b, n + gen,
+                                                  device="cpu"),
+                            prompt, gen, preds_out=tpreds, **kw)
+    return jgen, tgen, np.stack(jpreds, 1), np.stack(tpreds, 1)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_greedy_decode_matches_reference(name):
+    prompt = lm_batch(0, 0, 3, 6, 256)["tokens"]
+    jgen, tgen, jpreds, tpreds = _greedy(name, prompt, 10)
+    assert tgen.dtype == np.int32 and tgen.shape == (3, 10)
+    assert np.array_equal(tgen, jgen)
+    assert np.array_equal(tpreds, jpreds)
+
+
+def test_greedy_decode_eos_early_termination():
+    """As ``tests/test_serving_gateway.py``'s EOS check: the first token
+    emitted becomes the stop token; the row is eos-padded and the loop
+    exits right after that emission, on both packages."""
+    prompt = np.asarray([[7, 3, 11]], np.int32)
+    jfree, tfree, _, _ = _greedy("qwen3-4b", prompt, 6)
+    assert np.array_equal(tfree, jfree)
+    eos = int(tfree[0][0])
+    jgen, tgen, _, _ = _greedy("qwen3-4b", prompt, 6, eos_id=eos)
+    assert np.array_equal(tgen, jgen)
+    assert list(tgen[0]) == [eos] * 6
+    tcfg, tsteps = smoke_config("qwen3-4b"), []
+    greedy_decode(tlm.build_serve_step(tcfg),
+                  convert.lm_params(_params("qwen3-4b")),
+                  tlm.init_decode_cache(tcfg, 1, 9, device="cpu"), prompt, 6,
+                  eos_id=eos, on_step=tsteps.append)
+    assert len(tsteps) == prompt.shape[1]     # prompt_len-1 prefill + 1 emit
+    # a second row that never emits the stop token keeps the loop running
+    two = np.concatenate([prompt, [[5, 9, 2]]]).astype(np.int32)
+    jgen, tgen, _, _ = _greedy("qwen3-4b", two, 6, eos_id=eos)
+    assert np.array_equal(tgen, jgen)
+
+
+def test_refuses_a_layer_execution_plane():
+    tcfg = smoke_config("qwen3-4b")
+    with pytest.raises(ValueError, match="not ported yet"):
+        greedy_decode(tlm.build_serve_step(tcfg), {},
+                      tlm.init_decode_cache(tcfg, 1, 4, device="cpu"),
+                      np.zeros((1, 2), np.int32), 2, layer_exec=object())
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_solo_tokens_equal_gateway_tokens(chunk):
+    """Every request served alone (batch 1, greedy) emits the tokens the
+    continuous-batching gateway emits for it."""
+    cfg = smoke_config("qwen3-4b")
+    params = tlm.init_model(torch.Generator().manual_seed(3), cfg)
+    reqs = poisson_workload(2, 4, 0.7, cfg.vocab, prompt_len=(3, 10),
+                            max_new=(2, 5))
+    rep = ServingGateway(cfg, params, GatewayConfig(
+        slots=2, pages=PageConfig(4, 32, 6), prefill_chunk=chunk,
+        kv_block=4 if chunk > 1 else None), device="cpu").run(reqs)
+    for r, got in zip(reqs, rep["requests"]):
+        out = serve.run(argparse.Namespace(
+            arch=cfg, batch=1, prompt_len=r.prompt_len, gen=r.max_new,
+            seed=0, device="cpu", params_override=params,
+            prompt_tokens=np.asarray(r.prompt)[None]))
+        assert [int(t) for t in out["gen"][0]] == got["tokens"]
+
+
+def test_serve_run_and_cli_on_the_cpu(capsys):
+    out = serve.run(argparse.Namespace(arch="smoke:qwen3-4b", batch=2,
+                                       prompt_len=5, gen=4, seed=0,
+                                       device="cpu", trace_logits=True))
+    assert out["gen"].shape == (2, 4) and out["preds"].shape == (2, 8)
+    assert out["logits"].shape == (8, 2, 256)
+    assert np.array_equal(out["preds"], out["logits"].argmax(-1).T)
+    assert np.array_equal(out["gen"], out["preds"][:, 4:])
+    assert out["tokens_per_s"] > 0
+    assert serve.main(["--arch", "smoke:qwen3-4b", "--device", "cpu",
+                       "--batch", "1", "--prompt-len", "3", "--gen",
+                       "2"]) == 0
+    assert "generated (1, 2) tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [["--fleet", "2"], ["--hw-logits"],
+                                   ["--hw-shadow"], ["--drift"],
+                                   ["--autopilot"]])
+def test_cli_refuses_fleet_and_hardware_flags(flags, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "smoke:qwen3-4b", "--device", "cpu", *flags])
+    assert exc.value.code == 2
+    assert "not ported yet" in capsys.readouterr().err
