@@ -12,6 +12,9 @@
     python3 chip_smoke.py --phases tables,serve [--budget normal]
                                                # the paper's tables and
                                                # the solo serve path
+    python3 chip_smoke.py --phases families    # the ssm, hybrid and MoE
+                                               # families on the serving
+                                               # paths
 
 Phases:
 
@@ -80,7 +83,21 @@ Phases:
    its last-prompt logits against the gateway's for the same prompts
    (``SERVE_TOL``), and at smoke width in fp32 every request served alone
    emits the gateway's tokens.
-8. ``tables`` — the paper's six table benchmarks through
+8. ``families`` — the ssm, hybrid and MoE families on the serving
+   paths, none of which launches a kernel of the seven (the reference
+   computes the scan, the recurrence and the MoE dispatch in plain jnp):
+   falcon-mamba-7b at full width and depth (64 layers, bf16 bases, k =
+   128, seeded on the card) through ``launch.serve.run`` (batch 4,
+   prompt 32, 32 new tokens) and the gateway (8 slots, prefill chunk 1,
+   8 Poisson requests), timed; the gateway's last-prompt logits against
+   the solo path's (``SERVE_TOL``); one layer's chunked scan against 64
+   steps of its recurrence (``SCAN_TOL``); qwen3-moe-30b-a3b at full
+   width, depth cut to 4 of 48 layers, solo serve timed and one layer's
+   dispatch against the dense combine of each token's top-8 experts
+   (``MOE_TOL``); at smoke width in fp32, falcon-mamba's requests served
+   alone against its gateway, and jamba, qwen3-moe and moonshot stepped
+   on the card and on the CPU from one state (``FAMILY_SMOKE_TOL``).
+9. ``tables`` — the paper's six table benchmarks through
    ``repro_torch.benchmarks.run`` on the card (``--budget``, default
    ``quick``; ``normal`` adds k = 24 and 32 and about 7 minutes): each
    table's rows, wall and launches; Fig. 8 and Table 3
@@ -121,7 +138,7 @@ import time
 from pathlib import Path
 
 PHASES = ("kernels", "parity", "full", "vgg8", "blocked_lm", "gateway",
-          "serve", "tables")
+          "serve", "families", "tables")
 # the kernels each stage of quickstart.run launches, and each busy step of
 # serving gateway.  ptc_block_matmul has two routes, each counted under its
 # own name: the IC/PM probes take the per-block route
@@ -2244,14 +2261,12 @@ def _leaves(tree):
 GATEWAY_TOL = 3e-2
 
 
-def qwen3_4b_params(torch) -> dict:
-    """qwen3-4b's seeded parameters at full width, made on the card (for
-    the gateway and serve phases)."""
-    from repro_torch.configs import get_config
+def card_params(torch, cfg, what: str) -> dict:
+    """``cfg``'s seeded parameters made on the card; prints ``what`` (the
+    shape), the init time, the size and the peak allocated memory."""
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
-    cfg = get_config("qwen3-4b")
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2259,13 +2274,22 @@ def qwen3_4b_params(torch) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"[qwen3-4b] {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
-          f"heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, PTC k="
-          f"{cfg.ptc.k} {cfg.ptc.mode} {cfg.ptc.base_dtype}; init "
-          f"{init_s:.1f} s on the card, parameters {n_bytes / 1e9:.2f} GB, "
-          f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"[{cfg.name}] {what}, vocab {cfg.vocab}, PTC k={cfg.ptc.k} "
+          f"{cfg.ptc.mode} {cfg.ptc.base_dtype}; init {init_s:.1f} s on the "
+          f"card, parameters {n_bytes / 1e9:.2f} GB, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return params
+
+
+def qwen3_4b_params(torch) -> dict:
+    """qwen3-4b's seeded parameters at full width, made on the card (for
+    the gateway and serve phases)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-4b")
+    return card_params(torch, cfg, (
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"over {cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}"))
 
 
 def gateway_phase(torch, params, check_step: int = 12) -> dict:
@@ -2865,6 +2889,405 @@ def serve_phase(torch, params) -> None:
           f"emits the gateway's tokens exactly, at prefill chunk 1 and 8")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the ssm, hybrid and MoE families
+# ---------------------------------------------------------------------------
+
+# the chunked scan against 64 steps of the one-token recurrence at one
+# falcon-mamba-7b layer (bf16 bases, k = 128): the limit on max |error|
+# over the largest entry of the output, of the last h and of the conv
+# rows.  Set from CPU runs of the same check at k = 128, bf16, 64 tokens,
+# d_model 512 and 1024: the output read up to 3.9e-3 and h 1.1e-3 (bf16
+# products round differently over 64 rows and over one); the reference's
+# own decode-against-prefill test allows 2e-2 (tests/test_arch_smoke.py)
+SCAN_TOL = 2e-2
+# one qwen3-moe-30b-a3b layer's dispatch at decode (nothing dropped)
+# against the dense combine of each token's top-k experts: bf16 expert
+# outputs gate-weighted and summed in bf16, against an fp32 sum
+MOE_TOL = 2e-2
+# the smoke-width configs (fp32) stepped on the card and on the CPU from
+# one decode state, kept in fp32: their logits.  With the bf16 state the
+# serving paths keep, a rounding tie of a new K/V or conv row taken the
+# other way moves the logits by more than the arithmetic does: on the
+# H100, moonshot's smoke config read 3.02e-4 stepped from one bf16 state
+# and 2.50e-4 run free, qwen3-moe's 5.11e-7 and 4.05e-7
+FAMILY_SMOKE_TOL = 1e-4
+
+
+def serve_step_profile(torch, cfg, params, batch: int) -> None:
+    """One solo serve step at cache position 31, warm: its wall, its
+    device time by kernel from ``torch.profiler`` over 3 steps, the busy
+    share and the three largest kernels."""
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    step = lm.build_serve_step(cfg)
+    cache = lm.init_decode_cache(cfg, batch, 64, device=dev)
+    b = {"token": torch.zeros((batch, 1), dtype=torch.int64, device=dev),
+         "cache_len": 31}
+
+    def run():
+        step(params, cache, b)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    split = sorted(device_split(run, 3), key=lambda e: -e[1])
+    busy_ms = sum(ms for _, ms in split)
+    print(f"[{cfg.name}] one solo step, warm: wall {wall_ms:.1f} ms, "
+          f"{busy_ms:.2f} ms of kernels (busy {100 * busy_ms / wall_ms:.0f}%)"
+          f"; largest: " + ", ".join(f"{name[:48]} {ms:.2f}"
+                                     for name, ms in split[:3]))
+
+
+def falcon_mamba_phase(torch) -> None:
+    """falcon-mamba-7b at full width and depth (64 layers, bf16 bases,
+    k = 128), seeded on the card: the solo serve path (batch 4, prompt 32,
+    32 new tokens) and the gateway (8 slots, prefill chunk 1, 8 Poisson
+    requests) timed; the gateway's last-prompt logits against the solo
+    path's; one layer's chunked scan against its one-token recurrence."""
+    import argparse
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, ssm
+    from repro_torch.serving import (GatewayConfig, PageConfig, Request,
+                                     ServingGateway, poisson_workload)
+
+    dev = torch.device("cuda")
+    cfg = get_config("falcon-mamba-7b")
+    sc = cfg.ssm_cfg()
+    params = card_params(torch, cfg, (
+        f"{cfg.n_layers} mamba layers, d_model {cfg.d_model}, d_inner "
+        f"{sc.d_inner}, state {sc.d_state}, dt rank {sc.rank}"))
+    layer = params["pos0"]["mamba"]
+    grids = {n: tuple(layer[n]["u"].shape[1:3])
+             for n in ("in_proj", "x_proj", "dt_proj", "out_proj")}
+    per_layer = sum(t.numel() * t.element_size()
+                    for t in _leaves(params["pos0"])) / cfg.n_layers
+    emb = params["embed"]["e"]
+    print(f"[falcon-mamba-7b] a layer's PTC block grids (P x Q blocks of "
+          f"{cfg.ptc.k} x {cfg.ptc.k}): " + ", ".join(
+              f"{n} {p} x {q}" for n, (p, q) in grids.items())
+          + f"; {per_layer / 1e6:.1f} MB a layer, embedding "
+          f"{emb.numel() * emb.element_size() / 1e9:.2f} GB")
+    check(grids == {"in_proj": (128, 32), "x_proj": (3, 64),
+                    "dt_proj": (64, 2), "out_proj": (32, 64)},
+          f"falcon-mamba-7b: block grids {grids}")
+
+    # the solo serve path, logits traced (one (4, vocab) copy to the host
+    # a step, beside the argmax the loop copies anyway)
+    batch, plen, gen = 4, 32, 32
+    args = argparse.Namespace(arch=cfg, batch=batch, prompt_len=plen,
+                              gen=gen, seed=0, device=dev,
+                              params_override=params, trace_logits=True)
+    t0 = time.perf_counter()
+    serve.run(argparse.Namespace(**{**vars(args), "prompt_len": 2,
+                                    "gen": 2}))
+    print(f"[falcon-mamba-7b] solo warm-up (3 steps): "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = serve.run(args)
+    steps = plen + gen - 1
+    check(out["gen"].shape == (batch, gen)
+          and bool(((out["gen"] >= 0) & (out["gen"] < cfg.vocab)).all())
+          and bool(np.isfinite(out["logits"]).all()),
+          "falcon-mamba-7b: bad solo tokens or logits")
+    print(f"[falcon-mamba-7b] solo serve, batch {batch}, prompt {plen}, "
+          f"{gen} new tokens: {out['gen'].size} tokens in "
+          f"{out['wall_s']:.2f} s of wall ({out['tokens_per_s']:.1f} "
+          f"tokens/s), {steps} steps, {1e3 * out['wall_s'] / steps:.1f} ms "
+          f"a step; {card_line()}")
+    serve_step_profile(torch, cfg, params, batch)
+
+    # the gateway: 8 slots, one token a step (the only chunk an ssm arch
+    # takes)
+    pages = PageConfig(page_size=16, n_pages=56, max_pages_per_slot=7)
+    gcfg = GatewayConfig(slots=8, pages=pages, prefill_chunk=1)
+    t0 = time.perf_counter()
+    ServingGateway(cfg, params, gcfg, device=dev).run(poisson_workload(
+        1, 1, 1.0, cfg.vocab, prompt_len=(2, 2), max_new=(2, 2)))
+    torch.cuda.synchronize()
+    print(f"[falcon-mamba-7b] gateway warm-up (1 short request): "
+          f"{time.perf_counter() - t0:.1f} s")
+    # 8 requests: with 12 the whole script took 678.4 s on an H100 whose
+    # host ran slow, past half its time limit
+    reqs = poisson_workload(0, 8, 0.5, cfg.vocab, prompt_len=(16, 64),
+                            max_new=(8, 32))
+    gw = ServingGateway(cfg, params, gcfg, device=dev)
+    marks, gather = [], gw._gather_views
+
+    def marked():                   # the host clock as each busy step starts
+        marks.append(time.perf_counter())
+        return gather()
+
+    gw._gather_views = marked
+    rep = gw.run(reqs)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    del gw._gather_views     # the cycle gw -> marked -> gw holds the params
+    step_ms = 1e3 * np.diff(marks)
+    for r in rep["requests"]:
+        check(r["n_out"] == r["max_new"],
+              f"falcon-mamba-7b gateway: request {r['rid']} produced "
+              f"{r['n_out']} of {r['max_new']} tokens")
+    print(f"[falcon-mamba-7b] gateway, {len(reqs)} requests at 0.5 per "
+          f"step, prompts {min(r.prompt_len for r in reqs)}-"
+          f"{max(r.prompt_len for r in reqs)}, max_new "
+          f"{min(r.max_new for r in reqs)}-{max(r.max_new for r in reqs)}, "
+          f"{gcfg.slots} slots, prefill chunk 1: {rep['steps']} steps "
+          f"({rep['busy_steps']} busy, occupancy {rep['occupancy']:.2f}), "
+          f"{rep['tokens_out']} tokens in {rep['wall_s']:.2f} s "
+          f"({rep['tokens_per_s']:.1f} tokens/s); busy step median "
+          f"{float(np.median(step_ms)):.1f} ms, min {step_ms.min():.1f}, "
+          f"max {step_ms.max():.1f}; {card_line()}")
+    del gw
+
+    # the gateway against the solo path on the solo run's prompts, all
+    # arriving at step 0: its busy step plen - 1 ends every prompt
+    prompts = lm_batch(0, 0, batch, plen, cfg.vocab)["tokens"]
+    gw = ServingGateway(cfg, params, GatewayConfig(
+        slots=batch, pages=PageConfig(16, 6 * batch, 6), prefill_chunk=1),
+        device=dev)
+    step_fn, seen = gw._step_fn, []
+
+    def step(prm, views, b):
+        res = step_fn(prm, views, b)
+        if len(seen) == plen - 1:
+            seen.append(res[0].float().clone())
+        else:
+            seen.append(None)
+        return res
+
+    gw._step_fn = step
+    rep = gw.run([Request(rid=i, prompt=prompts[i], max_new=gen)
+                  for i in range(batch)])
+    gw_logits = seen[plen - 1]
+    gw_tokens = np.asarray([r["tokens"] for r in rep["requests"]])
+    check(bool((gw_tokens[:, 0] == gw_logits.argmax(-1).cpu().numpy())
+               .all()), "falcon-mamba-7b: the gateway's slots are not its "
+                        "requests")
+    solo = torch.as_tensor(out["logits"][plen - 1], device=dev)
+    _, rel = rel_err(solo, gw_logits)
+    same = float((out["gen"] == gw_tokens).mean())
+    check(rel < SERVE_TOL, f"falcon-mamba-7b: solo vs gateway last-prompt "
+                           f"logits rel err {rel:.2e} >= {SERVE_TOL}")
+    print(f"[falcon-mamba-7b] gateway (4 slots) vs solo on the same "
+          f"prompts: last-prompt logits within {rel:.2e} of the largest "
+          f"(tol {SERVE_TOL:.0e}); {100 * same:.1f}% of the "
+          f"{gw_tokens.size} generated tokens identical")
+    del gw, seen, out
+
+    # one layer: the chunked scan against 64 steps of the recurrence
+    p0 = layers.tree_map(lambda a: a[0], layer)
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator(
+        dev).manual_seed(5), device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, st = ssm.mamba(p0, sc, cfg.ptc, x, return_state=True)
+        torch.cuda.synchronize()
+        t_scan = time.perf_counter() - t0
+        state = ssm.init_ssm_state(2, sc, dev)
+        ys = []
+        t0 = time.perf_counter()
+        for t in range(x.shape[1]):
+            yt, state = ssm.mamba_decode(p0, sc, cfg.ptc, x[:, t: t + 1],
+                                         state)
+            ys.append(yt)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    errs = {"output": rel_err(torch.cat(ys, 1), y)[1],
+            "h": rel_err(state["h"], st["h"])[1],
+            "conv": rel_err(state["conv"], st["conv"])[1]}
+    check(all(e < SCAN_TOL for e in errs.values()),
+          f"falcon-mamba-7b: scan vs recurrence {errs} (tol {SCAN_TOL})")
+    print(f"[falcon-mamba-7b] one layer, batch 2, 64 tokens: the chunked "
+          f"scan ({1e3 * t_scan:.1f} ms wall, chunk {min(sc.chunk, 64)}) "
+          f"against 64 steps of the recurrence ({1e3 * t_dec:.1f} ms): "
+          + ", ".join(f"{k} within {v:.2e}" for k, v in errs.items())
+          + f" of the largest (tol {SCAN_TOL:.0e})")
+    del params, layer, p0, y, st, state, ys
+    torch.cuda.empty_cache()
+
+
+def qwen3_moe_phase(torch) -> None:
+    """qwen3-moe-30b-a3b at full width (128 experts, top-8, bf16 bases,
+    k = 128) with its depth cut to 4 of 48 layers (48 do not fit one
+    card): the solo serve path timed, and one layer's dispatch at decode
+    against the dense combine of each token's top-k experts."""
+    import argparse
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import ffn, layers
+
+    dev = torch.device("cuda")
+    full = get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(full, n_layers=4)
+    params = card_params(torch, cfg, (
+        f"{cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}"))
+    batch, plen, gen = 4, 32, 16
+    args = argparse.Namespace(arch=cfg, batch=batch, prompt_len=plen,
+                              gen=gen, seed=0, device=dev,
+                              params_override=params)
+    t0 = time.perf_counter()
+    serve.run(argparse.Namespace(**{**vars(args), "prompt_len": 2,
+                                    "gen": 2}))
+    print(f"[qwen3-moe-30b-a3b] solo warm-up (3 steps): "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = serve.run(args)
+    steps = plen + gen - 1
+    check(out["gen"].shape == (batch, gen)
+          and bool(((out["gen"] >= 0) & (out["gen"] < cfg.vocab)).all()),
+          "qwen3-moe-30b-a3b: bad solo tokens")
+    print(f"[qwen3-moe-30b-a3b] solo serve, batch {batch}, prompt {plen}, "
+          f"{gen} new tokens: {out['gen'].size} tokens in "
+          f"{out['wall_s']:.2f} s of wall ({out['tokens_per_s']:.1f} "
+          f"tokens/s), {steps} steps, {1e3 * out['wall_s'] / steps:.1f} ms "
+          f"a step; {card_line()}")
+    serve_step_profile(torch, cfg, params, batch)
+
+    # one layer's dispatch against the dense combine (decode: s = 1, cap
+    # 1, a token's experts distinct, so nothing is dropped)
+    mcfg = cfg.moe_cfg()
+    p0 = layers.tree_map(lambda a: a[0], params["pos0"]["moe"])
+    x = torch.randn((batch, 1, cfg.d_model), generator=torch.Generator(
+        dev).manual_seed(6), device=dev).to(torch.bfloat16)
+    fcfg = ffn.FFNCfg(cfg.d_model, cfg.d_ff, cfg.act)
+    with torch.no_grad():
+        y, aux = ffn.moe(p0, mcfg, cfg.ptc, x)
+        probs = torch.softmax(x.float() @ p0["router"].T, dim=-1)
+        gates, idx = ffn._top_k(probs, cfg.top_k)
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+        dense = torch.zeros((batch, cfg.d_model), device=dev)
+        for b in range(batch):
+            for j in range(cfg.top_k):
+                pe = layers.tree_map(lambda a: a[int(idx[b, 0, j])],
+                                     p0["experts"])
+                dense[b] += gates[b, 0, j] * ffn.mlp(
+                    pe, fcfg, cfg.ptc, x[b]).float()[0]
+        layer_ms = cuda_ms(lambda: ffn.moe(p0, mcfg, cfg.ptc, x), reps=5)
+    _, rel = rel_err(y[:, 0], dense)
+    check(rel < MOE_TOL and bool(torch.isfinite(aux)),
+          f"qwen3-moe-30b-a3b: dispatch vs dense combine rel err {rel:.2e} "
+          f">= {MOE_TOL}")
+    print(f"[qwen3-moe-30b-a3b] one MoE layer at decode (batch {batch}, "
+          f"{cfg.n_experts} experts, every expert's W composed and "
+          f"applied): {layer_ms:.2f} ms on the device; dispatch vs the "
+          f"dense combine of each token's {cfg.top_k} experts within "
+          f"{rel:.2e} of the largest (tol {MOE_TOL:.0e}), aux "
+          f"{float(aux):.4f}")
+    del params, p0, out
+    torch.cuda.empty_cache()
+
+
+def family_smoke_checks(torch) -> None:
+    """Smoke width, fp32, on the card: smoke:falcon-mamba-7b through the
+    gateway at chunk 1 against each request served alone; jamba, qwen3-moe
+    and moonshot made on the CPU and served on the card and on the CPU."""
+    import argparse
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, lm
+    from repro_torch.serving import (GatewayConfig, PageConfig,
+                                     ServingGateway, poisson_workload)
+
+    dev = torch.device("cuda")
+    scfg = smoke_config("falcon-mamba-7b")
+    sp = lm.init_model(torch.Generator(dev).manual_seed(1), scfg)
+    reqs = poisson_workload(1, 8, 0.5, scfg.vocab, prompt_len=(4, 40),
+                            max_new=(4, 16))
+    rep = ServingGateway(scfg, sp, GatewayConfig(
+        slots=4, pages=PageConfig(8, 64, 8), prefill_chunk=1),
+        device=dev).run(reqs)
+    for r, got in zip(reqs, rep["requests"]):
+        solo = serve.run(argparse.Namespace(
+            arch=scfg, batch=1, prompt_len=r.prompt_len, gen=r.max_new,
+            seed=0, device=dev, params_override=sp,
+            prompt_tokens=np.asarray(r.prompt)[None]))
+        check([int(t) for t in solo["gen"][0]] == got["tokens"],
+              f"{scfg.name}: request {r.rid} alone differs from the gateway")
+    print(f"[families] {scfg.name} (fp32): each of {len(reqs)} requests "
+          f"served alone emits the gateway's tokens exactly (4 slots, "
+          f"prefill chunk 1, SSM states zeroed on admission)")
+
+    for name in ("jamba-1.5-large-398b", "qwen3-moe-30b-a3b",
+                 "moonshot-v1-16b-a3b"):
+        cfg = smoke_config(name)
+        cpu_p = lm.init_model(torch.Generator().manual_seed(2), cfg)
+        card_p = layers.tree_map(lambda a: a.to(dev), cpu_p)
+        # step by step from the CPU's decode state of the step before,
+        # that state held in fp32: the cache's bf16 rows round activations
+        # that agree to fp32 precision, and a rounding tie taken the other
+        # way moves a step's logits by more than its arithmetic does
+        step = lm.build_serve_step(cfg)
+        prompt = torch.as_tensor(lm_batch(0, 0, 2, 8, cfg.vocab)["tokens"],
+                                 dtype=torch.int64)
+        cache = layers.tree_map(lambda a: a.float(), lm.init_decode_cache(
+            cfg, 2, 16, device="cpu"))
+        tok, worst = prompt[:, :1], 0.0
+        for i in range(15):
+            on_card, _ = step(card_p, layers.tree_map(lambda a: a.to(dev),
+                                                      cache),
+                              {"token": tok.to(dev), "cache_len": i})
+            on_cpu, cache = step(cpu_p, cache, {"token": tok,
+                                                "cache_len": i})
+            worst = max(worst, rel_err(on_card.cpu(), on_cpu)[1])
+            tok = prompt[:, i + 1: i + 2] if i + 1 < 8 else \
+                on_cpu.argmax(-1, keepdim=True)
+        check(worst < FAMILY_SMOKE_TOL,
+              f"{cfg.name}: card vs CPU logits rel err {worst:.2e} >= "
+              f"{FAMILY_SMOKE_TOL}")
+        # free-running: each side feeds back its own tokens and caches;
+        # its logits are compared over the steps both fed alike
+        args = dict(arch=cfg, batch=2, prompt_len=8, gen=8, seed=0,
+                    trace_logits=True)
+        free_cpu = serve.run(argparse.Namespace(
+            **args, device="cpu", params_override=cpu_p))
+        free_card = serve.run(argparse.Namespace(
+            **args, device=dev, params_override=card_p))
+        fed = (free_cpu["preds"] != free_card["preds"]).any(0)
+        fed[:7] = False                    # the prompt's steps are forced
+        n = int(np.argmax(fed)) + 1 if fed.any() else fed.size
+        _, free = rel_err(torch.as_tensor(free_card["logits"][:n]),
+                          torch.as_tensor(free_cpu["logits"][:n]))
+        same = float((free_cpu["gen"] == free_card["gen"]).mean())
+        print(f"[families] {cfg.name} (fp32, CPU-made params): card vs CPU "
+              f"logits within {worst:.2e} of the largest over 15 steps, each "
+              f"from the CPU's state in fp32 (tol {FAMILY_SMOKE_TOL:.0e}); "
+              f"run free in bf16 states, within {free:.2e} over {n} steps and "
+              f"{100 * same:.1f}% of {free_cpu['gen'].size} generated "
+              f"tokens identical")
+
+
+def families_phase(torch) -> None:
+    """The ssm, hybrid and MoE families on the serving paths.  The
+    reference computes the selective scan, the recurrence and the MoE
+    dispatch in plain jnp, so these paths launch none of the kernels."""
+    from repro_torch.kernels import build
+
+    before = dict(build.launch_counts)
+    falcon_mamba_phase(torch)
+    qwen3_moe_phase(torch)
+    family_smoke_checks(torch)
+    launched = {k: build.launch_counts[k] - before[k] for k in before}
+    check(not any(launched.values()),
+          f"families: kernels launched on paths with none: {launched}")
+    print("[families] launches of the seven kernels' routes over the "
+          "phase: 0 (the reference's ssm and MoE have no Pallas kernel, "
+          "falcon-mamba-7b no attention; jamba's smoke attention is at "
+          "decode, the dense cache)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2970,6 +3393,9 @@ def main(argv=None) -> int:
             serve_phase(torch, params)
         del params
         torch.cuda.empty_cache()
+
+    if "families" in phases:
+        families_phase(torch)
 
     if "tables" in phases:
         counts = tables_phase(torch, args.budget)

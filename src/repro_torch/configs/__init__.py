@@ -1,9 +1,10 @@
-"""Config registry of the port: the dense attention-only architectures.
+"""Config registry of the port: the dense, MoE, ssm and hybrid
+architectures.
 
 Counterpart of ``repro/configs/__init__.py`` and of ``parse_arch`` in
-``repro/launch/train.py``.  The reference's other architectures (MoE,
-ssm, hybrid, vlm, encdec) wait for their families (ROADMAP.md, queue 1,
-"LM families beyond dense attention"); asking for one raises.
+``repro/launch/train.py``.  The reference's vlm and encdec architectures
+(llama-3.2-vision-11b, whisper-base) wait for their families (ROADMAP.md,
+queue 1, "LM families beyond dense attention"); asking for one raises.
 """
 
 from __future__ import annotations
@@ -16,10 +17,14 @@ __all__ = ["ARCH_NAMES", "get_config", "smoke_config", "parse_arch",
            "smoke_reduce"]
 
 _ARCH_MODULES = {
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "gemma2-27b": "gemma2_27b",
     "chatglm3-6b": "chatglm3_6b",
     "olmo-1b": "olmo_1b",
     "qwen3-4b": "qwen3_4b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ARCH_NAMES = list(_ARCH_MODULES)

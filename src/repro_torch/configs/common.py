@@ -13,8 +13,9 @@ __all__ = ["smoke_reduce"]
 
 
 def smoke_reduce(cfg: ArchConfig) -> ArchConfig:
-    """Reduced same-family config: small widths, two periods, tiny vocab,
-    k = 8 fp32 PTC — runs a real step on a CPU in well under a second."""
+    """Reduced same-family config: small widths, two periods, at most 4
+    experts (top-2) and 8 SSM states, tiny vocab, k = 8 fp32 PTC — runs a
+    real step on a CPU in well under a second."""
     plan, _ = period_plan(cfg)
     return dataclasses.replace(
         cfg,
@@ -26,6 +27,9 @@ def smoke_reduce(cfg: ArchConfig) -> ArchConfig:
         head_dim=16,
         d_ff=96,
         vocab=256,
+        n_experts=min(cfg.n_experts, 4),
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        ssm_state=min(cfg.ssm_state, 8) if cfg.ssm_state else 0,
         sliding_window=8 if cfg.sliding_window else None,
         ptc=PTCLinearCfg(k=8, mode=cfg.ptc.mode, base_dtype=torch.float32),
     )

@@ -30,7 +30,7 @@ __all__ = ["PTCLinearCfg", "init_ptc_linear", "apply_ptc_linear",
            "is_ptc_leaf", "trainable_mask", "ptc_execution", "ptc_scope",
            "ptc_scope_name", "init_rmsnorm", "rmsnorm", "init_layernorm",
            "layernorm", "layernorm_np", "rotary_cache", "apply_rotary",
-           "softcap", "init_embedding", "embed"]
+           "softcap", "init_embedding", "embed", "tree_map", "stacked"]
 
 Params = dict
 
@@ -140,6 +140,30 @@ def trainable_mask(params: Params) -> Params:
     leaf.  Everything but the frozen U/V bases (Σ and biases)."""
     return {name: trainable_mask(leaf) if isinstance(leaf, dict)
             else name not in ("u", "v") for name, leaf in params.items()}
+
+
+# -- parameter trees ---------------------------------------------------------
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
+                for key in tree}
+    return fn(tree, *rest)
+
+
+def stacked(make: Callable[[], Params], n: int) -> Params:
+    """``n`` draws of ``make()`` stacked on a new leading axis, filled in
+    place one draw at a time (peak memory: the stack plus one draw), as
+    the reference's ``jax.vmap`` over split keys lays them out."""
+    first = make()
+    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    tree_map(lambda o, a: o[0].copy_(a), out, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda o, a, i=i: o[i].copy_(a), out, make())
+    return out
 
 
 # -- norms -------------------------------------------------------------------

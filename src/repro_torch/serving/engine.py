@@ -5,8 +5,12 @@ step = one batched forward over every active slot
 (``models.lm.build_gateway_step``, or ``build_gateway_prefill_step`` with
 ``prefill_chunk`` > 1): page-assembled KV views in (``paged_gather``),
 logits and new KV rows out, rows written back into the page pools
-(``paged_scatter`` / ``paged_scatter_rows``).  Admission, eviction and
-paging policy live in ``scheduler`` / ``kv_pages``.
+(``paged_scatter`` / ``paged_scatter_rows``).  Mamba positions (ssm and
+hybrid archs, one-token path only) keep a dense per-slot SSM state
+instead, passed whole into the step and replaced whole from its output;
+an admitted slot's state is zeroed, and idle slots' states advance on
+padding tokens until then, as the reference's do.  Admission, eviction
+and paging policy live in ``scheduler`` / ``kv_pages``.
 
 The step runs eagerly (the reference jits it).  The pools are updated in
 place (the reference's scatter aliases them into its output).  The
@@ -27,6 +31,7 @@ from ..device import resolve_device
 from ..kernels.paged_kv import paged_gather, paged_scatter, paged_scatter_rows
 from ..models.lm import (ArchConfig, build_gateway_prefill_step,
                          build_gateway_step, period_plan)
+from ..models.ssm import init_ssm_state
 from .kv_pages import PageConfig, PagedKVPool
 from .scheduler import FINISH_EOS, FINISH_MAX_NEW, Request, Scheduler
 
@@ -83,20 +88,28 @@ class ServingGateway:
         # table (token t lives at the same page/offset in every layer),
         # each period's pages offset by its stripe.  The +1 page per
         # stripe is the scratch page idle slots and padding scatter into.
+        # Mamba positions hold a (P, slots, ...) SSM state instead.
         ps = gcfg.pages.page_size
         self._stripe = gcfg.pages.n_pages + 1
         self._scratch = gcfg.pages.n_pages      # id of the scratch page
         self._kv_dims: dict[str, tuple[int, int]] = {}
         self._pools: dict[str, dict[str, torch.Tensor]] = {}
+        self._ssm: dict[str, dict[str, torch.Tensor]] = {}
         for i, sub in enumerate(self.plan):
             name = f"pos{i}"
-            acfg = cfg.attn_cfg(sub.window)
-            hk, hd = acfg.n_kv_heads, acfg.head_dim
-            self._kv_dims[name] = (hk, hd)
-            shape = (self.n_periods * self._stripe, ps, hk * hd)
-            self._pools[name] = {
-                kk: torch.zeros(shape, dtype=torch.bfloat16,
-                                device=self.device) for kk in ("k", "v")}
+            if sub.kind == "attn":
+                acfg = cfg.attn_cfg(sub.window)
+                hk, hd = acfg.n_kv_heads, acfg.head_dim
+                self._kv_dims[name] = (hk, hd)
+                shape = (self.n_periods * self._stripe, ps, hk * hd)
+                self._pools[name] = {
+                    kk: torch.zeros(shape, dtype=torch.bfloat16,
+                                    device=self.device) for kk in ("k", "v")}
+            else:
+                one = init_ssm_state(gcfg.slots, cfg.ssm_cfg(), self.device)
+                self._ssm[name] = {
+                    kk: a.new_zeros((self.n_periods,) + tuple(a.shape))
+                    for kk, a in one.items()}
 
         # counters
         self.step_count = 0
@@ -119,7 +132,8 @@ class ServingGateway:
 
     def _gather_views(self) -> dict:
         """Assemble every attention position's (P, B, S_max, Hkv, Dh)
-        views from the pools: one gather per pool tensor, all periods."""
+        views from the pools: one gather per pool tensor, all periods.
+        Mamba positions pass their SSM states."""
         b = self.gcfg.slots
         jps = self.gcfg.pages.max_pages_per_slot * self.gcfg.pages.page_size
         table = self._to_device(self._period_table())
@@ -130,6 +144,7 @@ class ServingGateway:
                 kk: paged_gather(table, pools[kk]).reshape(
                     self.n_periods, b, jps, hk, hd)
                 for kk in ("k", "v")}
+        views.update(self._ssm)
         return views
 
     def _period_idx(self, idx: np.ndarray) -> torch.Tensor:
@@ -148,12 +163,15 @@ class ServingGateway:
 
     def _scatter_new(self, new_kv: dict, active: Sequence[int]) -> None:
         """Persist each active slot's new KV row at its write position;
-        idle slots land on the scratch page."""
+        idle slots land on the scratch page.  SSM states are replaced by
+        the step's, all slots at once."""
         idx = np.zeros((self.gcfg.slots, 2), np.int32)
         idx[:, 0] = self._scratch
         for slot in active:
             idx[slot] = self.pool.write_pos(slot)
         self._scatter(new_kv, self._period_idx(idx), paged_scatter)
+        for name in self._ssm:
+            self._ssm[name] = new_kv[name]
 
     def _scatter_chunk(self, new_kv: dict, act: np.ndarray,
                        take: np.ndarray) -> None:
@@ -172,6 +190,13 @@ class ServingGateway:
                 idx[slot, :n] = self.pool.write_span(slot, n)
         self._scatter(new_kv, self._period_idx(idx.reshape(b * c, 2)),
                       paged_scatter_rows)
+
+    def _reset_slot(self, slot: int) -> None:
+        """Zero an admitted slot's SSM state (pages need no reset: the
+        slot writes before it reads, and attention masks by length)."""
+        for st in self._ssm.values():
+            for a in st.values():
+                a[:, slot] = 0
 
     # -- the loop ------------------------------------------------------------
 
@@ -205,6 +230,7 @@ class ServingGateway:
                 slot_pos[slot] = 0
                 plen[slot] = req.prompt_len
                 prompt_buf[slot, :req.prompt_len] = req.prompt
+                self._reset_slot(slot)
             if sched.idle:
                 if next_arrival >= len(todo):
                     break                          # drained

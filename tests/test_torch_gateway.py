@@ -5,11 +5,14 @@ against ``repro.serving`` on the same requests with the same parameters
 At prefill chunk 1 and 4 (and chunk 4 advancing 2 tokens a step) the two
 gateways emit the same tokens for every request and report the same
 steps, busy steps, TTFT and latency in steps, and the same
-admission/finish trace.  The CLI refuses the reference's
+admission/finish trace; so do they for ``smoke:falcon-mamba-7b`` at chunk
+1 (per-slot SSM states, zeroed on admission).  Both refuse MoE archs,
+and chunked prefill of ssm archs.  The CLI refuses the reference's
 hardware-in-the-loop flags instead of ignoring them.
 """
 
 import argparse
+import dataclasses
 import functools
 
 import jax
@@ -51,7 +54,7 @@ def _serve(kv, sched, engine, cfg, params, chunk, stride, device=None):
 
 @pytest.mark.parametrize("name,chunk,stride", [
     ("qwen3-4b", 1, None), ("qwen3-4b", 4, None), ("qwen3-4b", 4, 2),
-    ("gemma2-27b", 4, None)])
+    ("gemma2-27b", 4, None), ("falcon-mamba-7b", 1, None)])
 def test_gateway_matches_reference(name, chunk, stride):
     jp = _params(name)
     want = _serve(jkv, jsched, jengine, jsmoke_config(name), jp, chunk,
@@ -64,6 +67,68 @@ def test_gateway_matches_reference(name, chunk, stride):
                 "latency_steps", "admission_wait_steps", "schedule_trace"):
         assert got[key] == want[key], key
     assert all(r["n_out"] == r["max_new"] for r in got["requests"])
+
+
+def test_falcon_mamba_gateway_logits_match_reference_every_step():
+    """Every step's logits, every slot: each admitted slot's SSM state is
+    zeroed as the reference zeroes it, and idle slots advance on padding
+    as the reference's do (tokens alone would not show a stale state: it
+    decays within a few prompt tokens)."""
+    jp = _params("falcon-mamba-7b")
+    seen = {"j": [], "t": []}
+
+    def recording(side, gw):
+        step_fn = gw._step_fn
+
+        def step(prm, views, batch):
+            logits, new = step_fn(prm, views, batch)
+            seen[side].append(np.asarray(logits, np.float32))
+            return logits, new
+        gw._step_fn = step
+        return gw
+
+    for side, kv, sched, engine, cfg, params, kw in (
+            ("j", jkv, jsched, jengine, jsmoke_config("falcon-mamba-7b"), jp,
+             {}),
+            ("t", tkv, tsched, tengine, smoke_config("falcon-mamba-7b"),
+             convert.lm_params(jp), {"device": "cpu"})):
+        gcfg = engine.GatewayConfig(slots=2, pages=kv.PageConfig(
+            page_size=4, n_pages=40, max_pages_per_slot=8))
+        reqs = sched.poisson_workload(3, 5, 0.9, cfg.vocab,
+                                      prompt_len=(1, 3), max_new=(2, 4))
+        recording(side, engine.ServingGateway(cfg, params, gcfg, **kw)).run(
+            reqs)
+    assert len(seen["t"]) == len(seen["j"]) > 0
+    got, want = np.stack(seen["t"]), np.stack(seen["j"])
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_reset_slot_zeroes_one_slot_of_every_ssm_state():
+    cfg = smoke_config("jamba-1.5-large-398b")
+    gw = tengine.ServingGateway(dataclasses.replace(cfg, n_experts=0), {},
+                                tengine.GatewayConfig(slots=3),
+                                device="cpu")
+    assert set(gw._pools) == {"pos0"} and len(gw._ssm) == 7
+    for st in gw._ssm.values():
+        for a in st.values():
+            a.fill_(1.0)
+    gw._reset_slot(1)
+    for st in gw._ssm.values():
+        for a in st.values():
+            assert a.shape[:2] == (2, 3)
+            assert float(a[:, 1].abs().max()) == 0.0
+            assert float(a[:, 0].min()) == float(a[:, 2].min()) == 1.0
+
+
+def test_gateway_refuses_what_the_reference_refuses():
+    for name, chunk, match in (("qwen3-moe-30b-a3b", 1, "MoE"),
+                               ("falcon-mamba-7b", 4, "attention-only")):
+        for engine, cfg, kw in ((jengine, jsmoke_config(name), {}),
+                                (tengine, smoke_config(name),
+                                 {"device": "cpu"})):
+            gcfg = engine.GatewayConfig(slots=2, prefill_chunk=chunk)
+            with pytest.raises(ValueError, match=match):
+                engine.ServingGateway(cfg, {}, gcfg, **kw)
 
 
 def test_cli_runs_on_the_cpu_and_refuses_hardware_flags(capsys):

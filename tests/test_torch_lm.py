@@ -2,7 +2,15 @@
 attention,ffn,lm}`` and ``repro_torch.configs`` — against the reference's,
 for ``smoke:qwen3-4b`` (qk-norm, GQA), ``smoke:gemma2-27b`` (local/global
 window, soft-caps, sandwich norms, GeGLU) and ``smoke:chatglm3-6b`` (half
-rotary, qkv bias, untied unembedding).
+rotary, qkv bias, untied unembedding), and for the ssm, hybrid and MoE
+families (``smoke:falcon-mamba-7b``, ``smoke:jamba-1.5-large-398b``,
+``smoke:qwen3-moe-30b-a3b``, ``smoke:moonshot-v1-16b-a3b``): their period
+plans, parameter trees (the experts' factors carried as (n_periods, E,
+P, Q, k, k)), the hook's layer names over a serve step (no expert among
+them), the gateway step at mamba and mixed attention/mamba positions
+(logits, new KV rows and replacement ``h`` within 1e-5; the new bf16
+conv rows within one bf16 step, 2^-7, where a rounding tie of an fp32
+activation goes the other way), and the reference's refusals.
 
 Parameters come from ``repro.models.lm.init_model`` and are carried over
 with ``convert.lm_params``; inputs are made with numpy from a seed; the
@@ -44,6 +52,8 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 
 ARCHS = ["qwen3-4b", "gemma2-27b", "chatglm3-6b"]
+FAMILIES = ["falcon-mamba-7b", "jamba-1.5-large-398b", "qwen3-moe-30b-a3b",
+            "moonshot-v1-16b-a3b"]
 B, C, S = 3, 4, 16
 LENS = np.asarray([0, 5, 11], np.int32)
 
@@ -92,7 +102,7 @@ def _batch(jcfg, chunk: bool, seed=1):
 
 def test_registry_and_configs_follow_the_reference():
     assert sorted(ARCH_NAMES) == sorted(["qwen3-4b", "olmo-1b", "chatglm3-6b",
-                                         "gemma2-27b"])
+                                         "gemma2-27b", *FAMILIES])
     fields = [f.name for f in dataclasses.fields(tlm.ArchConfig)
               if f.name != "ptc"]
     for name in ARCH_NAMES:
@@ -106,7 +116,7 @@ def test_registry_and_configs_follow_the_reference():
             assert [(q.kind, q.ffn, q.window) for q in tplan] == \
                 [(q.kind, q.ffn, q.window) for q in jplan] and tn == jn
     with pytest.raises(KeyError):
-        get_config("qwen3-moe-30b-a3b")
+        get_config("whisper-base")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -127,11 +137,9 @@ def test_init_model_tree_matches_reference(name):
 
 
 def test_unported_families_raise():
-    for family, extra in (("ssm", {}), ("hybrid", {}), ("dense",
-                                                        {"n_experts": 4})):
-        cfg = dataclasses.replace(smoke_config("qwen3-4b"), family=family,
-                                  **extra)
-        with pytest.raises(ValueError, match="not ported yet"):
+    for family in ("vlm", "encdec"):
+        cfg = dataclasses.replace(smoke_config("qwen3-4b"), family=family)
+        with pytest.raises(ValueError, match="not ported yet.*next slice"):
             tlm.init_model(torch.Generator().manual_seed(0), cfg)
 
 
@@ -184,7 +192,7 @@ def test_mlp_matches_reference(name):
 
 
 def _period_leaves(tree, i):
-    return tlm._tree_map(lambda a: a[i], tree)
+    return tlayers.tree_map(lambda a: a[i], tree)
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -300,3 +308,143 @@ def test_lm_params_keeps_each_leaf_dtype():
     assert tp["a"].dtype == torch.bfloat16 and tp["b"]["c"].dtype == \
         torch.float32
     assert tp["a"].tolist() == [1.5, -2.25]
+
+
+# -- the ssm, hybrid and MoE families ----------------------------------------
+
+
+def _tree_spec(tree, torch_side):
+    return {k: (tuple(a.shape), str(a.dtype).replace("torch.", "")
+                if torch_side else str(a.dtype))
+            for k, a in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_new_family_init_model_tree_matches_reference(name):
+    """Same tree, shapes and dtypes as the reference's (mamba, MoE and
+    no-FFN positions), for fp32 and bf16 bases; the carried tree keeps
+    every leaf, the experts' (n_periods, E, P, Q, k, k) factors included."""
+    for bf16 in (False, True):
+        jcfg, tcfg, jp, tp = _model(name, bf16)
+        mine = tlm.init_model(torch.Generator().manual_seed(0), tcfg)
+        assert _tree_spec(mine, True) == _tree_spec(jp, False)
+        assert _tree_spec(tp, True) == _tree_spec(jp, False)
+    plan, n_periods = tlm.period_plan(tcfg)
+    for i, sub in enumerate(plan):
+        pos = tp[f"pos{i}"]
+        assert ("mamba" in pos) == (sub.kind == "mamba")
+        assert ("moe" in pos) == (sub.ffn == "moe")
+        assert ("ln2" in pos) == (sub.ffn != "none")
+        if sub.ffn == "moe":
+            u = pos["moe"]["experts"]["up"]["u"]
+            assert tuple(u.shape) == (n_periods, tcfg.n_experts, 12, 8, 8, 8)
+            np.testing.assert_array_equal(
+                u.float().numpy(), np.asarray(jp[f"pos{i}"]["moe"]["experts"][
+                    "up"]["u"], np.float32))
+
+
+def _serve_views(jcfg, b=B, s=S, seed=0):
+    """A decode state for every plan position, random: bf16 K/V at
+    attention positions, fp32 ``h`` and bf16 conv rows at mamba ones."""
+    plan, n_periods = jlm.period_plan(jcfg)
+    rng = np.random.default_rng(seed)
+    raw, dtypes = {}, {}
+    for i, sub in enumerate(plan):
+        if sub.kind == "attn":
+            shape = (n_periods, b, s, jcfg.n_kv_heads, jcfg.hd)
+            raw[f"pos{i}"] = {kk: rng.normal(size=shape) for kk in "kv"}
+            dtypes[f"pos{i}"] = {"k": "bf16", "v": "bf16"}
+        else:
+            sc = jcfg.ssm_cfg()
+            raw[f"pos{i}"] = {
+                "h": rng.normal(size=(n_periods, b, sc.d_inner, sc.d_state)),
+                "conv": rng.normal(size=(n_periods, b, sc.conv_width - 1,
+                                         sc.d_inner))}
+            dtypes[f"pos{i}"] = {"h": "fp32", "conv": "bf16"}
+    jv = jax.tree.map(lambda a, d: jnp.asarray(
+        a, jnp.bfloat16 if d == "bf16" else jnp.float32), raw, dtypes)
+    return jv, convert.lm_params(jv)
+
+
+def _hybrid_dense_ffn():
+    """jamba's period (attention, then seven mamba positions) with MLPs
+    everywhere: the hybrid the gateway serves."""
+    return (dataclasses.replace(jsmoke_config("jamba-1.5-large-398b"),
+                                n_experts=0),
+            dataclasses.replace(smoke_config("jamba-1.5-large-398b"),
+                                n_experts=0))
+
+
+@pytest.mark.parametrize("which", ["falcon-mamba-7b", "hybrid"])
+def test_gateway_step_with_mamba_positions_matches_reference(which):
+    if which == "hybrid":
+        jcfg, tcfg = _hybrid_dense_ffn()
+        plan = tlm.period_plan(tcfg)[0]
+        assert [q.kind for q in plan] == ["attn"] + ["mamba"] * 7
+        assert {q.ffn for q in plan} == {"mlp"}
+    else:
+        jcfg, tcfg = jsmoke_config(which), smoke_config(which)
+    jp = jlm.init_model(jax.random.PRNGKey(0), jcfg)
+    tp = convert.lm_params(jp)
+    jv, tv = _serve_views(jcfg)
+    jb, tb = _batch(jcfg, False)
+    want_logits, want_new = jax.jit(jlm.build_gateway_step(jcfg))(jp, jv, jb)
+    logits, new = tlm.build_gateway_step(tcfg)(tp, tv, tb)
+    assert _rel(logits, want_logits) < 1e-5
+    assert set(new) == set(want_new)
+    for pos in want_new:
+        assert set(new[pos]) == set(want_new[pos])
+        for kk in want_new[pos]:
+            assert tuple(new[pos][kk].shape) == want_new[pos][kk].shape
+            assert str(new[pos][kk].dtype).replace("torch.", "") == \
+                str(want_new[pos][kk].dtype)
+            if kk == "conv":        # bf16 rows of fp32 activations: a tie
+                # may round the other way, one bf16 step (2^-7) at most
+                assert _rel(new[pos][kk], want_new[pos][kk]) <= 2 ** -7
+            else:
+                assert _rel(new[pos][kk], want_new[pos][kk]) < 1e-5
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_hook_sees_the_reference_names_over_a_serve_step(name):
+    """One serve step, hook installed: the same layer names in the same
+    order as the reference's unrolled, unjitted step, and no expert among
+    them (the reference's experts run under vmap, where its hook is
+    inert)."""
+    jcfg, tcfg, jp, tp = _model(name)
+    jv, tv = _serve_views(jcfg)
+    batch = np.random.default_rng(1).integers(0, jcfg.vocab, size=(B, 1))
+    seen = {"j": [], "t": []}
+
+    def recorder(side):
+        def hook(layer, p, x, cfg, d_out):
+            seen[side].append(layer)
+            return None                       # stay digital
+        return hook
+
+    with jlayers.ptc_execution(recorder("j")):
+        jlm.build_serve_step(dataclasses.replace(jcfg, unroll=True))(
+            jp, jv, {"token": jnp.asarray(batch, jnp.int32),
+                     "cache_len": jnp.asarray(5, jnp.int32)})
+    with tlayers.ptc_execution(recorder("t")):
+        tlm.build_serve_step(tcfg)(tp, tv, {"token": torch.from_numpy(batch),
+                                            "cache_len": 5})
+    assert seen["t"] == seen["j"] and seen["j"]
+    assert not any("moe" in n or "expert" in n for n in seen["t"])
+    plan, n_periods = tlm.period_plan(tcfg)
+    per_sub = {("attn", "mlp"): 7, ("attn", "moe"): 4, ("mamba", "none"): 4,
+               ("mamba", "mlp"): 7, ("mamba", "moe"): 4}
+    assert len(seen["t"]) == n_periods * sum(per_sub[(q.kind, q.ffn)]
+                                             for q in plan)
+
+
+def test_gateway_steps_refuse_what_the_reference_refuses():
+    for name in ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b"):
+        for build in (tlm.build_gateway_step,
+                      tlm.build_gateway_prefill_step):
+            with pytest.raises(ValueError, match="does not support MoE"):
+                build(smoke_config(name))
+    for cfg in (smoke_config("falcon-mamba-7b"), _hybrid_dense_ffn()[1]):
+        with pytest.raises(ValueError, match="attention-only"):
+            tlm.build_gateway_prefill_step(cfg)
+        tlm.build_gateway_step(cfg)           # the one-token path serves it

@@ -5,23 +5,36 @@ CPU, with the reference's parameters carried over (``convert.lm_params``).
 * ``lm_batch``: bitwise (both are numpy).
 * ``decode_attention`` (one layer) and ``build_serve_step`` (the whole
   model) over 12 steps at ``smoke:qwen3-4b`` and ``smoke:gemma2-27b``
-  (sliding window 8 and soft-caps; 12 steps pass the window), each step
-  from the reference's cache of the step before: outputs within 1e-5 of
-  the largest reference entry.  Both keep K/V in bf16, so a new row whose
+  (sliding window 8 and soft-caps; 12 steps pass the window), and
+  ``build_serve_step`` at the ssm, hybrid and MoE smoke configs
+  (``smoke:falcon-mamba-7b``, ``smoke:jamba-1.5-large-398b``,
+  ``smoke:qwen3-moe-30b-a3b``, ``smoke:moonshot-v1-16b-a3b``), each step
+  from the reference's cache of the step before: outputs and the fp32 SSM
+  state ``h`` within 1e-5 of the largest reference entry.  Both keep K/V in bf16, so a new row whose
   fp32 value lies within rounding of a bf16 tie may round the other way:
   the new cache rows are equal but for such entries, each within one bf16
   step (2^-7 relative) and at most one in a thousand.  The step's token
   attends to its own new row, so a step whose rows hold such a flip is
   held at 5e-5 instead (gemma2: one flip of -0.6836 to -0.6875 moves the
-  logits by 1.3e-5); at most a third of the steps may have one.
-* ``greedy_decode``: the reference's tokens and per-step predictions, and
-  its ``eos_id`` early termination.
+  logits by 1.3e-5); at most a third of the steps may have one.  The
+  new bf16 conv rows of the SSM state round fp32 activations that agree
+  within 1e-5 of the largest entry, so each entry is held within that
+  plus one bf16 step of itself (at jamba's small entries a tie can move
+  an entry by a third of itself, and then by 1e-6 of the largest); a
+  step reads only the conv rows of the steps before it, so a tie there
+  does not loosen the step's limit.
+* with bf16 bases, ``smoke:falcon-mamba-7b``'s serve step within 2e-2.
+* ``greedy_decode``: the reference's tokens and per-step predictions
+  (the dense archs above and the four new ones), and its ``eos_id``
+  early termination.
 * The port's solo tokens equal the port's gateway tokens for the same
-  requests (the check of ``tests/test_serving_gateway.py``).
+  requests (the check of ``tests/test_serving_gateway.py``), for
+  ``smoke:qwen3-4b`` and, at chunk 1, ``smoke:falcon-mamba-7b``.
 * ``serve.main`` refuses the fleet and hardware-in-the-loop flags.
 """
 
 import argparse
+import dataclasses
 import functools
 
 import jax
@@ -34,6 +47,7 @@ from repro.configs import smoke_config as jsmoke_config
 from repro.data import lm_batch as j_lm_batch
 from repro.launch.steps import greedy_decode as j_greedy_decode
 from repro.models import attention as jattn
+from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro_torch import convert
 from repro_torch.configs import smoke_config
@@ -41,6 +55,7 @@ from repro_torch.data.synthetic import lm_batch
 from repro_torch.launch import serve
 from repro_torch.launch.steps import greedy_decode
 from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.serving import (GatewayConfig, PageConfig, ServingGateway,
                                  poisson_workload)
@@ -48,6 +63,8 @@ from repro_torch.serving import (GatewayConfig, PageConfig, ServingGateway,
 TOL = 1e-5
 TIE_TOL = 5e-5      # a step whose new bf16 K/V rows hold a rounding tie
 NAMES = ("qwen3-4b", "gemma2-27b")
+FAMILIES = ("falcon-mamba-7b", "jamba-1.5-large-398b", "qwen3-moe-30b-a3b",
+            "moonshot-v1-16b-a3b")
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,6 +100,16 @@ def _bf16_cache_close(got: torch.Tensor, want) -> bool:
         and int(off.sum()) <= max(1, want.numel() // 1000)
 
 
+def _rounded_close(got: torch.Tensor, want) -> bool:
+    """bf16 rows of fp32 activations: each entry within the fp32 limit
+    (``TOL`` of the largest entry) plus one bf16 step of itself, the most
+    that rounding activations equal to ``TOL`` can leave."""
+    want = torch.as_tensor(np.asarray(want).astype(np.float32))
+    err = (got.float() - want).abs()
+    return bool(err.le(2.0 ** -7 * want.abs()
+                       + TOL * want.abs().max()).all())
+
+
 def _carry(jtree):
     """A reference cache tree as the port's (bf16 leaves stay bf16)."""
     return convert.lm_params(jtree)
@@ -114,7 +141,7 @@ def test_decode_attention_matches_reference(name):
             assert _bf16_cache_close(tcache[kk], jcache[kk]), (t, kk)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + FAMILIES)
 def test_serve_step_matches_reference(name):
     jcfg, tcfg = jsmoke_config(name), smoke_config(name)
     jp = _params(name)
@@ -127,9 +154,11 @@ def test_serve_step_matches_reference(name):
     tcache = tlm.init_decode_cache(tcfg, b, steps, device="cpu")
     assert set(tcache) == set(jcache)
     for pos in jcache:
-        for kk in ("k", "v"):
+        assert set(tcache[pos]) == set(jcache[pos])
+        for kk in jcache[pos]:
             assert tcache[pos][kk].shape == jcache[pos][kk].shape
-            assert tcache[pos][kk].dtype == torch.bfloat16
+            assert str(tcache[pos][kk].dtype).replace("torch.", "") == \
+                str(jcache[pos][kk].dtype)
     ties = 0
     for t in range(steps):
         tcache = _carry(jcache)
@@ -141,6 +170,12 @@ def test_serve_step_matches_reference(name):
         assert tl.shape == jl.shape == (b, jcfg.vocab)
         tie = False
         for pos in jcache:
+            if "h" in jcache[pos]:
+                assert _rel(tcache[pos]["h"], jcache[pos]["h"]) < TOL, \
+                    (t, pos)
+                assert _rounded_close(tcache[pos]["conv"],
+                                      jcache[pos]["conv"]), (t, pos)
+                continue
             for kk in ("k", "v"):
                 assert _bf16_cache_close(tcache[pos][kk], jcache[pos][kk]), \
                     (t, pos, kk)
@@ -149,6 +184,29 @@ def test_serve_step_matches_reference(name):
         ties += tie
         assert _rel(tl, jl) < (TIE_TOL if tie else TOL), (t, _rel(tl, jl))
     assert ties <= steps // 3
+
+
+def test_serve_step_with_bf16_bases_matches_reference():
+    jcfg = dataclasses.replace(jsmoke_config("falcon-mamba-7b"), ptc=jlayers.
+                               PTCLinearCfg(k=8, base_dtype=jnp.bfloat16))
+    tcfg = dataclasses.replace(smoke_config("falcon-mamba-7b"), ptc=tlayers.
+                               PTCLinearCfg(k=8, base_dtype=torch.bfloat16))
+    jp = jlm.init_model(jax.random.PRNGKey(1), jcfg)
+    tp = convert.lm_params(jp)
+    toks = lm_batch(2, 0, 3, 6, jcfg.vocab)["tokens"]
+    jstep = jax.jit(jlm.build_serve_step(jcfg))
+    tstep = tlm.build_serve_step(tcfg)
+    jcache = jlm.init_decode_cache(jcfg, 3, 6)
+    for t in range(6):
+        tcache = _carry(jcache)
+        jl, jcache = jstep(jp, jcache, {
+            "token": jnp.asarray(toks[:, t:t + 1]),
+            "cache_len": jnp.asarray(t, jnp.int32)})
+        tl, tcache = tstep(tp, tcache, {
+            "token": torch.from_numpy(toks[:, t:t + 1]), "cache_len": t})
+        assert tl.dtype == torch.bfloat16
+        assert _rel(tl.float(), np.asarray(jl, np.float32)) < 2e-2, t
+        assert _rel(tcache["pos0"]["h"], jcache["pos0"]["h"]) < 2e-2, t
 
 
 def _greedy(name, prompt, gen, **kw):
@@ -168,7 +226,7 @@ def _greedy(name, prompt, gen, **kw):
     return jgen, tgen, np.stack(jpreds, 1), np.stack(tpreds, 1)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + FAMILIES)
 def test_greedy_decode_matches_reference(name):
     prompt = lm_batch(0, 0, 3, 6, 256)["tokens"]
     jgen, tgen, jpreds, tpreds = _greedy(name, prompt, 10)
@@ -208,11 +266,8 @@ def test_refuses_a_layer_execution_plane():
                       np.zeros((1, 2), np.int32), 2, layer_exec=object())
 
 
-@pytest.mark.parametrize("chunk", [1, 4])
-def test_solo_tokens_equal_gateway_tokens(chunk):
-    """Every request served alone (batch 1, greedy) emits the tokens the
-    continuous-batching gateway emits for it."""
-    cfg = smoke_config("qwen3-4b")
+def _solo_equals_gateway(name, chunk):
+    cfg = smoke_config(name)
     params = tlm.init_model(torch.Generator().manual_seed(3), cfg)
     reqs = poisson_workload(2, 4, 0.7, cfg.vocab, prompt_len=(3, 10),
                             max_new=(2, 5))
@@ -225,6 +280,29 @@ def test_solo_tokens_equal_gateway_tokens(chunk):
             seed=0, device="cpu", params_override=params,
             prompt_tokens=np.asarray(r.prompt)[None]))
         assert [int(t) for t in out["gen"][0]] == got["tokens"]
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_solo_tokens_equal_gateway_tokens(chunk):
+    """Every request served alone (batch 1, greedy) emits the tokens the
+    continuous-batching gateway emits for it."""
+    _solo_equals_gateway("qwen3-4b", chunk)
+
+
+def test_solo_tokens_equal_gateway_tokens_for_falcon_mamba():
+    """The same at chunk 1 for an ssm arch: four requests over two slots,
+    so each slot serves a second request from a zeroed SSM state."""
+    _solo_equals_gateway("falcon-mamba-7b", 1)
+
+
+def test_serve_cli_runs_falcon_mamba_on_the_cpu(capsys):
+    assert serve.main(["--arch", "smoke:falcon-mamba-7b", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "4", "--gen",
+                       "3"]) == 0
+    assert "generated (2, 3) tokens" in capsys.readouterr().out
+    assert serve.main(["--arch", "smoke:falcon-mamba-7b", "--device", "cpu",
+                       "--gateway", "--requests", "3"]) == 0
+    assert "3 requests" in capsys.readouterr().out
 
 
 def test_serve_run_and_cli_on_the_cpu(capsys):
