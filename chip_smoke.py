@@ -15,6 +15,9 @@
     python3 chip_smoke.py --phases families    # the ssm, hybrid and MoE
                                                # families on the serving
                                                # paths
+    python3 chip_smoke.py --phases train       # LM training: olmo-1b's
+                                               # blocked update step,
+                                               # whisper-base, the vlm
 
 Phases:
 
@@ -86,8 +89,8 @@ Phases:
 8. ``families`` — the ssm, hybrid and MoE families on the serving
    paths, none of which launches a kernel of the seven (the reference
    computes the scan, the recurrence and the MoE dispatch in plain jnp):
-   falcon-mamba-7b at full width and depth (64 layers, bf16 bases, k =
-   128, seeded on the card) through ``launch.serve.run`` (batch 4,
+   falcon-mamba-7b at full width, depth cut to 32 of 64 layers (bf16
+   bases, k = 128, seeded on the card) through ``launch.serve.run`` (batch 4,
    prompt 32, 32 new tokens) and the gateway (8 slots, prefill chunk 1,
    8 Poisson requests), timed; the gateway's last-prompt logits against
    the solo path's (``SERVE_TOL``); one layer's chunked scan against 64
@@ -105,6 +108,23 @@ Phases:
    same draws (``TABLE_TOL``), the ZO tables held to ``TABLE_LIMITS``
    beside the reference's CPU rows, and the card's busy share from a
    profiled slice of each benchmark.
+10. ``train`` — LM training through ``launch/steps.py::
+   build_update_step``: olmo-1b at full width and depth in blocked mode
+   (16 layers, k = 128, bf16 bases, 1 x 4096 tokens, alpha_w = alpha_c =
+   0.6, each layer recomputed in the backward), four AdamW steps whose
+   loss must fall, each launching the three tensor-core routes (224
+   forwards, 112 Σ-gradients, 112 feedbacks) and no other PTC route, a
+   warm step profiled; one training step against its plain versions
+   (``TRAIN_LOSS_TOL``; the Σ-gradients per leaf, ``TRAIN_SIGMA_TOL``,
+   and per layer, ``TRAIN_SIGMA_LAYER_TOL``) and 2 of its 16 layers with
+   fp32 bases on the 3xTF32 routes (``TRAIN_FP32_TOL``); whisper-base (6
+   + 6 layers, k = 64, 8 x 512 tokens) two steps on the k = 64
+   tensor-core routes, one step against its plain versions (the same
+   limits), and its solo serve path with ``enc_out``;
+   llama-3.2-vision-11b at full width, 10 of 40 layers, served through
+   ``launch.serve.run`` with 1,024 image tokens, its teacher-forced
+   logits against ``forward``'s (``DECODE_TOL``); ``launch.train`` at
+   smoke:olmo-1b with a checkpoint resume.
 
 Every stage of a main path prints its wall time and its launches of each
 kernel, and must have launched each kernel it uses (``STAGE_KERNELS``),
@@ -113,7 +133,8 @@ The last two lines are a ``{"kernels": [...]}`` JSON summary and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there are
 counted over its main path with every count set to 0 just before it: the
 PTC kernels over the last quickstart path driven (full width, else
-parity), the tensor-core routes over the blocked_lm bf16 step, the
+parity), the tensor-core routes over one olmo-1b update step of the
+train phase (else the blocked_lm bf16 step), the
 3xTF32 and CUDA-core wide routes over its fp32 step (which launches the
 CUDA-core routes no more), the two wide mesh routes over its realization
 (which launches the list-driven one no more), the serving kernels over
@@ -137,8 +158,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "parity", "full", "vgg8", "blocked_lm", "gateway",
-          "serve", "families", "tables")
+PHASES = ("kernels", "parity", "full", "vgg8", "blocked_lm", "train",
+          "gateway", "serve", "families", "tables")
 # the kernels each stage of quickstart.run launches, and each busy step of
 # serving gateway.  ptc_block_matmul has two routes, each counted under its
 # own name: the IC/PM probes take the per-block route
@@ -152,6 +173,9 @@ STAGE_KERNELS = {
     "sl": ("ptc_block_matmul", "sigma_grad", "feedback_matmul"),
     "serve_sl": ("ptc_block_matmul",),
     "gateway": ("paged_gather", "paged_scatter", "prefill_attention"),
+    # one LM update step in blocked mode with bf16 bases at k 64 or 128
+    "train": ("ptc_block_matmul_wide_tc", "sigma_grad_wide_tc",
+              "feedback_matmul_wide_tc"),
 }
 PTC_ROUTES = ("ptc_block_matmul", "ptc_block_matmul_perblock")
 QUICKSTART_STAGES = ("ic", "pm", "serve", "sl", "serve_sl")
@@ -1998,16 +2022,18 @@ def vgg8_phase(torch, steps: int = 30, batch: int = 32) -> None:
 BLOCKED_LM_TOL = 2 ** -7
 
 
-def warm_profile(torch, what: str, step, families) -> None:
+def warm_profile(torch, what: str, step, families, tag: str = "blocked_lm"
+                 ) -> float:
     """Print a warm step's wall, then its device time by kernel family
     ((name, regex of device function names) pairs; the rest "other") from
-    ``torch.profiler`` over 3 warm steps."""
+    ``torch.profiler`` over 3 warm steps; returns the warm wall in ms.
+    ``tag`` heads the printed lines."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step()
     torch.cuda.synchronize()
-    print(f"[blocked_lm] {what} step again (warm): wall "
-          f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"[{tag}] {what} step again (warm): wall {wall_ms:.1f} ms")
     split = device_split(step, 3)
     by_family = {}
     for kname, ms in split:
@@ -2016,16 +2042,17 @@ def warm_profile(torch, what: str, step, families) -> None:
         by_family[fam] = by_family.get(fam, 0.0) + ms
     total = sum(by_family.values())
     if total == 0:
-        print(f"[blocked_lm] the profiler saw no device time: the {what} "
+        print(f"[{tag}] the profiler saw no device time: the {what} "
               f"step's kernel time not measured")
-        return
-    print(f"[blocked_lm] warm {what} step, device time by kernel "
+        return wall_ms
+    print(f"[{tag}] warm {what} step, device time by kernel "
           f"(torch.profiler, 3 steps): {total:.3f} ms of kernels: "
           + ", ".join(f"{f} {m:.3f} ms" for f, m in sorted(
               by_family.items(), key=lambda kv: -kv[1]))
           + "; by launch: " + ", ".join(
               f"{n} {m:.3f}" for n, m in sorted(split,
                                                 key=lambda e: -e[1])[:8]))
+    return wall_ms
 
 
 def blocked_lm_phase(torch) -> dict:
@@ -2943,13 +2970,22 @@ def serve_step_profile(torch, cfg, params, batch: int) -> None:
                                      for name, ms in split[:3]))
 
 
+# falcon-mamba-7b's depth in the families phase: its 64 layers took 70-100
+# s to seed and most of the phase's 162-170 s on the H100; with the train
+# phase added, half of them keep the whole script near half its time
+# limit.  Every layer has the same width and block grids
+FALCON_LAYERS = 32
+
+
 def falcon_mamba_phase(torch) -> None:
-    """falcon-mamba-7b at full width and depth (64 layers, bf16 bases,
-    k = 128), seeded on the card: the solo serve path (batch 4, prompt 32,
-    32 new tokens) and the gateway (8 slots, prefill chunk 1, 8 Poisson
-    requests) timed; the gateway's last-prompt logits against the solo
-    path's; one layer's chunked scan against its one-token recurrence."""
+    """falcon-mamba-7b at full width (bf16 bases, k = 128) with its depth
+    cut to 32 of 64 layers (``FALCON_LAYERS``), seeded on the card: the
+    solo serve path (batch 4, prompt 32, 32 new tokens) and the gateway
+    (8 slots, prefill chunk 1, 8 Poisson requests) timed; the gateway's
+    last-prompt logits against the solo path's; one layer's chunked scan
+    against its one-token recurrence."""
     import argparse
+    import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_batch
@@ -2959,10 +2995,12 @@ def falcon_mamba_phase(torch) -> None:
                                      ServingGateway, poisson_workload)
 
     dev = torch.device("cuda")
-    cfg = get_config("falcon-mamba-7b")
+    full = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, n_layers=FALCON_LAYERS)
     sc = cfg.ssm_cfg()
     params = card_params(torch, cfg, (
-        f"{cfg.n_layers} mamba layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.n_layers} of {full.n_layers} mamba layers, d_model "
+        f"{cfg.d_model}, d_inner "
         f"{sc.d_inner}, state {sc.d_state}, dt rank {sc.rank}"))
     layer = params["pos0"]["mamba"]
     grids = {n: tuple(layer[n]["u"].shape[1:3])
@@ -3288,6 +3326,487 @@ def families_phase(torch) -> None:
           "decode, the dense cache)")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: LM training (olmo-1b, whisper-base) and the vlm serve path
+# ---------------------------------------------------------------------------
+
+# one training step with the kernels against the same step with their
+# plain versions, on the same masks: the loss, and the Σ-gradients (olmo-
+# 1b's 7 leaves stacked over 16 layers, whisper-base's over its 6 encoder
+# and 6 decoder layers) two ways: each leaf over its largest entry across
+# its layers (TRAIN_SIGMA_TOL), and each layer of it over that layer's own
+# largest entry (TRAIN_SIGMA_LAYER_TOL), so that a fault confined to
+# layers of small gradients cannot hide under a larger layer's.  The
+# plain versions round only y to bf16; the tensor-core routes also round
+# U·diag(s) and W to bf16 (2^-9 of a typical entry), and those roundings
+# compound backward through the layers.  On the CPU, the routes' roundings
+# emulated (``kernels/ref.py``'s ``*_tc_ref``) against the plain versions
+# (``tests/test_torch_train_step.py::tc_rounding_deviation``, alpha_w =
+# alpha_c = 0.6) read, over the leaf's and over the layer's largest entry,
+# and in the loss: olmo-1b's structure at k 128 through 16 layers 2.8e-2,
+# 4.8e-2, 3.9e-6 (d_model 512, T 512) and 2.9e-2, 4.0e-2, 1.5e-4
+# (d_model 1024, T 1024); whisper-base's at k 64 through 6 + 6 layers
+# (d_model 256, 2 x 128 tokens) 3.5e-2, 5.5e-2, 3.3e-5.  The limits are
+# about twice the largest.  Three planted faults there (``planted_faults``)
+# read, over the layer's largest entry, 2.75 (the Σ-gradient without its
+# column mask), 1.16 (the feedback with its block mask ignored) and 1.08
+# (the column mask dropped at the last layer only, which reads 2.8e-2 over
+# the leaf's: under TRAIN_SIGMA_TOL, caught only per layer) at olmo-1b's
+# d_model 512, and 1.25, 1.18 and 0.90 at whisper-base's d_model 256
+TRAIN_SIGMA_TOL = 6e-2
+TRAIN_SIGMA_LAYER_TOL = 1.2e-1
+TRAIN_LOSS_TOL = 3e-4
+# the same step with fp32 bases at 2 of 16 layers, on the 3xTF32 routes
+TRAIN_FP32_TOL = 1e-4
+# vlm: the teacher-forced decode's logits against forward's (the
+# reference's test_decode_matches_prefill_logits allows 2e-2)
+DECODE_TOL = 2e-2
+TRAIN_T = 4096          # train_4k's sequence (src/repro/configs/common.py:53)
+
+
+def blocked(cfg, base_dtype=None):
+    """``cfg`` with its PTC linears in blocked mode (bases in
+    ``base_dtype``, else the config's)."""
+    import dataclasses
+    return dataclasses.replace(cfg, ptc=dataclasses.replace(
+        cfg.ptc, mode="blocked",
+        base_dtype=base_dtype or cfg.ptc.base_dtype))
+
+
+def ptc_routes(build) -> dict:
+    return {k: build.launch_counts[k] for k in
+            WIDE_KERNELS + TC_KERNELS + TF32X3_KERNELS + NARROW_PTC}
+
+
+def check_routes(counts: dict, want: dict, what: str) -> None:
+    for kernel, n in counts.items():
+        check(n == want.get(kernel, 0),
+              f"{what}: {kernel} launched {n} times, not "
+              f"{want.get(kernel, 0)}")
+
+
+def n_linears(cfg) -> int:
+    """The PTC linears one training step runs: 7 a self-attention layer
+    (q, k, v, o, gate, up, down), 4 more a cross-attention."""
+    from repro_torch.models import lm
+    plan, n_periods = lm.period_plan(cfg)
+    n = n_periods * sum(7 + 4 * sub.cross for sub in plan)
+    return n + 7 * cfg.n_enc_layers
+
+
+def sigma_grads(grads) -> dict:
+    """The Σ leaves of a parameter or gradient tree, by their paths."""
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            elif k == "s":
+                out[".".join(path)] = v
+    walk(grads, ())
+    return out
+
+
+def sigma_errs(got: dict, want: dict) -> tuple[dict, dict]:
+    """Σ-gradient differences (``sigma_grads`` trees): by leaf, over the
+    leaf's largest entry; by (leaf, layer), over that layer's own."""
+    whole = {n: rel_err(got[n], want[n])[1] for n in want}
+    layer = {(n, i): rel_err(got[n][i], want[n][i])[1]
+             for n in want for i in range(want[n].shape[0])}
+    return whole, layer
+
+
+def check_against_plain(torch, what: str, step, n_leaves: int) -> str:
+    """One training step ``step()`` -> (loss, ``sigma_grads``) with the
+    kernels against the same step with their plain versions, held to
+    ``TRAIN_LOSS_TOL``, ``TRAIN_SIGMA_TOL`` and ``TRAIN_SIGMA_LAYER_TOL``;
+    returns the readings as text."""
+    loss_k, got = step()
+    with plain_kernels(torch, what):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_p, want = step()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    whole, layer = sigma_errs(got, want)
+    worst = max(layer, key=layer.get)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(len(whole) == n_leaves
+          and all(bool(torch.isfinite(g).all()) for g in got.values()),
+          f"{what}: {len(whole)} Σ-gradient leaves, not {n_leaves}, or "
+          f"not finite")
+    check(all(e < TRAIN_SIGMA_TOL for e in whole.values()),
+          f"{what}: Σ-gradients against the plain versions {whole} (tol "
+          f"{TRAIN_SIGMA_TOL})")
+    check(layer[worst] < TRAIN_SIGMA_LAYER_TOL,
+          f"{what}: Σ-gradient {worst[0]} at layer {worst[1]} within "
+          f"{layer[worst]:.2e} of the layer's largest entry (tol "
+          f"{TRAIN_SIGMA_LAYER_TOL})")
+    check(loss_err < TRAIN_LOSS_TOL, f"{what}: loss {loss_k} against "
+                                     f"the plain versions' {loss_p}")
+    return (f"(same masks; the plain step {plain_s:.1f} s): loss "
+            f"{loss_k:.6f} vs {loss_p:.6f} ({loss_err:.1e}, tol "
+            f"{TRAIN_LOSS_TOL:.0e}); Σ-gradients within "
+            f"{min(whole.values()):.1e} to {max(whole.values()):.1e} of each "
+            f"leaf's largest entry (tol {TRAIN_SIGMA_TOL:.0e}), within "
+            f"{layer[worst]:.1e} "
+            f"of each layer's at the most ({worst[0]}, layer {worst[1]}; "
+            f"tol {TRAIN_SIGMA_LAYER_TOL:.1e})")
+
+
+def lm_train_batch(torch, cfg, batch: int, seq: int, dev, seed: int = 0):
+    """``lm_batch`` tokens and labels on the card; encdec's frames (B, S,
+    d) and vlm's image tokens (B, n_img, d) in bf16, seeded normals of
+    scale 0.5, as ``input_specs`` shapes them."""
+    from repro_torch.data.synthetic import lm_batch
+    b = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+         for k, v in lm_batch(seed, 0, batch, seq, cfg.vocab).items()}
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    if cfg.family == "encdec":
+        b["frames"] = (0.5 * torch.randn((batch, seq, cfg.d_model),
+                                         generator=g, device=dev)).to(
+            torch.bfloat16)
+    if cfg.family == "vlm":
+        b["img"] = (0.5 * torch.randn((batch, cfg.n_img_tokens, cfg.d_model),
+                                      generator=g, device=dev)).to(
+            torch.bfloat16)
+    return b
+
+
+def olmo_train(torch) -> dict:
+    """olmo-1b at full width and depth in blocked mode (k = 128, bf16
+    bases): four AdamW update steps through ``launch/steps.py::
+    build_update_step`` on one train_4k sequence with alpha_w = alpha_c =
+    0.6; each step's launches on the three tensor-core routes; a warm
+    step profiled; one training step against its plain versions
+    (``TRAIN_SIGMA_TOL``, ``TRAIN_LOSS_TOL``); then 2 of 16 layers with
+    fp32 bases on the 3xTF32 routes against their plain versions
+    (``TRAIN_FP32_TOL``).  Returns the tensor-core routes' launches in one
+    update step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import build_update_step, init_train_state
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    dev = torch.device("cuda")
+    cfg = blocked(get_config("olmo-1b"))
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab, cfg.ptc.k,
+           cfg.attn_chunk, cfg.remat) == (16, 2048, 8192, 50304, 128, 2048,
+                                          True),
+          f"train: olmo-1b is {cfg}")
+    scfg = SparsityConfig(alpha_w=0.6, alpha_c=0.6)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(torch.Generator(dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    blocks = sum(s.numel() // s.shape[-1]
+                 for s in sigma_grads(params).values())
+    n_lin = n_linears(cfg)
+    batch = lm_train_batch(torch, cfg, 1, TRAIN_T, dev)
+    print(f"[train] olmo-1b, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, PTC k = {cfg.ptc.k} blocked, "
+          f"bases {cfg.ptc.base_dtype}: {blocks} blocks, parameters and "
+          f"AdamW state made on the card in {init_s:.1f} s, parameters "
+          f"{n_bytes / 1e9:.2f} GB; batch 1 x {TRAIN_T} (train_4k's length; "
+          f"cut: batch 256 -> 1), alpha_w 0.6, alpha_c 0.6, remat full, "
+          f"attention chunk {cfg.attn_chunk}")
+
+    update = build_update_step(cfg, AdamWConfig(lr=2e-3), scfg)
+    state = {"params": params, "opt": opt}
+    del params, opt
+    launches = {}
+
+    def one_step(step: int):
+        gen = torch.Generator(dev).manual_seed(1000 + step)
+        state["params"], state["opt"], loss, gnorm = update(
+            state["params"], state["opt"], batch, gen)
+        return loss, gnorm
+
+    # under remat the forward runs twice a step, the backward once
+    want = dict(zip(STAGE_KERNELS["train"], (2 * n_lin, n_lin, n_lin)))
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(4):
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, gnorm = one_step(step)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        counts = ptc_routes(build)
+        check_routes(counts, want, f"train olmo-1b step {step}")
+        launches = {k: counts[k] for k in TC_KERNELS}
+        check(bool(torch.isfinite(torch.tensor(loss)))
+              and bool(torch.isfinite(gnorm)),
+              f"train olmo-1b step {step}: loss {loss}, gnorm {gnorm}")
+        losses.append(loss)
+        print(f"[train] olmo-1b update step {step}: loss {loss:.4f}, gnorm "
+              f"{float(gnorm):.3f}, wall {walls[-1]:.1f} ms"
+              + (" (first call)" if step == 0 else "") + "; launches "
+              + ", ".join(f"{k}={counts[k]}" for k in TC_KERNELS)
+              + ", every other PTC route 0")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(losses[-1] < losses[0], f"train olmo-1b: the loss did not fall "
+                                  f"over four steps: {losses}")
+    warm = warm_profile(torch, "olmo-1b update", lambda: one_step(4), (
+        ("ptc_block_matmul_wide_tc", r"tc_(compose|product)_kernel"),
+        ("sigma_grad_wide_tc", r"tc_(col_split|sigma)_kernel"),
+        ("feedback_matmul_wide_tc", r"tc_(fcompose|feedback)_kernel"),
+        ("gemm (attention, head)", r"gemm|nvjet|cutlass|sm90_xmma")),
+        tag="train")
+    print(f"[train] olmo-1b: losses {', '.join(f'{x:.4f}' for x in losses)} "
+          f"(falls); warm steps {', '.join(f'{w:.1f}' for w in walls[1:])} "
+          f"ms, profiled {warm:.1f} ms: {TRAIN_T / (min(walls[1:]) / 1e3):.0f}"
+          f" tokens/s at the fastest; peak allocated {peak:.2f} GB; "
+          f"{card_line()}")
+
+    # one training step against the same step with the plain versions, on
+    # the same masks (one generator seed)
+    train = lm.build_train_step(cfg, scfg)
+
+    def grads_of():
+        loss, grads = train(state["params"], batch,
+                            torch.Generator(dev).manual_seed(7))
+        return float(loss), sigma_grads(grads)
+
+    readings = check_against_plain(torch, "train olmo-1b", grads_of, 7)
+    print(f"[train] olmo-1b training step, kernels vs plain versions "
+          f"{readings}; {card_line()}")
+    del state, update, train
+    torch.cuda.empty_cache()
+
+    # 2 of 16 layers with fp32 bases: the 3xTF32 routes
+    cfg32 = dataclasses.replace(blocked(get_config("olmo-1b"), torch.float32),
+                                n_layers=2)
+    p32 = lm.init_model(torch.Generator(dev).manual_seed(0), cfg32)
+    train32 = lm.build_train_step(cfg32, scfg)
+
+    def grads32():
+        loss, grads = train32(p32, batch, torch.Generator(dev).manual_seed(7))
+        return float(loss), sigma_grads(grads)
+
+    build.reset_launch_counts()
+    loss_k, got = grads32()
+    torch.cuda.synchronize()
+    n32 = n_linears(cfg32)
+    counts = ptc_routes(build)
+    check_routes(counts, {"ptc_block_matmul_wide_3xtf32": 2 * n32,
+                          "sigma_grad_wide_3xtf32": n32,
+                          "feedback_matmul_wide_3xtf32": n32},
+                 "train olmo-1b fp32")
+    with plain_kernels(torch, "train olmo-1b fp32"):
+        loss_p, want_g = grads32()
+    errs = {n: rel_err(got[n], want_g[n])[1] for n in got}
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(all(e < TRAIN_FP32_TOL for e in errs.values())
+          and loss_err < TRAIN_FP32_TOL,
+          f"train olmo-1b fp32: loss {loss_err:.2e}, Σ-gradients {errs} "
+          f"against the plain versions (tol {TRAIN_FP32_TOL})")
+    print(f"[train] olmo-1b with fp32 bases, 2 of 16 layers: launches "
+          + ", ".join(f"{k}={counts[k]}" for k in TF32X3_KERNELS)
+          + f"; kernels vs plain versions: loss {loss_err:.1e}, Σ-gradients "
+          + ", ".join(f"{n.split('.')[-1]} {e:.1e}" for n, e in errs.items())
+          + f" (tol {TRAIN_FP32_TOL:.0e})")
+    del p32, got, want_g
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whisper_train(torch) -> None:
+    """whisper-base at full width and depth (6 encoder and 6 decoder
+    layers, d_model 512, k = 64, bf16 bases) in blocked mode: two update
+    steps on batch 8 x 512 with seeded frames, on the k = 64 tensor-core
+    routes; one training step against its plain versions; then its solo
+    serve path with ``enc_out``."""
+    import argparse
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_update_step, init_train_state
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import AdamWConfig
+
+    dev = torch.device("cuda")
+    cfg = blocked(get_config("whisper-base"))
+    check((cfg.n_layers, cfg.n_enc_layers, cfg.d_model, cfg.ptc.k)
+          == (6, 6, 512, 64), f"train: whisper-base is {cfg}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(torch.Generator(dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    grids = sorted({tuple(t.shape[1:3])
+                    for t in sigma_grads(params).values()})
+    b, seq = 8, 512
+    batch = lm_train_batch(torch, cfg, b, seq, dev)
+    scfg = SparsityConfig(alpha_w=0.6, alpha_c=0.6)
+    update = build_update_step(cfg, AdamWConfig(lr=2e-3), scfg)
+    n_lin = n_linears(cfg)
+    want = dict(zip(STAGE_KERNELS["train"], (2 * n_lin, n_lin, n_lin)))
+    losses, walls = [], []
+    for step in range(2):
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss, _ = update(params, opt, batch, torch.Generator(
+            dev).manual_seed(step))
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        counts = ptc_routes(build)
+        check_routes(counts, want, f"train whisper-base step {step}")
+    check(all(np.isfinite(losses)), f"train whisper-base: losses {losses}")
+    print(f"[train] whisper-base, {cfg.n_enc_layers} + {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, k = {cfg.ptc.k} blocked, bf16 "
+          f"bases, block grids (P, Q) {grids}, made in {init_s:.1f} s; "
+          f"batch {b} x {seq} with frames (B, S, d), alpha_w = alpha_c = "
+          f"0.6: losses {', '.join(f'{x:.4f}' for x in losses)}, walls "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms (the first a first "
+          f"call); launches a step " + ", ".join(
+              f"{k}={counts[k]}" for k in TC_KERNELS)
+          + f" (k = 64), every other PTC route 0; {card_line()}")
+
+    # one training step against the same step with the plain versions, on
+    # the same masks, at the grids the update steps ran
+    train = lm.build_train_step(cfg, scfg)
+
+    def grads_of():
+        loss, grads = train(params, batch, torch.Generator(dev).manual_seed(7))
+        return float(loss), sigma_grads(grads)
+
+    n_leaves = len(sigma_grads(params))
+    readings = check_against_plain(torch, "train whisper-base", grads_of,
+                                   n_leaves)
+    print(f"[train] whisper-base training step, kernels vs plain versions "
+          f"{readings}; {card_line()}")
+    del train
+
+    args = argparse.Namespace(arch=cfg, batch=4, prompt_len=32, gen=16,
+                              seed=0, device=dev, params_override=params,
+                              trace_logits=True)
+    build.reset_launch_counts()
+    out = serve.run(args)
+    counts = ptc_routes(build)
+    check(out["gen"].shape == (4, 16)
+          and bool(((out["gen"] >= 0) & (out["gen"] < cfg.vocab)).all())
+          and bool(np.isfinite(out["logits"]).all())
+          and counts["ptc_block_matmul_wide_tc"] > 0,
+          f"whisper-base serve: bad tokens, logits or launches {counts}")
+    print(f"[train] whisper-base solo serve (blocked, enc_out of 32 frames, "
+          f"batch 4, prompt 32, 16 new tokens): {out['gen'].size} tokens in "
+          f"{out['wall_s']:.2f} s ({out['tokens_per_s']:.1f} tokens/s), "
+          f"ptc_block_matmul_wide_tc launches "
+          f"{counts['ptc_block_matmul_wide_tc']}")
+    del params, opt, out
+    torch.cuda.empty_cache()
+
+
+def vlm_serve(torch) -> None:
+    """llama-3.2-vision-11b at full width, depth cut to 2 of 8 periods (10
+    of 40 layers, 2 of them with cross-attention), fused PTC with bf16
+    bases: the solo serve path through ``launch.serve.run`` (batch 4,
+    prompt 32, 16 new tokens, 1,024 image tokens), its teacher-forced
+    logits against ``forward``'s on the same prompts and image tokens."""
+    import argparse
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    full = get_config("llama-3.2-vision-11b")
+    cfg = dataclasses.replace(full, n_layers=2 * full.cross_attn_period)
+    params = card_params(torch, cfg, (
+        f"{cfg.n_layers} of {full.n_layers} layers ({cfg.n_layers // cfg.
+        cross_attn_period} with cross-attention), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, d_ff "
+        f"{cfg.d_ff}, {cfg.n_img_tokens} image tokens"))
+    batch, plen, gen = 4, 32, 16
+    args = argparse.Namespace(arch=cfg, batch=batch, prompt_len=plen,
+                              gen=gen, seed=0, device=dev,
+                              params_override=params, trace_logits=True)
+    serve.run(argparse.Namespace(**{**vars(args), "prompt_len": 2,
+                                    "gen": 2}))
+    out = serve.run(args)
+    steps = plen + gen - 1
+    check(out["gen"].shape == (batch, gen)
+          and bool(((out["gen"] >= 0) & (out["gen"] < cfg.vocab)).all())
+          and bool(np.isfinite(out["logits"]).all()),
+          "llama-3.2-vision-11b: bad solo tokens or logits")
+    prompt = torch.as_tensor(lm_batch(0, 0, batch, plen, cfg.vocab)[
+        "tokens"], dtype=torch.int64, device=dev)
+    img = 0.1 * torch.ones((batch, cfg.n_img_tokens, cfg.d_model),
+                           device=dev)
+    with torch.no_grad():
+        logits, _ = lm.forward(params, cfg, {"tokens": prompt, "img": img})
+    decoded = torch.as_tensor(out["logits"][:plen], device=dev)
+    _, rel = rel_err(decoded, logits.float().transpose(0, 1))
+    check(rel < DECODE_TOL, f"llama-3.2-vision-11b: teacher-forced decode "
+                            f"vs forward logits rel err {rel:.2e}")
+    print(f"[train] llama-3.2-vision-11b solo serve, batch {batch}, prompt "
+          f"{plen}, {gen} new tokens, {cfg.n_img_tokens} image tokens of "
+          f"0.1: {out['gen'].size} tokens in {out['wall_s']:.2f} s "
+          f"({out['tokens_per_s']:.1f} tokens/s), {steps} steps, "
+          f"{1e3 * out['wall_s'] / steps:.1f} ms a step; teacher-forced "
+          f"logits within {rel:.2e} of forward's largest (tol "
+          f"{DECODE_TOL:.0e}); {card_line()}")
+    del params, out, logits
+    torch.cuda.empty_cache()
+
+
+def train_driver(torch) -> None:
+    """``repro_torch.launch.train`` at smoke:olmo-1b on the card: 12
+    steps with a checkpoint every 5, then a restart to 16 steps that
+    resumes from step 10."""
+    import shutil
+    from repro_torch.launch import train
+
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", "smoke:olmo-1b", "--batch", "4", "--seq", "32",
+            "--lr", "5e-3", "--ckpt-dir", str(ckpt), "--ckpt-every", "5",
+            "--log-every", "100"]
+    ap = train.arg_parser()
+    first = train.train(ap.parse_args(argv + ["--steps", "12"]))
+    again = train.train(ap.parse_args(argv + ["--steps", "16"]))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(first["steps_run"] == 12 and first["losses"][-1]
+          < first["losses"][0], f"train driver: {first}")
+    check(again["resumed_from"] == 10 and again["steps_run"] == 5,
+          f"train driver resume: {again}")
+    print(f"[train] launch.train at smoke:olmo-1b on the card: 12 steps, "
+          f"loss {first['losses'][0]:.4f} -> {first['losses'][-1]:.4f} in "
+          f"{first['wall_s']:.2f} s; restarted to 16 steps, resumed from "
+          f"step {again['resumed_from']} and ran {again['steps_run']}")
+
+
+def train_phase(torch) -> dict:
+    """LM training on the card: olmo-1b's blocked update step at full
+    width and depth (k = 128), whisper-base's (k = 64) and its serve path,
+    llama-3.2-vision-11b's serve path against its forward, and the
+    training driver.  Returns the tensor-core routes' launches over one
+    olmo-1b update step."""
+    t0 = time.perf_counter()
+    launches = olmo_train(torch)
+    whisper_train(torch)
+    vlm_serve(torch)
+    train_driver(torch)
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3330,9 +3849,10 @@ def main(argv=None) -> int:
         else {}
     # launches of each kernel on its main path in this run: the last
     # quickstart path driven (full width, else parity, else the tables) for
-    # the PTC kernels, the blocked_lm step and realization for the wide
-    # routes, the gateway for the serving kernels; null where none was
-    # driven
+    # the PTC kernels, one olmo-1b update step of the train phase for the
+    # tensor-core routes (else the blocked_lm bf16 step), the blocked_lm
+    # fp32 step and realization for the other wide routes, the gateway for
+    # the serving kernels; null where none was driven
     launches = dict.fromkeys(build.KERNELS)
 
     if "parity" in phases:
@@ -3384,6 +3904,9 @@ def main(argv=None) -> int:
 
     if "blocked_lm" in phases:
         launches.update(blocked_lm_phase(torch))
+
+    if "train" in phases:
+        launches.update(train_phase(torch))
 
     if "gateway" in phases or "serve" in phases:
         params = qwen3_4b_params(torch)

@@ -1,10 +1,8 @@
-"""Config registry of the port: the dense, MoE, ssm and hybrid
-architectures.
+"""Config registry of the port: the reference's ten architectures, of
+the dense, MoE, ssm, hybrid, vlm and encdec families.
 
 Counterpart of ``repro/configs/__init__.py`` and of ``parse_arch`` in
-``repro/launch/train.py``.  The reference's vlm and encdec architectures
-(llama-3.2-vision-11b, whisper-base) wait for their families (ROADMAP.md,
-queue 1, "LM families beyond dense attention"); asking for one raises.
+``repro/launch/train.py``.
 """
 
 from __future__ import annotations
@@ -23,7 +21,9 @@ _ARCH_MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "olmo-1b": "olmo_1b",
     "qwen3-4b": "qwen3_4b",
+    "whisper-base": "whisper_base",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
@@ -32,8 +32,7 @@ ARCH_NAMES = list(_ARCH_MODULES)
 
 def get_config(name: str):
     if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port has {ARCH_NAMES} "
-                       f"(other families: ROADMAP.md, queue 1)")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = importlib.import_module(f".{_ARCH_MODULES[name]}", __package__)
     return mod.ARCH
 

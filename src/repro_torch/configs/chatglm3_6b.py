@@ -9,4 +9,5 @@ ARCH = ArchConfig(
     n_layers=28, d_model=4096, n_heads=32, n_kv_heads=2, head_dim=128,
     d_ff=14336, vocab=65024,
     rope_frac=0.5, qkv_bias=True, tie_embed=False,
+    attn_chunk=2048,
 )

@@ -10,4 +10,5 @@ ARCH = ArchConfig(
     local_global=True, sliding_window=4096,
     attn_softcap=50.0, final_softcap=30.0, post_norm=True,
     act="gelu", tie_embed=True,
+    attn_chunk=2048,
 )

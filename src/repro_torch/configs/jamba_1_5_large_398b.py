@@ -1,9 +1,6 @@
 """jamba-1.5-large-398b: 72L d=8192 64H(kv=8) — Mamba+attention 1:7
 interleave (1 attn per 8-layer period), MoE 16e top-2 every other layer,
-expert d_ff=24576, vocab 65536, ssm_state=16.  [arXiv:2403.19887]
-
-As the reference's, less ``attn_chunk`` (the training attention's chunk
-threshold, a field of the training slice)."""
+expert d_ff=24576, vocab 65536, ssm_state=16.  [arXiv:2403.19887]"""
 from ..models.lm import ArchConfig
 
 ARCH = ArchConfig(
@@ -14,4 +11,5 @@ ARCH = ArchConfig(
     ssm_state=16, tie_embed=False,
     moe_dispatch="a2a",
     ssm_chunk=128,
+    attn_chunk=2048,
 )

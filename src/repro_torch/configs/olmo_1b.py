@@ -7,4 +7,5 @@ ARCH = ArchConfig(
     n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,
     d_ff=8192, vocab=50304,
     norm="nonparam", tie_embed=True,
+    attn_chunk=2048,
 )

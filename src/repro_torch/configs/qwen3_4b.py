@@ -9,4 +9,5 @@ ARCH = ArchConfig(
     n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, head_dim=128,
     d_ff=10240, vocab=151936,
     qk_norm=True, rope_theta=1000000.0, tie_embed=True,
+    attn_chunk=2048,
 )

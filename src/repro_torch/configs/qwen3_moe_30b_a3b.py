@@ -1,8 +1,5 @@
 """qwen3-moe-30b-a3b: 48L d=2048 32H(kv=4) MoE 128e top-8, expert
-d_ff=768, vocab 151936, qk-norm.  [hf:Qwen/Qwen3-30B-A3B]
-
-As the reference's, less ``attn_chunk`` (the training attention's chunk
-threshold, a field of the training slice)."""
+d_ff=768, vocab 151936, qk-norm.  [hf:Qwen/Qwen3-30B-A3B]"""
 from ..models.lm import ArchConfig
 
 ARCH = ArchConfig(
@@ -11,4 +8,5 @@ ARCH = ArchConfig(
     d_ff=768, vocab=151936, n_experts=128, top_k=8,
     qk_norm=True, rope_theta=1000000.0, tie_embed=False,
     moe_dispatch="a2a",
+    attn_chunk=2048,
 )

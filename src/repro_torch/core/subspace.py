@@ -118,6 +118,14 @@ def ptc_linear(x: torch.Tensor, params: PTCParams,
     fb = masks.feedback if masks is not None else None
     col = masks.column if masks is not None else None
     lead = x.shape[:-1]
+    rows = x.numel() // (q * k)
+    if col is not None and tuple(col.shape) != (rows,):
+        # the reference fails here too (a broadcast of the column mask
+        # against δy): a mask drawn for B·S tokens on a layer that reads
+        # another number of rows, as vlm's cross-attention K/V do
+        raise ValueError(f"ptc_linear: the column mask has "
+                         f"{tuple(col.shape)} entries, the layer reads "
+                         f"{rows} rows")
     y = _PTCLinear.apply(x.reshape(-1, q * k).contiguous(),
                          params.s.contiguous(), params.u.contiguous(),
                          params.v.contiguous(), fb, col, mode)

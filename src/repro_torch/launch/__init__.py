@@ -1,2 +1,3 @@
-"""Serving drivers of the port (counterpart of ``repro/launch``): the solo
-greedy-decode path (:mod:`.steps`, :mod:`.serve`)."""
+"""Drivers of the port (counterpart of ``repro/launch``): the training
+loop (:mod:`.train`), the solo greedy-decode serving path (:mod:`.serve`)
+and the step builders they share (:mod:`.steps`)."""

@@ -59,7 +59,9 @@ def run(args) -> dict:
 
     Test hooks as the reference's: ``args.params_override`` serves given
     params (on the device) instead of a seeded random init;
-    ``args.prompt_tokens`` replaces the ``lm_batch`` prompts.  With
+    ``args.prompt_tokens`` replaces the ``lm_batch`` prompts.  vlm and
+    encdec archs get the reference's stub inputs, ``img`` (B, n_img, d)
+    and ``enc_out`` (B, prompt_len, d) of 0.1.  With
     ``args.gateway`` the whole run is the gateway's
     (:func:`repro_torch.serving.gateway.run`) and so is the report."""
     if getattr(args, "gateway", False):
@@ -85,12 +87,21 @@ def run(args) -> dict:
     cache = init_decode_cache(cfg, args.batch, prompt.shape[1] + args.gen,
                               device=dev)
     serve = build_serve_step(cfg)
+    # the stubbed modality inputs, as the reference's driver makes them
+    extras = {}
+    if cfg.family == "vlm":
+        extras["img"] = 0.1 * torch.ones(
+            (args.batch, cfg.n_img_tokens, cfg.d_model), device=dev)
+    if cfg.family == "encdec":
+        extras["enc_out"] = 0.1 * torch.ones(
+            (args.batch, prompt.shape[1], cfg.d_model), device=dev)
 
     preds: list = []
     logits_trace = [] if getattr(args, "trace_logits", False) else None
     t0 = time.perf_counter()
     gen, _ = greedy_decode(serve, params, cache, prompt, args.gen,
-                           preds_out=preds, logits_out=logits_trace)
+                           extras=extras, preds_out=preds,
+                           logits_out=logits_trace)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

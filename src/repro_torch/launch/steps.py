@@ -1,10 +1,14 @@
-"""The solo serve loop shared by the serving drivers.
+"""Step builders shared by the train and serve drivers.
 
-Counterpart of ``greedy_decode`` in ``repro/launch/steps.py``.  The
-training-step builders of that module wait for the training slice of the
-port, and the layer-execution plane (``layer_exec``: hardware-in-the-loop
-serving through a chip fleet) for the closed-loop slice; passing one is
-an error.
+Counterpart of ``repro/launch/steps.py``: the training state and update
+step (the sampled in-situ gradients of ``lm.build_train_step``, an
+optional schedule, AdamW on the trainable leaves only), the prefill step
+and the solo serve loop.  The port's optimizer works on lists of
+tensors: the update step flattens the parameter, gradient and
+trainability trees in one order (sorted dict keys, the order ``jax.tree``
+walks them).  The layer-execution plane of ``greedy_decode``
+(``layer_exec``: hardware-in-the-loop serving through a chip fleet)
+waits for the closed-loop slice; passing one is an error.
 """
 
 from __future__ import annotations
@@ -14,7 +18,77 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["greedy_decode"]
+from ..core.sparsity import SparsityConfig
+from ..models.lm import (ArchConfig, build_train_step, forward, init_model,
+                         model_trainable_mask)
+from ..optim.optimizers import (AdamWConfig, OptState, SGDConfig,
+                                apply_updates, init_opt_state)
+
+__all__ = ["init_train_state", "build_update_step", "build_prefill_step",
+           "greedy_decode", "flatten", "unflatten"]
+
+
+def flatten(tree: dict) -> list:
+    """A nested dict's leaves, keys in sorted order at every level."""
+    out = []
+    for _, v in sorted(tree.items()):
+        out.extend(flatten(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def unflatten(like: dict, leaves: list) -> dict:
+    """The inverse of :func:`flatten` onto ``like``'s structure."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(v) if isinstance(v, dict) else next(it)
+                for k, v in sorted(node.items())}
+
+    return build(like)
+
+
+def init_train_state(gen: torch.Generator, cfg: ArchConfig
+                     ) -> tuple[dict, OptState]:
+    """Seeded parameters on the generator's device and their AdamW state
+    (moments and fp32 master copies of the trainable leaves only, in
+    :func:`flatten`'s order)."""
+    params = init_model(gen, cfg)
+    opt = init_opt_state(flatten(params),
+                         flatten(model_trainable_mask(params)))
+    return params, opt
+
+
+def build_update_step(cfg: ArchConfig, ocfg: AdamWConfig | SGDConfig,
+                      sparsity: SparsityConfig | None = None,
+                      lr_schedule: Callable | None = None):
+    """Returns ``update_step(params, opt_state, batch, gen) -> (params,
+    opt_state, loss, gnorm)``: the sampled in-situ gradients (masks drawn
+    from ``gen``), the schedule's multiplier at ``opt_state.step``, and
+    one optimizer step on the trainable leaves (Σ and the electronics);
+    the frozen bases pass through."""
+    ts = build_train_step(cfg, sparsity)
+
+    def update_step(params, opt_state, batch, gen=None):
+        loss, grads = ts(params, batch, gen)
+        scale = lr_schedule(opt_state.step) if lr_schedule else 1.0
+        leaves, opt_state, gnorm = apply_updates(
+            flatten(params), flatten(grads), opt_state, ocfg, lr_scale=scale,
+            trainable=flatten(model_trainable_mask(params)))
+        return unflatten(params, leaves), opt_state, loss, gnorm
+
+    return update_step
+
+
+def build_prefill_step(cfg: ArchConfig):
+    """``prefill_step(params, batch) -> (B, vocab)`` last-position logits
+    of a full-sequence forward (inference prefill)."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, _ = forward(params, cfg, batch)
+        return logits[:, -1]
+
+    return prefill_step
 
 
 def _first_tensor(tree) -> torch.Tensor:
@@ -38,7 +112,9 @@ def greedy_decode(serve_step, params, cache, prompt, gen: int,
     the tokens go to the cache's device.  The prompt streams token by
     token, so the cache fills along the code path generation uses.
     ``on_step(i)`` runs after every step, prefill positions included
-    (``prompt_len + gen − 1`` calls in all).
+    (``prompt_len + gen − 1`` calls in all).  ``extras`` joins every
+    step's batch: vlm's ``img``, encdec's ``enc_out`` (tensors on the
+    cache's device).
 
     ``preds_out`` / ``logits_out`` collect each step's argmax (B,) and
     logits (B, V) as numpy, prefill included.  ``eos_id`` ends a row once
@@ -53,9 +129,7 @@ def greedy_decode(serve_step, params, cache, prompt, gen: int,
             "greedy_decode: a layer-execution plane (hardware-in-the-loop "
             "serving) is not ported yet (ROADMAP.md, queue 1, 'HW-logits "
             "gateway serving')")
-    if extras:
-        raise ValueError(f"greedy_decode: extras {sorted(extras)} feed the "
-                         f"vlm / encdec families, which are not ported yet")
+    extras = extras or {}
     dev = _first_tensor(cache).device
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64)
     b, prompt_len = prompt.shape
@@ -65,7 +139,7 @@ def greedy_decode(serve_step, params, cache, prompt, gen: int,
     finished = np.zeros((b,), bool)
     for i in range(max_len - 1):
         logits, cache = serve_step(params, cache,
-                                   {"token": tok, "cache_len": i})
+                                   {"token": tok, "cache_len": i, **extras})
         nxt = torch.argmax(logits, dim=-1)
         emitted = nxt.cpu().numpy().astype(np.int32)
         if preds_out is not None:

@@ -1,16 +1,22 @@
-"""GQA self-attention over PTC-factorized projections: the serving paths.
+"""GQA self/cross attention over PTC-factorized projections.
 
-Counterpart of the decode part of ``repro/models/attention.py``: grouped
-KV heads, qk-norm (qwen3), logit soft-capping (gemma2), sliding-window
-local layers (gemma2) and partial rotary (chatglm), against a dense
-(B, S, Hkv, Dh) KV cache with one shared length (the solo serve path) and
-against page-assembled KV views with per-slot cache lengths (the
-continuous-batching gateway).
+Counterpart of ``repro/models/attention.py``: grouped KV heads, qk-norm
+(qwen3), logit soft-capping (gemma2), sliding-window local layers
+(gemma2), partial rotary (chatglm) and cross-attention (whisper's
+decoder, llama-vision), on three paths:
+
+* training and prefill (``attention``): materialized-scores attention
+  (``_sdpa``), or above ``chunk`` keys the online softmax over KV chunks
+  (``_sdpa_chunked``, each chunk recomputed in the backward, as the
+  reference's ``jax.checkpoint`` per chunk does), all in plain PyTorch as
+  the reference computes them in plain ``jnp``;
+* the solo serve path: one token against a dense (B, S, Hkv, Dh) KV
+  cache with one shared length;
+* the continuous-batching gateway: page-assembled KV views with per-slot
+  cache lengths.
 
 GQA expands KV head h // rep to query head h (``repeat_interleave``,
-``jnp.repeat``'s semantics).  The training paths (``attention``,
-``_sdpa`` / ``_sdpa_chunked``) and cross-attention belong to later slices
-of the port.
+``jnp.repeat``'s semantics).
 """
 
 from __future__ import annotations
@@ -18,14 +24,16 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.prefill_attn import prefill_attention
 from .layers import (PTCLinearCfg, apply_ptc_linear, apply_rotary,
                      init_ptc_linear, init_rmsnorm, rmsnorm, rotary_cache,
                      softcap)
 
-__all__ = ["AttnCfg", "init_attention", "init_kv_cache", "decode_attention",
-           "decode_attention_paged", "decode_attention_paged_chunked"]
+__all__ = ["AttnCfg", "init_attention", "attention", "init_kv_cache",
+           "decode_attention", "decode_attention_paged",
+           "decode_attention_paged_chunked"]
 
 Params = dict
 NEG_INF = -2.0 ** 30
@@ -42,6 +50,7 @@ class AttnCfg:
     qk_norm: bool = False           # qwen3
     attn_softcap: float | None = None   # gemma2
     qkv_bias: bool = False          # chatglm3
+    causal: bool = True             # False for encoder / cross-attn
     window: int | None = None       # sliding window (gemma2 local layers)
 
 
@@ -62,19 +71,22 @@ def init_attention(gen: torch.Generator, cfg: AttnCfg,
     return p
 
 
-def _project_qkv(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, x, positions):
-    """Project q, k, v from x (B, S, d); qk-norm, then rotary at
-    ``positions`` (B, S)."""
+def _project_qkv(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, x, positions,
+                 kv_x=None):
+    """Project q from x (B, S, d) and k, v from ``kv_x`` (B, S_kv, d;
+    default x); qk-norm, then rotary at ``positions`` (B, S) — none when
+    ``positions`` is None, as for cross-attention."""
     b, sq = x.shape[0], x.shape[1]
+    kv_x = x if kv_x is None else kv_x
     q = apply_ptc_linear(p["wq"], x, lin, d_out=cfg.n_heads * cfg.head_dim,
                          name="wq")
-    k = apply_ptc_linear(p["wk"], x, lin,
+    k = apply_ptc_linear(p["wk"], kv_x, lin,
                          d_out=cfg.n_kv_heads * cfg.head_dim, name="wk")
-    v = apply_ptc_linear(p["wv"], x, lin,
+    v = apply_ptc_linear(p["wv"], kv_x, lin,
                          d_out=cfg.n_kv_heads * cfg.head_dim, name="wv")
     q = q.reshape(b, sq, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, sq, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, sq, cfg.n_kv_heads, cfg.head_dim)
+    k = k.reshape(b, kv_x.shape[1], cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, kv_x.shape[1], cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(p["qn"], q)
         k = rmsnorm(p["kn"], k)
@@ -114,6 +126,99 @@ def _attend_one(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, q, k, v,
     o = _einsum("bhqk,bkhd->bqhd", w, vr)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return apply_ptc_linear(p["wo"], o, lin, d_out=cfg.d_model, name="wo")
+
+
+# -- training / prefill ------------------------------------------------------
+
+
+def _mask_bias(sq: int, sk: int, causal: bool, window: int | None,
+               q_offset: int = 0, dtype=torch.float32, device=None):
+    """(sq, sk) additive mask: 0 where query i (at ``i + q_offset``) may
+    see key j, ``NEG_INF`` elsewhere."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (ki <= qi)
+    if window is not None:
+        ok = ok & (ki > qi - window)
+    return torch.where(ok, 0.0, NEG_INF).to(dtype)
+
+
+def _sdpa(q, k, v, cfg: AttnCfg, q_offset: int = 0):
+    """Materialized-scores attention: q (B, Sq, H, Dh), k/v (B, Sk, Hkv,
+    Dh); the scores in fp32, the weights cast back to q's dtype."""
+    sq, hd = q.shape[1], q.shape[3]
+    rep = q.shape[2] // k.shape[2]
+    kr = k.repeat_interleave(rep, dim=2)
+    vr = v.repeat_interleave(rep, dim=2)
+    logits = _einsum("bqhd,bkhd->bhqk", q, kr).float() * hd ** -0.5
+    logits = softcap(logits, cfg.attn_softcap)
+    logits = logits + _mask_bias(sq, k.shape[1], cfg.causal, cfg.window,
+                                 q_offset, device=q.device)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return _einsum("bhqk,bkhd->bqhd", w, vr)
+
+
+def _sdpa_chunked(q, k, v, cfg: AttnCfg, chunk: int):
+    """Online-softmax attention over KV chunks of ``chunk`` keys: O(S ·
+    chunk) memory, the same function as :func:`_sdpa`.  Each chunk's step
+    runs under ``torch.utils.checkpoint``, so the backward recomputes its
+    (B, H, S, chunk) scores instead of keeping them."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    if sk % chunk:
+        raise ValueError(f"_sdpa_chunked: {sk} keys are not a multiple of "
+                         f"the chunk {chunk}")
+    rep = h // k.shape[2]
+    qi = torch.arange(sq, device=q.device)[:, None]
+
+    def body(acc, m, denom, kb, vb, c0):
+        kb = kb.repeat_interleave(rep, dim=2)
+        vb = vb.repeat_interleave(rep, dim=2)
+        logits = _einsum("bqhd,bkhd->bhqk", q, kb).float() * hd ** -0.5
+        logits = softcap(logits, cfg.attn_softcap)
+        ki = c0 + torch.arange(chunk, device=q.device)[None, :]
+        ok = torch.ones((sq, chunk), dtype=torch.bool, device=q.device)
+        if cfg.causal:
+            ok = ok & (ki <= qi)
+        if cfg.window is not None:
+            ok = ok & (ki > qi - cfg.window)
+        logits = logits + torch.where(ok, 0.0, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(logits - m_new[..., None])
+        denom = denom * alpha + pexp.sum(-1)
+        acc = acc * alpha[..., None] + _einsum(
+            "bhqk,bkhd->bhqd", pexp.to(q.dtype), vb).float()
+        return acc, m_new, denom
+
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, chunk):
+        acc, m, denom = checkpoint(
+            body, acc, m, denom, k[:, c0:c0 + chunk], v[:, c0:c0 + chunk],
+            c0, use_reentrant=False, preserve_rng_state=False)
+    out = acc / denom[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention(p: Params, cfg: AttnCfg, lin: PTCLinearCfg, x, positions,
+              kv_x=None, chunk: int | None = None):
+    """The full attention layer (training / prefill): project, attend,
+    output projection.  ``kv_x`` makes it cross-attention; above ``chunk``
+    keys the attention runs chunked."""
+    q, k, v = _project_qkv(p, cfg, lin, x, positions, kv_x)
+    if chunk is not None and k.shape[1] > chunk:
+        o = _sdpa_chunked(q, k, v, cfg, chunk)
+    else:
+        o = _sdpa(q, k, v, cfg)
+    o = o.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
+    return apply_ptc_linear(p["wo"], o, lin, d_out=cfg.d_model, name="wo")
+
+
+# -- decode (serve path) ------------------------------------------------------
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: AttnCfg,

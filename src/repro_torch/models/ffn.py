@@ -92,8 +92,10 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def _expert_linear(p: Params, x: torch.Tensor, lin: PTCLinearCfg,
                    d_out: int) -> torch.Tensor:
-    """Every expert's PTC linear: x (E, T, d_in) → (E, T, d_out)."""
-    if lin.mode != "fused":
+    """Every expert's PTC linear: x (E, T, d_in) → (E, T, d_out).  The
+    blocked mode, and sampling masks injected into the tree, take each
+    expert through :func:`apply_ptc_linear` (its in-situ backward)."""
+    if lin.mode != "fused" or "fb" in p or "col" in p:
         return torch.stack([apply_ptc_linear(
             tree_map(lambda a, i=i: a[i], p), x[i], lin, d_out=d_out)
             for i in range(x.shape[0])])

@@ -7,17 +7,20 @@ plain dicts of tensors; Σ is stored in fp32.
 
 The PTC execution hook and its scope stack (``ptc_execution``,
 ``ptc_scope``) are here so the LM steps name their layers as the
-reference does; the digital gateway installs no hook.  The reference's
-dense electronic baseline (``mode="dense"``), ``partition`` /
-``combine`` and masks injected into the parameter tree belong to a later
-slice of the port; ``maybe_constraint`` (a mesh-sharding hint) has no
-counterpart on one card.
+reference does; the digital gateway installs no hook.  ``mode="dense"``
+is the paper's full-space electronic baseline (one trainable ``w``);
+``apply_ptc_linear`` reads per-step sampling masks injected into the
+parameter tree (the ``fb`` / ``col`` leaves of ``lm.inject_masks``);
+``partition`` / ``combine`` split a tree into its trainable and frozen
+sides.  ``maybe_constraint`` (a mesh-sharding hint) has no counterpart
+on one card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -27,7 +30,8 @@ from ..core.ptc import PTCParams, random_factorize
 from ..core.subspace import SubspaceMasks, ptc_linear
 
 __all__ = ["PTCLinearCfg", "init_ptc_linear", "apply_ptc_linear",
-           "is_ptc_leaf", "trainable_mask", "ptc_execution", "ptc_scope",
+           "is_ptc_leaf", "trainable_mask", "partition", "combine",
+           "ptc_execution", "ptc_scope",
            "ptc_scope_name", "init_rmsnorm", "rmsnorm", "init_layernorm",
            "layernorm", "layernorm_np", "rotary_cache", "apply_rotary",
            "softcap", "init_embedding", "embed", "tree_map", "stacked"]
@@ -78,8 +82,8 @@ def ptc_scope_name(leaf: str) -> str:
 def _hook_dispatch(p: Params, x: torch.Tensor, cfg: "PTCLinearCfg",
                    d_out: int | None, name: str | None):
     """Offer this call to the active execution hook; None = stay digital."""
-    if _PTC_EXEC_HOOK is None or name is None or "u" not in p \
-            or p["u"].dim() != 4:
+    if _PTC_EXEC_HOOK is None or name is None or cfg.mode == "dense" \
+            or "u" not in p or p["u"].dim() != 4:
         return None
     return _PTC_EXEC_HOOK(ptc_scope_name(name), p, x, cfg, d_out)
 
@@ -89,16 +93,26 @@ class PTCLinearCfg:
     """Static policy for every PTC linear in a model."""
 
     k: int = 128                         # block size (9 = paper)
-    mode: str = "fused"                  # fused | blocked
+    mode: str = "fused"                  # fused | blocked | dense
     base_dtype: torch.dtype = torch.bfloat16   # frozen U/V storage dtype
+    sigma_dtype: torch.dtype = torch.float32   # trainable Σ dtype
 
 
 def init_ptc_linear(gen: torch.Generator, d_in: int, d_out: int,
                     cfg: PTCLinearCfg, bias: bool = False) -> Params:
-    """One layer's parameters on the generator's device."""
-    f = random_factorize(gen, d_out, d_in, cfg.k)
-    p: Params = {"u": f.u.to(cfg.base_dtype), "s": f.s.float(),
-                 "v": f.v.to(cfg.base_dtype)}
+    """One layer's parameters on the generator's device: the factors
+    ``u``, ``s``, ``v`` (bases in ``base_dtype``, Σ in ``sigma_dtype``),
+    or in ``mode="dense"`` one Glorot-normal ``w`` (d_out, d_in) in
+    ``base_dtype``."""
+    if cfg.mode == "dense":
+        scale = math.sqrt(2.0 / (d_in + d_out))
+        p: Params = {"w": (scale * torch.randn(
+            (d_out, d_in), generator=gen, device=gen.device)).to(
+                cfg.base_dtype)}
+    else:
+        f = random_factorize(gen, d_out, d_in, cfg.k)
+        p = {"u": f.u.to(cfg.base_dtype), "s": f.s.to(cfg.sigma_dtype),
+             "v": f.v.to(cfg.base_dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=gen.device)
     return p
@@ -114,7 +128,11 @@ def apply_ptc_linear(p: Params, x: torch.Tensor, cfg: PTCLinearCfg,
                      d_out: int | None = None,
                      name: str | None = None) -> torch.Tensor:
     """y = x @ Wᵀ (+b): zero-pads x to the block grid's Q·k columns and
-    crops y to ``d_out``.  ``name`` identifies the layer to an installed
+    crops y to ``d_out``.  Σ is cast to the bases' dtype before the
+    product, as the reference casts it.  Without ``masks``, the ``fb`` /
+    ``col`` leaves of ``p`` (:func:`repro_torch.models.lm.inject_masks`)
+    are the step's sampling masks.  ``mode="dense"``: ``x @ wᵀ`` in
+    ``w``'s dtype.  ``name`` identifies the layer to an installed
     :func:`ptc_execution` hook; unnamed calls never leave the digital
     path."""
     y = _hook_dispatch(p, x, cfg, d_out, name)
@@ -122,14 +140,22 @@ def apply_ptc_linear(p: Params, x: torch.Tensor, cfg: PTCLinearCfg,
         if "b" in p:
             y = y + p["b"].to(y.dtype)
         return y
-    params = PTCParams(u=p["u"], s=p["s"].to(p["u"].dtype), v=p["v"])
-    pp, qq = params.grid
-    k = params.k
-    if x.shape[-1] != qq * k:
-        x = F.pad(x, (0, qq * k - x.shape[-1]))
-    y = ptc_linear(x.to(params.u.dtype), params, masks, mode=cfg.mode)
-    if d_out is not None and d_out != pp * k:
-        y = y[..., :d_out]
+    if cfg.mode == "dense":
+        w = p["w"]
+        y = x.to(w.dtype) @ w.T
+        if d_out is not None and d_out != w.shape[0]:
+            y = y[..., :d_out]
+    else:
+        if masks is None and ("fb" in p or "col" in p):
+            masks = SubspaceMasks(feedback=p.get("fb"), column=p.get("col"))
+        params = PTCParams(u=p["u"], s=p["s"].to(p["u"].dtype), v=p["v"])
+        pp, qq = params.grid
+        k = params.k
+        if x.shape[-1] != qq * k:
+            x = F.pad(x, (0, qq * k - x.shape[-1]))
+        y = ptc_linear(x.to(params.u.dtype), params, masks, mode=cfg.mode)
+        if d_out is not None and d_out != pp * k:
+            y = y[..., :d_out]
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -137,9 +163,26 @@ def apply_ptc_linear(p: Params, x: torch.Tensor, cfg: PTCLinearCfg,
 
 def trainable_mask(params: Params) -> Params:
     """Bool tree of ``params``' shape: True = the optimizer updates this
-    leaf.  Everything but the frozen U/V bases (Σ and biases)."""
+    leaf.  Everything but the frozen U/V bases: Σ, biases, norms,
+    embeddings, routers and the dense baseline's ``w``."""
     return {name: trainable_mask(leaf) if isinstance(leaf, dict)
             else name not in ("u", "v") for name, leaf in params.items()}
+
+
+def partition(params: Params, mask: Params) -> tuple[Params, Params]:
+    """Split ``params`` into (selected, rest) by the bool tree ``mask``;
+    each side holds a scalar zero of the leaf's dtype where the other has
+    the leaf, so both keep the full tree structure."""
+    def ph(a):
+        return torch.zeros((), dtype=a.dtype, device=a.device)
+
+    return (tree_map(lambda a, m: a if m else ph(a), params, mask),
+            tree_map(lambda a, m: ph(a) if m else a, params, mask))
+
+
+def combine(sel: Params, rest: Params, mask: Params) -> Params:
+    """The inverse of :func:`partition`."""
+    return tree_map(lambda a, b, m: a if m else b, sel, rest, mask)
 
 
 # -- parameter trees ---------------------------------------------------------

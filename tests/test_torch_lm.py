@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as jARCH_NAMES
 from repro.configs import get_config as jget_config
 from repro.configs import smoke_config as jsmoke_config
 from repro.models import attention as jattn
@@ -101,8 +102,10 @@ def _batch(jcfg, chunk: bool, seed=1):
 
 
 def test_registry_and_configs_follow_the_reference():
+    assert ARCH_NAMES == jARCH_NAMES
     assert sorted(ARCH_NAMES) == sorted(["qwen3-4b", "olmo-1b", "chatglm3-6b",
-                                         "gemma2-27b", *FAMILIES])
+                                         "gemma2-27b", "whisper-base",
+                                         "llama-3.2-vision-11b", *FAMILIES])
     fields = [f.name for f in dataclasses.fields(tlm.ArchConfig)
               if f.name != "ptc"]
     for name in ARCH_NAMES:
@@ -111,12 +114,14 @@ def test_registry_and_configs_follow_the_reference():
             assert {f: getattr(tc, f) for f in fields} == \
                 {f: getattr(jc, f) for f in fields}
             assert (tc.ptc.k, tc.ptc.mode) == (jc.ptc.k, jc.ptc.mode)
+            assert str(tc.ptc.sigma_dtype).replace("torch.", "") == \
+                jnp.dtype(jc.ptc.sigma_dtype).name
             (jplan, jn), (tplan, tn) = jlm.period_plan(jc), \
                 tlm.period_plan(tc)
-            assert [(q.kind, q.ffn, q.window) for q in tplan] == \
-                [(q.kind, q.ffn, q.window) for q in jplan] and tn == jn
+            assert [dataclasses.astuple(q) for q in tplan] == \
+                [dataclasses.astuple(q) for q in jplan] and tn == jn
     with pytest.raises(KeyError):
-        get_config("whisper-base")
+        get_config("gpt-2")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -137,10 +142,13 @@ def test_init_model_tree_matches_reference(name):
 
 
 def test_unported_families_raise():
-    for family in ("vlm", "encdec"):
-        cfg = dataclasses.replace(smoke_config("qwen3-4b"), family=family)
-        with pytest.raises(ValueError, match="not ported yet.*next slice"):
-            tlm.init_model(torch.Generator().manual_seed(0), cfg)
+    """Every family of the reference has a plan (vlm and encdec since the
+    training slice); a family the reference does not know raises."""
+    for name in ("llama-3.2-vision-11b", "whisper-base"):
+        tlm.init_model(torch.Generator().manual_seed(0), smoke_config(name))
+    cfg = dataclasses.replace(smoke_config("qwen3-4b"), family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        tlm.init_model(torch.Generator().manual_seed(0), cfg)
 
 
 @pytest.mark.parametrize("frac,theta", [(1.0, 1e6), (0.5, 1e4)])
