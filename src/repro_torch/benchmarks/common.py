@@ -12,6 +12,8 @@ from pathlib import Path
 
 import torch
 
+from ..optim.zo import zo_draws
+
 __all__ = ["ART", "emit", "Timer", "cpu_generator", "zo_draws", "to_device"]
 
 ART = Path(__file__).resolve().parents[3] / "bench_artifacts" / "torch"
@@ -55,18 +57,6 @@ def cpu_generator(seed: int) -> torch.Generator:
     """The tables' source of randomness: a CPU generator, whatever the
     device the tables run on."""
     return torch.Generator("cpu").manual_seed(seed)
-
-
-def zo_draws(gen: torch.Generator, method: str, shape: tuple[int, ...],
-             n: int, alt_split: int | None = None) -> torch.Tensor:
-    """Per-step draws of :func:`repro_torch.optim.zo.zo_minimize` for
-    ``shape`` = (..., B, steps): raw integers for ``zcd`` (a coordinate in
-    [0, n), or in [0, 2^30) with ``alt_split``), else (..., B, steps, n)
-    normal vectors."""
-    if method == "zcd":
-        hi = n if alt_split is None else 1 << 30
-        return torch.randint(0, hi, shape, generator=gen)
-    return torch.randn(shape + (n,), generator=gen)
 
 
 def to_device(tree, device):

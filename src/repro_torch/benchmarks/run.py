@@ -3,10 +3,11 @@
     PYTHONPATH=src python -m repro_torch.benchmarks.run \\
         [--budget quick|normal] [--only SUBSTR] [--device cpu|cuda]
 
-Counterpart of ``benchmarks/run.py`` for its six paper benchmarks (the
-runtime, driver and serving benchmarks wait for their slices of the
-port).  Each table is written under ``bench_artifacts/torch/`` and
-printed.  Without ``--device`` the tables run on ``cuda`` (and a host
+Counterpart of ``benchmarks/run.py`` for its six paper benchmarks
+(:data:`TABLES`) and the closed loop's two runtime benchmarks
+(:data:`RUNTIME`; the driver-plane and serving benchmarks wait for their
+slices of the port).  Each table is written under
+``bench_artifacts/torch/`` and printed.  Without ``--device`` the tables run on ``cuda`` (and a host
 without CUDA refuses); ``--device cpu`` runs the kernels' plain versions.
 """
 
@@ -16,14 +17,14 @@ import argparse
 
 from ..device import resolve_device
 from ..kernels import build
-from . import (blocksize_tables, grad_fidelity, ic_convergence,
-               mapping_osp, sampling_table2, scalability)
+from . import (blocksize_tables, drift_recovery, grad_fidelity,
+               ic_convergence, mapping_osp, sampling_table2, scalability)
 from .common import Timer
 
-__all__ = ["BENCHES", "run", "main"]
+__all__ = ["TABLES", "RUNTIME", "BENCHES", "run", "main"]
 
 # the reference runner's names and order (benchmarks/run.py:63-70)
-BENCHES = (
+TABLES = (
     ("fig4_ic_convergence", ic_convergence.main),
     ("tables345_blocksize", blocksize_tables.main),
     ("fig5_mapping_osp", mapping_osp.main),
@@ -31,17 +32,24 @@ BENCHES = (
     ("table2_sampling", sampling_table2.main),
     ("fig10_scalability", scalability.main),
 )
+# the reference runner's closed-loop benchmarks (benchmarks/run.py:71-72)
+RUNTIME = (
+    ("runtime_drift_recovery", drift_recovery.main),
+    ("runtime_multi_tenant", drift_recovery.multi_tenant),
+)
+BENCHES = TABLES + RUNTIME
 
 
 def run(budget: str = "quick", only: str | None = None,
-        device=None) -> list[dict]:
-    """Run every benchmark whose name contains ``only``; returns one
+        device=None, benches=BENCHES) -> list[dict]:
+    """Run every benchmark of ``benches`` whose name contains ``only``;
+    returns one
     record per benchmark: its ``name``, host wall ``seconds`` (the card
     synchronized at both ends), ``tables`` ({table: rows}) and
     ``launches`` (each kernel counter's increase over it)."""
     dev = resolve_device(device)
     out = []
-    for name, fn in BENCHES:
+    for name, fn in benches:
         if only and only not in name:
             continue
         print(f"\n=== {name} (budget={budget}, device={dev}) ===",

@@ -4,7 +4,9 @@ The reference's objects arrive as anything ``numpy.asarray`` reads (JAX
 arrays included) inside NamedTuples or dataclasses; this module maps them
 field by field onto the port's types without importing either JAX or the
 reference.  The parity tests use it to give both packages one device
-realization, one set of weights and one commanded state.
+realization, one set of weights and one commanded state, and one fleet
+(:func:`fleet`: each chip's drift state, commanded state, meter, tenants
+and counters).
 """
 
 from __future__ import annotations
@@ -17,12 +19,18 @@ import torch
 from .core.noise import NoiseModel, PhaseNoise
 from .core.ptc import PTCParams
 from .core.subspace import SubspaceMasks
+from .hw import DriftConfig, DriftState, make_twin
 from .hw.device import DeviceRealization  # repro: noqa[RPL101]
 from .optim.zo import ZOConfig
+from .runtime.fleet import Chip, RuntimeConfig, Tenant
+from .runtime.monitor import HealthState, MonitorConfig
+from .runtime.recalibrate import RecalConfig
 
 __all__ = ["tensor", "named_tuple", "phase_noise", "device_realization",
            "ptc_params", "weights", "commanded_state", "noise_model",
-           "zo_config", "param_tree", "subspace_masks", "lm_params"]
+           "zo_config", "param_tree", "subspace_masks", "lm_params",
+           "drift_config", "drift_state", "monitor_config", "recal_config",
+           "runtime_config", "fleet"]
 
 
 def tensor(a, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -115,3 +123,85 @@ def lm_params(tree, device="cpu") -> dict:
         return torch.as_tensor(a.astype(np.float32), device=device).to(
             torch.bfloat16)
     return torch.as_tensor(np.array(a), device=device)
+
+
+def _fields(obj, cls) -> dict:
+    return {f: getattr(obj, f) for f in cls._fields}
+
+
+def drift_config(obj) -> DriftConfig:
+    """An OU drift configuration, field by field."""
+    return DriftConfig(**_fields(obj, DriftConfig))
+
+
+def drift_state(obj, device="cpu") -> DriftState:  # repro: noqa[RPL103]
+    """A drifted realization with its anchor and clock."""
+    return DriftState(anchor=device_realization(obj.anchor, device),  # repro: noqa[RPL103]
+                      dev=device_realization(obj.dev, device),
+                      t=float(np.asarray(obj.t)))
+
+
+def monitor_config(obj) -> MonitorConfig:
+    return MonitorConfig(**_fields(obj, MonitorConfig))
+
+
+def recal_config(obj) -> RecalConfig:
+    return RecalConfig(**_fields(obj, RecalConfig))
+
+
+def runtime_config(obj) -> RuntimeConfig:
+    """A fleet's policy, its noise, drift, monitor and recal configs
+    inside; an autopilot config is carried field by field."""
+    auto = obj.autopilot
+    if auto is not None:
+        from .runtime.autopilot import AutopilotConfig
+        auto = AutopilotConfig(**{f.name: getattr(auto, f.name)
+                                  for f in dataclasses.fields(
+                                      AutopilotConfig)})
+    kw = {f.name: getattr(obj, f.name)
+          for f in dataclasses.fields(RuntimeConfig)}
+    kw.update(noise=noise_model(obj.noise), drift=drift_config(obj.drift),
+              monitor=monitor_config(obj.monitor),
+              recal=recal_config(obj.recal), autopilot=auto)
+    return RuntimeConfig(**kw)
+
+
+def fleet(chips, cfg: RuntimeConfig, *, drift: DriftConfig | None = None,
+          device="cpu") -> list[Chip]:
+    """The reference fleet's chips as port chips on ``device``.
+
+    Each chip's twin gets the reference twin's drift state (anchor, drifted
+    realization, clock; read through its ``unsafe_twin()``), its commanded
+    phases and Σ, and its PTC meter; ``drift`` is the new twins' own OU
+    walk (None: time passes without effect, for a caller that carries the
+    drifted realization across itself).  Tenants keep their layout,
+    targets, health and counters; chips their status and counters."""
+    out = []
+    for c in chips:
+        ref = c.driver
+        state = drift_state(ref.unsafe_twin().drift_state, device)  # repro: noqa[RPL102]
+        m, n = ref.layer_shape
+        drv = make_twin(None, ref.n_blocks, ref.k, cfg.noise, ref.kind,
+                        m=m, n=n, drift=drift, dev=state.dev, device=device)
+        drv._state = state      # the anchor and clock too, not only dev
+        phi_u, phi_v = ref.read_phases()
+        drv.write_phases(tensor(phi_u, device), tensor(phi_v, device))
+        drv.write_sigma(tensor(ref.read_sigma(), device))
+        for cat, calls in ref.stats.as_dict().items():
+            if cat != "total":
+                setattr(drv.stats, cat, float(calls))
+        tenants = [Tenant(
+            tenant_id=t.tenant_id, m=t.m, n=t.n,
+            block_range=tuple(int(i) for i in t.block_range),
+            w_blocks=tensor(t.w_blocks, device),
+            health=HealthState(**dataclasses.asdict(t.health)),
+            last_probe_tick=t.last_probe_tick, served=t.served,
+            alarms=t.alarms, recals=t.recals, recal_calls=t.recal_calls)
+            for t in c.tenants]
+        out.append(Chip(
+            chip_id=c.chip_id, driver=drv, tenants=tenants, status=c.status,
+            recal_ticks_left=c.recal_ticks_left,
+            recal_tenant=c.recal_tenant, recal_proactive=c.recal_proactive,
+            offline_ticks_left=c.offline_ticks_left, served=c.served,
+            alarms=c.alarms, recals=c.recals, recal_calls=c.recal_calls))
+    return out

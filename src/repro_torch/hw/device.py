@@ -17,7 +17,7 @@ from ..core.noise import NoiseModel, PhaseNoise, sample_phase_noise, \
     apply_phase_noise
 
 __all__ = ["DeviceRealization", "sample_device", "realized_unitaries",
-           "realized_blocks", "chip_forward"]
+           "realized_blocks", "true_mapping_distance", "chip_forward"]
 
 
 class DeviceRealization(NamedTuple):
@@ -69,6 +69,19 @@ def realized_blocks(spec: un.MeshSpec, phi: torch.Tensor,
     t = spec.n_rot
     u, v = realized_unitaries(spec, phi[..., :t], phi[..., t:], dev, model)  # repro: noqa[RPL103]
     return (u * sigma[..., None, :]) @ v
+
+
+def true_mapping_distance(spec: un.MeshSpec, phi: torch.Tensor,
+                          sigma: torch.Tensor, dev: DeviceRealization,  # repro: noqa[RPL103]
+                          model: NoiseModel, w_blocks: torch.Tensor
+                          ) -> torch.Tensor:
+    """Exact aggregate distance Σ_b‖Ŵ_b − W_b‖² / Σ_b‖W_b‖² (a full
+    transfer-matrix readout): the probe estimator's ground truth, which a
+    real chip cannot evaluate for free."""
+    w_hat = realized_blocks(spec, phi, sigma, dev, model)  # repro: noqa[RPL103]
+    num = torch.sum((w_hat - w_blocks) ** 2, dim=(-2, -1))
+    den = torch.sum(w_blocks ** 2, dim=(-2, -1)) + 1e-12
+    return torch.sum(num) / torch.sum(den)
 
 
 def chip_forward(spec, phi, sigma, dev, model, x, out_dim):

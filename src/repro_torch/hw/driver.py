@@ -1,10 +1,8 @@
 """`PhotonicDriver`: the single observability boundary to a device.
 
-Counterpart of ``repro/hw/driver.py`` (the ops the calibrate → map →
-serve slice uses; batched op lists and their async forms come with the
-driver-plane slice).  On chip only the end-to-end ``UΣV*`` response is
-observable, so the control plane (IC, PM) talks to a device only through
-this ABC:
+Counterpart of ``repro/hw/driver.py``.  On chip only the end-to-end
+``UΣV*`` response is observable, so the control plane (IC, PM, the
+closed-loop runtime) talks to a device only through this ABC:
 
 ================  =========================================================
 op                physical meaning
@@ -23,6 +21,15 @@ advance           let (virtual) time pass
 
 Every op that touches light is metered in :class:`DriverStats` in the
 paper's Appendix-G unit (PTC calls), exactly as the reference charges it.
+
+Batched op lists
+----------------
+Every driver also executes an ordered op list via :meth:`run_batch`
+(``[(op_name, kwargs), ...]`` → per-op results), ops in list order, each
+metered on its own, so batched and sequential encodings give the same
+bits.  :meth:`run_batch_async` hands back a future-like handle; an
+in-process driver has no round trip to overlap, so it resolves at once.
+Twin-only readouts are reachable only through :meth:`unsafe_twin`.
 """
 
 from __future__ import annotations
@@ -31,14 +38,72 @@ import abc
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = ["DriverStats", "PhotonicDriver", "ZORefineResult", "ICJobResult",
-           "probe_cost", "readback_cost", "readout_blocks",
-           "resolve_block_range", "STAT_CATEGORIES"]
+           "TwinUnavailable", "CompletedBatch", "probe_cost",
+           "readback_cost", "readout_blocks", "resolve_block_range",
+           "BATCHABLE_OPS", "WIRE_INTERNAL_OPS", "STAT_CATEGORIES",
+           "forward_coalesce_key", "coalesce_spans", "validate_batch_ops"]
 
 # the PTC meter's categories (DriverStats fields a charge may land in)
 STAT_CATEGORIES = frozenset(["serve", "probe", "readback", "search"])
+
+# the op surface a batched list may carry (the reference's wire protocol's
+# dispatchable set); lifecycle ops (``close``, ``unsafe_twin``) are not
+BATCHABLE_OPS = frozenset([
+    "write_phases", "write_sigma", "write_signs", "read_phases",
+    "read_sigma", "forward", "forward_layer", "readback_bases",
+    "zo_refine", "run_ic", "advance", "charge", "reset_stats", "stats",
+])
+
+# ops that exist only inside a wire batch frame of the reference's stream
+# transports (a coalesced span of ``forward`` ops); never in a user list
+WIRE_INTERNAL_OPS = frozenset(["forward_many"])
+
+
+def forward_coalesce_key(kw: dict):
+    """Coalescibility key of a batched ``forward`` op: consecutive forwards
+    merge only when probe shape, metering category and tenant scope all
+    agree."""
+    br = kw.get("block_range")
+    x = kw.get("x")
+    shape = getattr(x, "shape", None)
+    return (tuple(shape) if shape is not None else np.shape(x),
+            kw.get("category", "probe"),
+            None if br is None else (int(br[0]), int(br[1])))
+
+
+def coalesce_spans(keys: list) -> "list[tuple[int, int]]":
+    """``[start, stop)`` spans of an op list, merging runs of equal
+    consecutive non-None keys."""
+    spans = []
+    i = 0
+    while i < len(keys):
+        j = i
+        while (keys[i] is not None and j + 1 < len(keys)
+               and keys[j + 1] == keys[i]):
+            j += 1
+        spans.append((i, j + 1))
+        i = j + 1
+    return spans
+
+
+def validate_batch_ops(ops) -> None:
+    """Reject a batched op list before executing any of it."""
+    for name, kw in ops:
+        if name not in BATCHABLE_OPS:
+            raise ValueError(f"op {name!r} cannot appear inside a batch")
+        if kw.get("category") is not None \
+                and kw["category"] not in STAT_CATEGORIES:
+            raise ValueError(
+                f"{name}: unknown PTC-meter category "
+                f"{kw['category']!r} (one of {sorted(STAT_CATEGORIES)})")
+
+
+class TwinUnavailable(RuntimeError):
+    """The driver is not backed by an inspectable digital twin."""
 
 
 def resolve_block_range(n_blocks: int,
@@ -130,6 +195,20 @@ class ICJobResult(NamedTuple):
     v: torch.Tensor          # readback of the realized Ĩ_V
     loss: torch.Tensor       # final surrogate loss per block
     history: torch.Tensor    # best-loss traces across restarts
+
+
+class CompletedBatch:
+    """Already-resolved future-like handle for :meth:`PhotonicDriver.
+    run_batch_async` (``done()`` / ``result(timeout=None)``)."""
+
+    def __init__(self, results: list):
+        self._results = results
+
+    def done(self) -> bool:
+        return True
+
+    def result(self, timeout=None) -> list:
+        return self._results
 
 
 class PhotonicDriver(abc.ABC):
@@ -254,3 +333,49 @@ class PhotonicDriver(abc.ABC):
     def reset_stats(self) -> None:
         s = self.stats
         s.serve = s.probe = s.readback = s.search = 0.0
+
+    # -- batched op lists ----------------------------------------------------
+
+    def run_batch(self, ops: "list[tuple[str, dict]]") -> list:
+        """Execute an ordered op list of :data:`BATCHABLE_OPS`; returns the
+        per-op results (``"stats"`` yields a snapshot of the meter)."""
+        validate_batch_ops(ops)
+        out = []
+        for name, kw in ops:
+            if name == "stats":
+                s = self.stats
+                out.append(DriverStats(serve=s.serve, probe=s.probe,
+                                       readback=s.readback, search=s.search))
+            else:
+                out.append(getattr(self, name)(**kw))
+        return out
+
+    def run_batch_async(self, ops: "list[tuple[str, dict]]"):
+        """Issue an op list for asynchronous collection; ``result()`` is
+        exactly what :meth:`run_batch` returns for the same list.  This
+        default runs it at once and returns a :class:`CompletedBatch`."""
+        return CompletedBatch(self.run_batch(ops))
+
+    def flush(self) -> None:
+        """Force client-side pipelined writes onto the device (no-op for
+        in-process drivers, which apply writes eagerly)."""
+
+    # -- lifecycle / escape hatch --------------------------------------------
+
+    def close(self) -> None:
+        """Release transport resources (no-op for in-process drivers)."""
+
+    def unsafe_twin(self):
+        """Escape hatch to the digital twin's internals (exact distances,
+        the drifted realization); tests, benchmarks and the fleet's
+        diagnostics only.  Raises :class:`TwinUnavailable` on a device that
+        is not an inspectable twin."""
+        raise TwinUnavailable(
+            f"{type(self).__name__} is not backed by an inspectable twin")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["ZOConfig", "ZOResult", "zo_minimize"]
+__all__ = ["ZOConfig", "ZOResult", "zo_minimize", "zo_draws"]
 
 
 class ZOConfig(NamedTuple):
@@ -50,6 +50,18 @@ class ZOResult(NamedTuple):
 
 
 _ALT_RANGE = 1 << 30
+
+
+def zo_draws(gen: torch.Generator, method: str, shape: tuple[int, ...],
+             n: int, alt_split: int | None = None) -> torch.Tensor:
+    """Per-step draws of :func:`zo_minimize` for ``shape`` = (..., B,
+    steps), made on ``gen``'s device: raw integers for ``zcd`` (a
+    coordinate in [0, n), or in [0, 2^30) with ``alt_split``), else (...,
+    B, steps, n) normal vectors."""
+    if method == "zcd":
+        hi = n if alt_split is None else _ALT_RANGE
+        return torch.randint(0, hi, shape, generator=gen, device=gen.device)
+    return torch.randn(shape + (n,), generator=gen, device=gen.device)
 
 
 def zo_minimize(loss_fn: Callable[[torch.Tensor], torch.Tensor],

@@ -1,0 +1,380 @@
+"""Closed-loop runtime demo: drift → alarm → recalibrate → recover.
+
+    PYTHONPATH=src python -m repro_torch.runtime.demo --chips 4 --steps 200
+    PYTHONPATH=src python -m repro_torch.runtime.demo --tenants 3 --device cpu
+
+Counterpart of ``repro/runtime/demo.py``.  Builds a fleet of N virtual
+chips (independent manufacturing draws of the same mapped weight(s)) on
+``--device`` (``cuda`` by default), then runs the serving loop under phase
+drift: every tick one batch is routed to a healthy chip while the monitor
+probes fidelity out of band; alarms trigger warm-started recalibration
+jobs that the router schedules around.  Prints the event timeline and a
+summary: fidelity degrading under drift, alarms firing, recalibration
+restoring the distance below the clear threshold, serving uninterrupted.
+Exits 0 when all of that held, 1 otherwise (``--no-recal``: degraded and
+every batch served; ``--autopilot``: jobs ran and recovered).
+
+``--tenants T`` time-multiplexes every chip across T mapped layers with
+partial (per-tenant) repair jobs.  The reference's ``--driver
+subprocess|socket`` transports are not ported (exit 2).
+
+``simulate`` is the library entry point the drift-recovery benchmarks
+reuse.  Every random draw (weights, devices, drift, probes, recal jobs,
+served batches) comes from CPU generators seeded by ``--seed``, so one
+seed gives one trajectory on the CPU and on the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..core.noise import DEFAULT_NOISE
+from ..device import resolve_device
+from ..hw import DriftConfig
+from .monitor import MonitorConfig
+from .recalibrate import RecalConfig
+from .fleet import RuntimeConfig, make_fleet, make_router, RECALIBRATING
+
+__all__ = ["simulate", "default_runtime_config", "cotenant_shifts",
+           "isolation_band", "drift_noise_band", "main"]
+
+
+def default_runtime_config(k: int = 6, sigma_drift: float = 0.015,
+                           probe_every: int = 10,
+                           zo_steps: int = 400,
+                           driver_kind: str = "twin",
+                           auto_budget: bool = False,
+                           router_policy: str = "drift_aware",
+                           autopilot=None) -> RuntimeConfig:
+    """Demo-scale policy: drift crosses the alarm threshold within a few
+    probe periods; a short warm-started recal restores about the initial
+    error.  ``autopilot``: an :class:`~repro_torch.runtime.autopilot.
+    AutopilotConfig` switches to forecast-driven maintenance."""
+    monitor = MonitorConfig(n_probes=6, alarm_threshold=0.05,
+                            clear_threshold=0.02, consecutive=2)
+    return RuntimeConfig(
+        k=k,
+        noise=DEFAULT_NOISE.post_ic(),
+        drift=DriftConfig(sigma_phase=sigma_drift, theta=0.01),
+        monitor=monitor,
+        # the reference demo's 0.05/1.05 schedule (RecalConfig's own
+        # default is the gentler 0.02/1.02)
+        recal=RecalConfig(zo_steps=zo_steps, delta0=0.05, decay=1.05,
+                          auto_budget=auto_budget,
+                          auto_target=monitor.clear_threshold),
+        probe_every=probe_every,
+        recal_latency=4,
+        max_concurrent_recals=1,
+        driver_kind=driver_kind,
+        router_policy=router_policy,
+        autopilot=autopilot,
+    )
+
+
+def _make_weights(gen: torch.Generator, dim: int,
+                  tenants: int) -> list[torch.Tensor]:
+    """Per-tenant logical weights, (dim, dim) normals over √dim, drawn
+    from ``gen`` on its device."""
+    scale = float(dim) ** 0.5
+    return [torch.randn((dim, dim), generator=gen, device=gen.device) / scale
+            for _ in range(tenants)]
+
+
+def simulate(n_chips: int, steps: int, *, dim: int = 18, batch: int = 8,
+             seed: int = 0, cfg: RuntimeConfig | None = None,
+             tenants: int = 1, recal_enabled: bool = True,
+             verbose: bool = False, device=None) -> dict:
+    """Run the closed (or open) loop on ``device`` and record the
+    trajectory.
+
+    Returns per-tick traces (``t``, ``max_dist``, ``mean_dist``,
+    ``serve_err``, ``n_recalibrating``, ``served_chip``,
+    ``served_tenant``, ``tenant_dist``: per-(chip, tenant) true
+    distances) and the router's final report.  Tick ``t`` serves tenant
+    ``t % tenants``.
+    """
+    dev = resolve_device(device)
+    cfg = cfg or default_runtime_config()
+    gen = torch.Generator("cpu").manual_seed(seed)
+    weights = [w.to(dev) for w in _make_weights(gen, dim, tenants)]
+    chips = make_fleet(gen, n_chips, weights if tenants > 1 else weights[0],
+                       cfg, device=dev)
+    router = make_router(chips, cfg, seed=seed + 1,
+                         recal_enabled=recal_enabled)
+
+    trace = dict(t=[], max_dist=[], mean_dist=[], serve_err=[],
+                 n_recalibrating=[], served_chip=[], served_tenant=[],
+                 tenant_dist=[])
+    n_events = 0
+    try:
+        for t in range(1, steps + 1):
+            tenant = (t - 1) % tenants
+            x = torch.randn((batch, dim), generator=gen).to(dev)
+            y, chip_id = router.serve(x, tenant=tenant)
+            if y is not None:
+                y_ref = x @ weights[tenant].T
+                err = float(torch.sum((y - y_ref) ** 2)
+                            / (torch.sum(y_ref ** 2) + 1e-12))
+            else:
+                err = float("nan")
+            router.tick()
+
+            dists = router.true_distances()
+            trace["t"].append(t)
+            trace["max_dist"].append(max(dists))
+            trace["mean_dist"].append(sum(dists) / len(dists))
+            trace["serve_err"].append(err)
+            trace["n_recalibrating"].append(
+                sum(c.status == RECALIBRATING for c in router.chips))
+            trace["served_chip"].append(-1 if chip_id is None else chip_id)
+            trace["served_tenant"].append(tenant)
+            # single-tenant: the per-chip readout is the tenant readout
+            trace["tenant_dist"].append(
+                [[d] for d in dists] if tenants == 1
+                else router.true_tenant_distances())
+
+            if verbose:
+                for ev in router.events[n_events:]:
+                    print(f"[t={ev['tick']:4d}] {_fmt_event(ev)}")
+                n_events = len(router.events)
+
+        report = router.report()
+    finally:
+        router.close()
+    return dict(trace=trace, report=report, config=dict(
+        chips=n_chips, steps=steps, dim=dim, batch=batch, seed=seed,
+        tenants=tenants, recal_enabled=recal_enabled, k=cfg.k,
+        alarm_threshold=cfg.monitor.alarm_threshold,
+        clear_threshold=cfg.monitor.clear_threshold,
+        sigma_drift=cfg.drift.sigma_phase,
+        driver=cfg.driver_kind, router_policy=cfg.router_policy,
+        auto_budget=cfg.recal.auto_budget, device=str(dev)))
+
+
+def cotenant_shifts(trace: dict, events: list[dict],
+                    recal_latency: int) -> list[dict]:
+    """For each completed recal, how far every co-resident tenant's TRUE
+    distance moved across the repair window (job start → job done).
+
+    The partial-recal invariant says co-tenants' commanded state is
+    untouched; their true distance can still move by natural drift over
+    the window, so the shift should sit within the per-window drift
+    noise — this is the quantity the multi-tenant benchmark bounds.
+    """
+    out = []
+    td = trace["tenant_dist"]
+    for ev in events:
+        if ev["event"] != "recal_done":
+            continue
+        t_done = ev["tick"] - 1                      # trace index of done
+        t_start = max(0, t_done - recal_latency)     # ≈ job-start index
+        chip = ev["chip"]
+        n_tenants = len(td[t_done][chip])
+        for j in range(n_tenants):
+            if j == ev.get("tenant", 0):
+                continue
+            out.append(dict(
+                tick=ev["tick"], chip=chip, recal_tenant=ev.get("tenant", 0),
+                cotenant=j, dist_pre=td[t_start][chip][j],
+                dist_post=td[t_done][chip][j],
+                shift=td[t_done][chip][j] - td[t_start][chip][j]))
+    return out
+
+
+def isolation_band(noise: float, fallback: float) -> float:
+    """Co-tenant shift tolerance from the empirical drift noise: both
+    the worst co-tenant shift and the worst repair-free shift are maxima
+    of the same drift distribution, so allow 2× headroom; fall back to
+    ``fallback`` when no repair-free window existed to estimate from."""
+    return 2.0 * noise + 1e-3 if noise > 0 else fallback
+
+
+def drift_noise_band(trace: dict, events: list[dict],
+                     recal_latency: int) -> float:
+    """Largest |Δ true distance| over any repair-free window of
+    ``recal_latency`` ticks, across every (chip, tenant) — the natural
+    per-window drift scale co-tenant shifts are judged against."""
+    td = trace["tenant_dist"]
+    done = {(ev["chip"], ev["tick"]) for ev in events
+            if ev["event"] == "recal_done"}
+    worst = 0.0
+    for t_start in range(0, len(td) - recal_latency):
+        t_done = t_start + recal_latency
+        for chip in range(len(td[0])):
+            if any((chip, tk) in done
+                   for tk in range(t_start + 2, t_done + 2)):
+                continue        # a repair landed on this chip this window
+            for j in range(len(td[t_start][chip])):
+                shift = abs(td[t_done][chip][j] - td[t_start][chip][j])
+                worst = max(worst, shift)
+    return worst
+
+
+def _fmt_event(ev: dict) -> str:
+    ten = f".t{ev['tenant']}" if ev.get("tenant") is not None else ""
+    if ev["event"] == "alarm":
+        return (f"ALARM chip {ev['chip']}{ten}: probe distance "
+                f"{ev['distance']:.4f} above threshold")
+    if ev["event"] == "outage":
+        return f"OUTAGE chip {ev['chip']}: offline for {ev['ticks']} ticks"
+    if ev["event"] == "outage_end":
+        return f"OUTAGE chip {ev['chip']}: back online"
+    if ev["event"] == "recal_start":
+        kind = "proactive" if ev.get("proactive") else "partial"
+        return (f"RECAL chip {ev['chip']}{ten}: {kind} job scheduled "
+                f"(chip unroutable)")
+    kind = " (proactive)" if ev.get("proactive") else ""
+    return (f"RECAL chip {ev['chip']}{ten} done{kind}: distance "
+            f"{ev['dist_before']:.4f} → {ev['dist_after']:.4f} "
+            f"({ev['zo_steps']} ZO steps) [{ev['status']}]")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--chips", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--dim", type=int, default=18)
+    ap.add_argument("--k", type=int, default=6)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sigma-drift", type=float, default=0.015)
+    ap.add_argument("--probe-every", type=int, default=10)
+    ap.add_argument("--zo-steps", type=int, default=400)
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="mapped layers time-sharing each chip "
+                         "(per-layer Σ banks + partial recalibration)")
+    ap.add_argument("--driver", default="twin",
+                    choices=["twin", "subprocess", "socket"],
+                    help="device transport: the in-process twin (the "
+                         "stream transports are not ported)")
+    ap.add_argument("--policy", default="drift_aware",
+                    choices=["drift_aware", "accuracy_aware",
+                             "least_served"],
+                    help="dispatch ranking policy")
+    ap.add_argument("--auto-budget", action="store_true",
+                    help="autotune recal ZO steps from d̂ at alarm time")
+    ap.add_argument("--no-recal", action="store_true",
+                    help="open-loop baseline: alarms fire, nothing recovers")
+    ap.add_argument("--autopilot", action="store_true",
+                    help="forecast-driven maintenance: proactive recals "
+                         "before predicted alarm crossings, degradation-"
+                         "rate repair priority (runtime/autopilot.py)")
+    ap.add_argument("--ap-horizon", type=int, default=40,
+                    help="autopilot: proactive window in ticks")
+    ap.add_argument("--ap-trough", type=float, default=0.5,
+                    help="autopilot: load forecast at/below this counts "
+                         "as a trough")
+    ap.add_argument("--ap-budget", type=float, default=None,
+                    help="autopilot: recal PTC-call envelope per window "
+                         "(default: unlimited)")
+    ap.add_argument("--ap-window", type=int, default=200,
+                    help="autopilot: budget window in ticks")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions of the kernels)")
+    args = ap.parse_args(argv)
+    if args.driver != "twin":
+        print(f"--driver {args.driver}: the stream transports are the "
+              f"driver plane, not ported yet (ROADMAP queue 1, item 7)")
+        return 2
+
+    autopilot = None
+    if args.autopilot:
+        from .autopilot import AutopilotConfig
+        autopilot = AutopilotConfig(
+            horizon=args.ap_horizon, trough_load=args.ap_trough,
+            budget_calls=(float("inf") if args.ap_budget is None
+                          else args.ap_budget),
+            budget_window=args.ap_window)
+    cfg = default_runtime_config(k=args.k, sigma_drift=args.sigma_drift,
+                                 probe_every=args.probe_every,
+                                 zo_steps=args.zo_steps,
+                                 driver_kind=args.driver,
+                                 auto_budget=args.auto_budget,
+                                 router_policy=args.policy,
+                                 autopilot=autopilot)
+    out = simulate(args.chips, args.steps, dim=args.dim, batch=args.batch,
+                   seed=args.seed, cfg=cfg, tenants=args.tenants,
+                   recal_enabled=not args.no_recal, verbose=True,
+                   device=args.device)
+    trace, report = out["trace"], out["report"]
+
+    peak = max(trace["max_dist"])
+    final = trace["max_dist"][-1]
+    alarms = sum(c["alarms"] for c in report["chips"])
+    recals = sum(c["recals"] for c in report["chips"])
+    recovered = [ev for ev in report["events"]
+                 if ev["event"] == "recal_done"
+                 and ev["dist_after"] < cfg.monitor.clear_threshold]
+    served = sum(1 for c in trace["served_chip"] if c >= 0)
+    probe_calls = sum(c["probe_ptc_calls"] for c in report["chips"])
+    recal_calls = sum(c["recal_ptc_calls"] for c in report["chips"])
+    serve_calls = sum(c["serve_ptc_calls"] for c in report["chips"])
+
+    print(f"\n--- closed-loop summary ({args.driver} driver, "
+          f"{args.tenants} tenant(s)/chip) ---")
+    print(f"fidelity degraded under drift : peak distance {peak:.4f} "
+          f"(alarm threshold {cfg.monitor.alarm_threshold})")
+    print(f"alarms fired                  : {alarms} "
+          f"(recal jobs completed: {recals})")
+    print(f"recalibration recovered       : "
+          f"{len(recovered)}/{recals} jobs below clear threshold "
+          f"{cfg.monitor.clear_threshold}; final fleet max {final:.4f}")
+    print(f"throughput uninterrupted      : {served}/{args.steps} batches "
+          f"served, {report['dropped']} dropped")
+    print(f"probe overhead                : {probe_calls:.0f} PTC calls "
+          f"({100 * probe_calls / max(serve_calls, 1):.2f}% of serve path)")
+    print(f"recal overhead (out-of-band)  : {recal_calls:.0f} PTC calls")
+    ap_rep = report.get("autopilot")
+    if ap_rep is not None:
+        print(f"autopilot                     : "
+              f"{ap_rep['proactive_recals']} proactive recals, "
+              f"{ap_rep['deferred_trough']} deferred to troughs, "
+              f"{ap_rep['deferred_budget']} deferred on budget")
+    for c in report["chips"]:
+        print(f"  chip {c['chip']}: {c['status']:<8} served={c['served']:4d} "
+              f"d̂={c['distance']:.4f} alarms={c['alarms']} "
+              f"recals={c['recals']}")
+        if args.tenants > 1:
+            for t in c["tenants"]:
+                print(f"    tenant {t['tenant']} blocks"
+                      f"{t['block_range']}: served={t['served']:4d} "
+                      f"d̂={t['distance']:.4f} alarms={t['alarms']} "
+                      f"recals={t['recals']}")
+
+    cotenants_ok = True
+    if args.tenants > 1 and not args.no_recal:
+        shifts = cotenant_shifts(trace, report["events"], cfg.recal_latency)
+        if shifts:
+            worst = max(abs(s["shift"]) for s in shifts)
+            # a partial recal must not cost co-tenants more than their
+            # own per-window drift scale (they were never touched)
+            noise = drift_noise_band(trace, report["events"],
+                                     cfg.recal_latency)
+            band = isolation_band(noise, cfg.monitor.clear_threshold)
+            cotenants_ok = worst <= band
+            print(f"partial-recal isolation       : {len(shifts)} co-tenant "
+                  f"windows, worst |Δd| {worst:.4f} "
+                  f"({'within' if cotenants_ok else 'OUTSIDE'} drift band "
+                  f"{band:.4f})")
+
+    degraded = peak > cfg.monitor.alarm_threshold
+    if args.no_recal:
+        ok = degraded and served == args.steps
+    elif args.autopilot:
+        # proactive maintenance may legitimately prevent every alarm —
+        # require the loop to have *worked* (jobs ran and recovered),
+        # not that it waited for the damage first
+        ok = (recals > 0 and len(recovered) > 0
+              and served == args.steps and cotenants_ok)
+    else:
+        ok = (degraded and alarms > 0 and recals > 0
+              and len(recovered) > 0 and served == args.steps
+              and cotenants_ok)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
