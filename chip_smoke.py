@@ -20,6 +20,8 @@
                                                # whisper-base, the vlm
     python3 chip_smoke.py --phases closed_loop # drift, alarms and repairs
                                                # on a two-chip fleet
+    python3 chip_smoke.py --phases hw_serve    # whisper-base's PTC layers
+                                               # served through two chips
 
 Phases:
 
@@ -105,13 +107,13 @@ Phases:
 9. ``families`` — the ssm, hybrid and MoE families on the serving
    paths, none of which launches a kernel of the seven (the reference
    computes the scan, the recurrence and the MoE dispatch in plain jnp):
-   falcon-mamba-7b at full width, depth cut to 16 of 64 layers (bf16
+   falcon-mamba-7b at full width, depth cut to 8 of 64 layers (bf16
    bases, k = 128, seeded on the card) through ``launch.serve.run`` (batch 4,
    prompt 32, 32 new tokens) and the gateway (8 slots, prefill chunk 1,
    8 Poisson requests), timed; the gateway's last-prompt logits against
    the solo path's (``SERVE_TOL``); one layer's chunked scan against 64
    steps of its recurrence (``SCAN_TOL``); qwen3-moe-30b-a3b at full
-   width, depth cut to 4 of 48 layers, solo serve timed and one layer's
+   width, depth cut to 2 of 48 layers, solo serve timed and one layer's
    dispatch against the dense combine of each token's top-8 experts
    (``MOE_TOL``); at smoke width in fp32, falcon-mamba's requests served
    alone against its gateway, and jamba, qwen3-moe and moonshot stepped
@@ -137,10 +139,27 @@ Phases:
    + 6 layers, k = 64, 8 x 512 tokens) two steps on the k = 64
    tensor-core routes, one step against its plain versions (the same
    limits), and its solo serve path with ``enc_out``;
-   llama-3.2-vision-11b at full width, 10 of 40 layers, served through
+   llama-3.2-vision-11b at full width, 5 of 40 layers, served through
    ``launch.serve.run`` with 1,024 image tokens, its teacher-forced
    logits against ``forward``'s (``DECODE_TOL``); ``launch.train`` at
    smoke:olmo-1b with a checkpoint resume.
+12. ``hw_serve`` — hardware-in-the-loop LM serving (run after
+   ``closed_loop``): leg A serves whisper-base at full width and depth
+   (6 decoder layers, d_model 512, d_ff 2048, k = 64, fp32 bases) through
+   ``launch.serve.run --hw-logits`` on 2 chips of k = 8 (66 tenants,
+   491,520 blocks a chip), batch 4, prompt 16, 16 new tokens, σ_drift 0:
+   42 frames a step, no shadow call, the deploy, step and tick stages
+   launching the routes ``STAGE_KERNELS`` names; the routed tokens
+   teacher-forced through the shadow transfer of each step's chip, and
+   the first 4 steps recomputed from the deployed state with the plain
+   versions, both within ``HW_TOL`` of the largest logit.  Leg B serves
+   one of the six decoder layers for 64 steps under drift
+   (``CLOSED_LOOP_SIGMA``) with the closed loop on: an alarm, repairs that
+   clear below the alarm threshold, every pass accounted.  Leg C runs the
+   port's ``fleet_autopilot`` benchmark through its runner (its gates
+   beside the reference's CPU values; its gateway leg must complete with
+   load samples) and chunked prefill through the hw gateway (chunk 4
+   emits the chunk-1 tokens in fewer frames).
 
 Every stage of a main path prints its wall time and its launches of each
 kernel, and must have launched each kernel it uses (``STAGE_KERNELS``),
@@ -174,8 +193,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "parity", "full", "closed_loop", "vgg8", "blocked_lm",
-          "train", "gateway", "serve", "families", "tables")
+PHASES = ("kernels", "parity", "full", "closed_loop", "hw_serve", "vgg8",
+          "blocked_lm", "train", "gateway", "serve", "families", "tables")
 # the kernels each stage of quickstart.run launches, and each busy step of
 # serving gateway.  ptc_block_matmul has two routes, each counted under its
 # own name: the IC/PM probes take the per-block route
@@ -200,6 +219,13 @@ STAGE_KERNELS = {
     "cl_deploy": ("mesh_apply", "ptc_block_matmul_perblock"),
     "cl_tick": ("mesh_apply", "ptc_block_matmul", "ptc_block_matmul_perblock"),
     "cl_recal": ("mesh_apply", "ptc_block_matmul_perblock"),
+    # hardware-in-the-loop serving: the deploy (PM's readouts and basis
+    # readbacks, the shadow's readback), a routed decode step's PTC layers
+    # (each tenant's realization and its product over the tenant's grid)
+    # and the ticks between steps (health probes on the per-block route)
+    "hw_deploy": ("mesh_apply", "ptc_block_matmul_perblock"),
+    "hw_step": ("mesh_apply", "ptc_block_matmul"),
+    "hw_tick": ("mesh_apply", "ptc_block_matmul_perblock"),
 }
 PTC_ROUTES = ("ptc_block_matmul", "ptc_block_matmul_perblock")
 QUICKSTART_STAGES = ("ic", "pm", "serve", "sl", "serve_sl")
@@ -2095,7 +2121,7 @@ def closed_loop_phase(torch, weights=None) -> dict:
     n_blocks = chips[0].driver.n_blocks
     floors = [[t.health.distance for t in c.tenants] for c in chips]
     print(f"[closed_loop] deploy (make_fleet: PM of both tenants on each "
-          f"chip, its host decomposition loop once per chip): "
+          f"chip, its batched decomposition once per chip): "
           f"{deploy_s:.2f} s, {n_blocks} blocks a chip; deployment floor "
           f"(PM after OSP) " + ", ".join(
               f"chip {i} {f[0]:.5f} / {f[1]:.5f}"
@@ -3332,17 +3358,24 @@ def serve_step_profile(torch, cfg, params, batch: int) -> None:
                                      for name, ms in split[:3]))
 
 
-# falcon-mamba-7b's depth in the families phase: its 64 layers took 70-100
-# s to seed and most of the phase's 162-170 s on the H100; with the train
-# phase added, 32 of them kept the whole script near half its time limit
-# (586-600 s), and with the closed loop's deploy (about 47 s of PM) added,
-# 16 do.  Every layer has the same width and block grids
-FALCON_LAYERS = 16
+# the depth of three earlier paths, cut as phases were added to keep the
+# whole script near half its time limit.  falcon-mamba-7b's 64 layers took
+# 70-100 s to seed and most of the families phase's 162-170 s on the H100;
+# with the train phase added, 32 of them kept the script at 586-600 s,
+# with the closed loop 16 did (568.7 s), and with the hw_serve phase (75.1
+# s) the script read 656.5 s on a host that ran the tables 41% slower than
+# the run before, so falcon-mamba-7b keeps 8 layers, qwen3-moe-30b-a3b 2 of
+# 48 (4 before) and llama-3.2-vision-11b one period of 5 layers, one with
+# cross-attention (2 periods before).  Every layer of a model has the same
+# width and block grids
+FALCON_LAYERS = 8
+MOE_LAYERS = 2
+VLM_PERIODS = 1
 
 
 def falcon_mamba_phase(torch) -> None:
     """falcon-mamba-7b at full width (bf16 bases, k = 128) with its depth
-    cut to 16 of 64 layers (``FALCON_LAYERS``), seeded on the card: the
+    cut to 8 of 64 layers (``FALCON_LAYERS``), seeded on the card: the
     solo serve path (batch 4, prompt 32, 32 new tokens) and the gateway
     (8 slots, prefill chunk 1, 8 Poisson requests) timed; the gateway's
     last-prompt logits against the solo path's; one layer's chunked scan
@@ -3517,8 +3550,8 @@ def falcon_mamba_phase(torch) -> None:
 
 def qwen3_moe_phase(torch) -> None:
     """qwen3-moe-30b-a3b at full width (128 experts, top-8, bf16 bases,
-    k = 128) with its depth cut to 4 of 48 layers (48 do not fit one
-    card): the solo serve path timed, and one layer's dispatch at decode
+    k = 128) with its depth cut to 2 of 48 layers (``MOE_LAYERS``; 48 do
+    not fit one card): the solo serve path timed, and one layer's dispatch at decode
     against the dense combine of each token's top-k experts."""
     import argparse
     import dataclasses
@@ -3529,7 +3562,7 @@ def qwen3_moe_phase(torch) -> None:
 
     dev = torch.device("cuda")
     full = get_config("qwen3-moe-30b-a3b")
-    cfg = dataclasses.replace(full, n_layers=4)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
     params = card_params(torch, cfg, (
         f"{cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, "
@@ -4075,8 +4108,9 @@ def whisper_train(torch) -> None:
 
 
 def vlm_serve(torch) -> None:
-    """llama-3.2-vision-11b at full width, depth cut to 2 of 8 periods (10
-    of 40 layers, 2 of them with cross-attention), fused PTC with bf16
+    """llama-3.2-vision-11b at full width, depth cut to 1 of 8 periods (5
+    of 40 layers, 1 of them with cross-attention; ``VLM_PERIODS``), fused
+    PTC with bf16
     bases: the solo serve path through ``launch.serve.run`` (batch 4,
     prompt 32, 16 new tokens, 1,024 image tokens), its teacher-forced
     logits against ``forward``'s on the same prompts and image tokens."""
@@ -4090,7 +4124,8 @@ def vlm_serve(torch) -> None:
 
     dev = torch.device("cuda")
     full = get_config("llama-3.2-vision-11b")
-    cfg = dataclasses.replace(full, n_layers=2 * full.cross_attn_period)
+    cfg = dataclasses.replace(full,
+                              n_layers=VLM_PERIODS * full.cross_attn_period)
     params = card_params(torch, cfg, (
         f"{cfg.n_layers} of {full.n_layers} layers ({cfg.n_layers // cfg.
         cross_attn_period} with cross-attention), d_model {cfg.d_model}, "
@@ -4170,6 +4205,525 @@ def train_phase(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: hardware-in-the-loop LM serving
+# ---------------------------------------------------------------------------
+
+# the fleet's block size for hw-logits serving, the reference's own choice
+# (benchmarks/e2e_accuracy.py:53, benchmarks/fleet_autopilot.py:258)
+HW_FLEET_K = 8
+HW_CHIPS = 2
+HW_BATCH, HW_PROMPT, HW_GEN = 4, 16, 16
+# leg B: one of whisper-base's six decoder layers under drift, the closed
+# loop on, for this many decode steps (a tick each)
+HW_DRIFT_LAYERS = 1
+HW_DRIFT_STEPS = 64
+# leg A's first steps recomputed with the plain versions
+HW_PLAIN_STEPS = 4
+# routed against shadow and kernels against plain versions: max |logit
+# difference| over the largest |logit| at each step.  Both sides compute
+# every PTC product in fp32 from one realized transfer, in another
+# summation order (about 1e-6 of a product's largest entry a layer); the
+# dense KV cache holds K/V in bf16, so a new row whose fp32 value sits at a
+# bf16 rounding tie may round either way, which moved a step's logits by up
+# to 3e-4 of the largest between two devices serving one fp32 state (the
+# families phase's moonshot check).  On an H100 routed against shadow read
+# 1.17e-4 and the plain versions 2.03e-4; argmaxes must agree wherever the
+# routed top-2 gap exceeds the limit
+HW_TOL = 1e-3
+HW_KERNELS = ("mesh_apply", "ptc_block_matmul", "ptc_block_matmul_perblock")
+HW_STAGES = ("hw_deploy", "hw_step", "hw_tick")
+# the reference's fleet_autopilot at --budget quick on a CPU, as its
+# committed bench_artifacts/BENCH_fleet_autopilot.json records it
+REFERENCE_AUTOPILOT = dict(
+    alarms=(40, 20), recals=(40, 60), mean_err=(0.03120, 0.02588),
+    slo=(0.9702, 0.9085), gateway_tokens=(81, 81), load_samples=44,
+    sensitivity_rank_ok=True)
+
+
+def _hw_counts() -> dict:
+    from repro_torch.kernels import build
+    return {k: build.launch_counts[k] for k in HW_KERNELS}
+
+
+def _add_counts(into: dict, c0: dict) -> None:
+    for k, v in _hw_counts().items():
+        into[k] += v - c0[k]
+
+
+def _instrument_plane(torch, plane) -> dict:
+    """Time and count a plane's steps, its router's ticks and repairs, and
+    record the chip each pass was routed to (instance attributes wrap the
+    plane's and the router's own methods)."""
+    st = dict(step_walls=[], tick_walls=[], recal_walls=[], chips=[],
+              step=dict.fromkeys(HW_KERNELS, 0),
+              tick=dict.fromkeys(HW_KERNELS, 0))
+    router = plane.router
+    tick, route_pass, finish = router.tick, router.route_pass, \
+        router._finish_recal
+    step = plane.step
+
+    def timed_tick(dt=1.0):
+        c0 = _hw_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick(dt)
+        torch.cuda.synchronize()
+        st["tick_walls"].append(time.perf_counter() - t0)
+        _add_counts(st["tick"], c0)
+
+    def routed():
+        chip = route_pass()
+        st["chips"].append(None if chip is None else chip.chip_id)
+        return chip
+
+    def timed_finish(chip):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finish(chip)
+        torch.cuda.synchronize()
+        st["recal_walls"].append(time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def timed_step(i, valid=None):
+        c0 = _hw_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with step(i, valid):
+            yield
+        torch.cuda.synchronize()
+        st["step_walls"].append(time.perf_counter() - t0)
+        _add_counts(st["step"], c0)
+
+    router.tick, router.route_pass = timed_tick, routed
+    router._finish_recal, plane.step = timed_finish, timed_step
+    return st
+
+
+@contextlib.contextmanager
+def hw_instrument(torch, snapshot: bool = False):
+    """Every ``HwServePlane`` built in the block (by ``launch.serve``, the
+    gateway or the seam) is kept with its deploy wall, the batched
+    decomposition's share of it, its deploy launches, its step/tick stats
+    and (``snapshot``) the fleet's state right after deploying it."""
+    from repro_torch.core import unitary
+    from repro_torch.runtime import hw_serve
+
+    rec = dict(planes=[], deploy_s=[], decompose_s=[], deploy=[], stats=[],
+               snap=[])
+    orig_init, orig_dec = hw_serve.HwServePlane.__init__, \
+        unitary.decompose_batched
+    dec = [0.0]
+
+    def decompose(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_dec(*a, **kw)
+        torch.cuda.synchronize()
+        dec[0] += time.perf_counter() - t0
+        return out
+
+    def init(self, *a, **kw):
+        c0, dec[0] = _hw_counts(), 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_init(self, *a, **kw)
+        torch.cuda.synchronize()
+        rec["deploy_s"].append(time.perf_counter() - t0)
+        rec["decompose_s"].append(dec[0])
+        rec["deploy"].append(dict.fromkeys(HW_KERNELS, 0))
+        _add_counts(rec["deploy"][-1], c0)
+        rec["snap"].append(_fleet_snapshot(self.router.chips)
+                           if snapshot else None)
+        rec["stats"].append(_instrument_plane(torch, self))
+        rec["planes"].append(self)
+
+    hw_serve.HwServePlane.__init__ = init
+    unitary.decompose_batched = decompose
+    try:
+        yield rec
+    finally:
+        hw_serve.HwServePlane.__init__ = orig_init
+        unitary.decompose_batched = orig_dec
+
+
+class PerStepShadow:
+    """A layer-execution plane that serves step ``i`` from the shadow plane
+    of the chip the routed run sent step ``i`` to."""
+
+    def __init__(self, planes: dict, chip_of_step: list):
+        self.planes, self.chip_of_step = planes, chip_of_step
+        self.cur = None
+
+    def hook(self, *a):
+        return self.planes[self.cur].hook(*a)
+
+    @contextlib.contextmanager
+    def step(self, i, valid=None):
+        self.cur = self.chip_of_step[i]
+        with self.planes[self.cur].step(i, valid):
+            yield
+
+
+def logit_agreement(got: list, want, what: str) -> tuple[float, int]:
+    """Per step max |got − want| over the largest |want| within HW_TOL,
+    and the argmax equal wherever want's top-2 gap exceeds HW_TOL of its
+    largest; returns (worst error, rows that were near-ties)."""
+    import numpy as np
+    worst, ties = 0.0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        scale = np.abs(w).max()
+        err = float(np.abs(g - w).max() / scale)
+        worst = max(worst, err)
+        check(err < HW_TOL, f"{what}: step {i} logits differ by {err:.2e} "
+                            f"of the largest (tol {HW_TOL})")
+        top2 = np.sort(w, axis=-1)[:, -2:]
+        gap = (top2[:, 1] - top2[:, 0]) > HW_TOL * scale
+        ties += int((~gap).sum())
+        same = g.argmax(-1) == w.argmax(-1)
+        check(bool(same[gap].all()),
+              f"{what}: step {i} argmax differs where the top-2 gap exceeds "
+              f"the tolerance")
+    return worst, ties
+
+
+def _stage_check(counts: dict, name: str) -> None:
+    print(f"[hw_serve] stage {name}: launches "
+          + ", ".join(f"{k}={counts[k]}" for k in HW_KERNELS))
+    for kernel in STAGE_KERNELS[name]:
+        check(counts[kernel] > 0,
+              f"hw_serve: {kernel} was not launched in {name}")
+    for kernel in PTC_ROUTES:
+        check(kernel in STAGE_KERNELS[name] or counts[kernel] == 0,
+              f"hw_serve: {name} launched {kernel} {counts[kernel]} times, "
+              f"not the route its entry names")
+
+
+def _hw_args(cfg, params, **over):
+    import argparse
+    base = dict(arch=cfg, batch=HW_BATCH, prompt_len=HW_PROMPT, gen=HW_GEN,
+                seed=0, fleet=HW_CHIPS, drift=False, drift_sigma=0.0,
+                probe_every=10, fleet_k=HW_FLEET_K, fleet_dim=18,
+                fleet_tenants=1, fleet_driver="twin", hw_logits=True,
+                hw_shadow=False, deploy_zo=False, no_recal=False,
+                trace_logits=True, device="cuda", params_override=params)
+    base.update(over)
+    return argparse.Namespace(**base)
+
+
+def _enc_out(torch, cfg):
+    """The serve driver's stub encoder output (B, prompt_len, d) of 0.1."""
+    return 0.1 * torch.ones((HW_BATCH, HW_PROMPT, cfg.d_model),
+                            device="cuda")
+
+
+def hw_leg_a(torch, cfg, params) -> dict:
+    """whisper-base at full width and depth through ``launch.serve.run``
+    with ``--hw-logits`` on 2 chips (σ = 0); routed against shadow from the
+    same deployment; its first steps against the plain versions."""
+    import numpy as np
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import greedy_decode
+    from repro_torch.models import lm
+    from repro_torch.runtime.hw_serve import HwServePlane
+
+    n_tenants = 11 * cfg.n_layers
+    build.reset_launch_counts()
+    with hw_instrument(torch, snapshot=True) as rec:
+        t0 = time.perf_counter()
+        out = serve.run(_hw_args(cfg, params))
+        run_s = time.perf_counter() - t0
+    counts = _hw_counts()
+    plane, st = rec["planes"][0], rec["stats"][0]
+    chips = plane.router.chips
+    rep = out["report"]
+    hw = rep["hw"]
+    n_steps = HW_PROMPT + HW_GEN - 1
+    blocks = chips[0].driver.n_blocks
+    print(f"[hw_serve] leg A: {cfg.name} at full width and depth ({cfg.n_layers}"
+          f" decoder layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}), "
+          f"--hw-logits on {HW_CHIPS} chips of k = {HW_FLEET_K}: "
+          f"{len(hw['layers'])} PTC layers as tenants, {blocks} blocks a "
+          f"chip; batch {HW_BATCH}, prompt {HW_PROMPT}, {HW_GEN} new "
+          f"tokens, sigma_drift 0")
+    check(len(hw["layers"]) == n_tenants,
+          f"hw_serve: {len(hw['layers'])} tenants, expected {n_tenants}")
+    check(blocks == 81_920 * cfg.n_layers,
+          f"hw_serve: {blocks} blocks a chip")
+    deploy_s, dec_s = rec["deploy_s"][0], rec["decompose_s"][0]
+    print(f"[hw_serve] deploy (make_fleet: PM of {n_tenants} tenants on each "
+          f"of {HW_CHIPS} chips, and the shadow readback): {deploy_s:.2f} s, "
+          f"of which the batched decomposition {dec_s:.2f} s "
+          f"({dec_s / HW_CHIPS:.2f} s a chip, {2 * blocks} decompositions "
+          f"a chip) and the rest {deploy_s - dec_s:.2f} s; serve.run "
+          f"{run_s:.2f} s in all")
+    stage = {"hw_deploy": rec["deploy"][0], "hw_tick": st["tick"],
+             "hw_step": {k: st["step"][k] - st["tick"][k]
+                         for k in HW_KERNELS}}
+    for name in HW_STAGES:
+        _stage_check(stage[name], name)
+    check(sum(sum(stage[s].values()) for s in HW_STAGES)
+          == sum(counts.values()), "hw_serve: launches outside the stages")
+    walls = st["step_walls"]
+    warm = sorted(walls[1:])[len(walls[1:]) // 2]
+    print(f"[hw_serve] {hw['steps']} steps: first {1e3 * walls[0]:.1f} ms, "
+          f"warm median {1e3 * warm:.1f} ms (min {1e3 * min(walls):.1f}, max "
+          f"{1e3 * max(walls):.1f}), ticks median "
+          f"{1e3 * sorted(st['tick_walls'])[len(walls) // 2]:.1f} ms; per "
+          f"step " + ", ".join(f"{k} {stage['hw_step'][k] / hw['steps']:.1f}"
+                               for k in HW_KERNELS)
+          + f"; {out['tokens_per_s']:.1f} tokens/s")
+    print(f"[hw_serve] frames {hw['frames']} ({hw['frames_per_step']:.1f} a "
+          f"step), columns a frame {hw['cols_per_frame']:.2f}, hw_calls "
+          f"{hw['hw_calls']}, shadow_calls {hw['shadow_calls']}, "
+          f"dropped_passes {hw['dropped_passes']}; passes per chip "
+          + ", ".join(f"{c}: {st['chips'].count(c)}"
+                      for c in sorted(set(st["chips"]), key=str)))
+    check(hw["steps"] == n_steps, f"hw_serve: {hw['steps']} steps")
+    check(hw["frames_per_step"] == 7.0 * cfg.n_layers,
+          f"hw_serve: {hw['frames_per_step']} frames a step, expected "
+          f"{7 * cfg.n_layers} (self qkv, wo, cross wq, cross kv, cross wo, "
+          f"gateup, down a layer)")
+    check(hw["dropped_passes"] == 0 and hw["shadow_calls"] == 0,
+          "hw_serve: a pass went to the shadow at sigma 0")
+    check(hw["hw_calls"] == n_tenants * n_steps,
+          f"hw_serve: {hw['hw_calls']} hw calls")
+    check(None not in st["chips"], "hw_serve: a pass found no chip")
+
+    # routed against shadow: the routed run's tokens teacher-forced through
+    # the shadow transfer of the chip each step was routed to
+    dev = torch.device("cuda")
+    shadows = {c: HwServePlane(None, plane.layers, plane.router.cfg, 1,
+                               mode="shadow", chips=[chips[c]])
+               for c in sorted(set(st["chips"]))}
+    prompt = lm_batch(0, 0, HW_BATCH, HW_PROMPT, cfg.vocab)["tokens"]
+    seq = np.concatenate([prompt, out["gen"][:, :-1]], axis=1)
+    shadow_logits = []
+    greedy_decode(lm.build_serve_step(cfg), params,
+                  lm.init_decode_cache(cfg, HW_BATCH, seq.shape[1] + 1,
+                                       device=dev),
+                  seq, 1, extras={"enc_out": _enc_out(torch, cfg)},
+                  layer_exec=PerStepShadow(shadows, st["chips"]),
+                  logits_out=shadow_logits)
+    for c, sp in shadows.items():
+        srep = sp.report()["hw"]
+        check(srep["hw_calls"] == 0 and srep["shadow_calls"] > 0,
+              "hw_serve: the shadow run reached a chip")
+    worst, ties = logit_agreement(out["logits"], shadow_logits,
+                                  "hw_serve routed vs shadow")
+    print(f"[hw_serve] routed against shadow (the same deployment, the routed "
+          f"tokens teacher-forced through each step's chip's readback "
+          f"transfer): {len(shadow_logits)} steps, logits within "
+          f"{worst:.2e} of the largest (tol {HW_TOL}), argmax equal but for "
+          f"{ties} near-tie rows (top-2 gap within the tolerance)")
+
+    # the first steps from the same deployed state, plain versions
+    _fleet_restore(chips, rec["snap"][0])
+    plain_plane = HwServePlane(None, plane.layers, plane.router.cfg,
+                               len(chips), mode="route", seed=0, chips=chips)
+    plain_logits = []
+    t0 = time.perf_counter()
+    with plain_kernels(torch, "hw_serve plain"):
+        greedy_decode(lm.build_serve_step(cfg), params,
+                      lm.init_decode_cache(cfg, HW_BATCH, HW_PLAIN_STEPS + 1,
+                                           device=dev),
+                      prompt[:, :HW_PLAIN_STEPS + 1], 0,
+                      extras={"enc_out": _enc_out(torch, cfg)},
+                      layer_exec=plain_plane, logits_out=plain_logits)
+    plain_s = time.perf_counter() - t0
+    worst_p, ties_p = logit_agreement(
+        plain_logits, out["logits"][:HW_PLAIN_STEPS], "hw_serve plain")
+    check(plain_plane.report()["hw"]["hw_calls"] == n_tenants * HW_PLAIN_STEPS,
+          "hw_serve plain: a pass left the chips")
+    print(f"[hw_serve] kernels against plain versions: the first "
+          f"{HW_PLAIN_STEPS} routed steps recomputed from the deployed state "
+          f"with the plain versions ({plain_s:.2f} s): logits within "
+          f"{worst_p:.2e} of the largest (tol {HW_TOL}), {ties_p} near-tie "
+          f"rows")
+    for p in list(shadows.values()) + [plain_plane]:
+        p.close()
+    return dict(stage=stage, launches=counts, deploy_s=deploy_s,
+                decompose_s=dec_s, warm_ms=1e3 * warm)
+
+
+def hw_leg_b(torch, full) -> None:
+    """One of whisper-base's decoder layers at full width under drift with
+    the closed loop on: alarms, repairs that clear, every pass accounted."""
+    import dataclasses
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(full, n_layers=HW_DRIFT_LAYERS)
+    params = card_params(torch, cfg, f"{HW_DRIFT_LAYERS} of {full.n_layers} "
+                                     f"decoder layers, d_model {cfg.d_model}")
+    gen = HW_DRIFT_STEPS - HW_PROMPT + 1
+    with hw_instrument(torch) as rec:
+        t0 = time.perf_counter()
+        out = serve.run(_hw_args(cfg, params, gen=gen, drift=True,
+                                 drift_sigma=CLOSED_LOOP_SIGMA,
+                                 trace_logits=False))
+        run_s = time.perf_counter() - t0
+    st, rep = rec["stats"][0], out["report"]
+    hw = rep["hw"]
+    n_ten = 11 * cfg.n_layers
+    blocks = rec["planes"][0].router.chips[0].driver.n_blocks
+    cfg_rt = rec["planes"][0].router.cfg
+    print(f"[hw_serve] leg B: {HW_DRIFT_LAYERS} decoder layer, {n_ten} "
+          f"tenants, {blocks} blocks a chip; sigma_drift {CLOSED_LOOP_SIGMA}, "
+          f"probes every {cfg_rt.probe_every} ticks, alarm "
+          f"{cfg_rt.monitor.alarm_threshold} x{cfg_rt.monitor.consecutive}, "
+          f"clear {cfg_rt.monitor.clear_threshold}; {hw['steps']} steps in "
+          f"{run_s:.2f} s (deploy {rec['deploy_s'][0]:.2f} s)")
+    for ev in rep["events"]:
+        if ev["event"] in ("alarm", "recal_done"):
+            print(f"[hw_serve] event t={ev['tick']}: " + ", ".join(
+                f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in ev.items() if k != "tick"))
+    ticks = sorted(st["tick_walls"])
+    recal = st["recal_walls"]
+    per_tick = 56 * blocks           # 2 meshes of 28 phase biases a block
+    print(f"[hw_serve] ticks median {1e3 * ticks[len(ticks) // 2]:.1f} ms "
+          f"(max {1e3 * ticks[-1]:.1f}, repairs inside); {len(recal)} "
+          f"repairs of {min(recal, default=0):.2f}-{max(recal, default=0):.2f}"
+          f" s; drift normals a chip a tick {per_tick / 1e6:.2f} M here, "
+          f"{56 * 491_520 / 1e6:.1f} M at 6 layers (491,520 x 56), against "
+          f"1.9 M in the closed_loop phase")
+    print(f"[hw_serve] hw_calls {hw['hw_calls']}, shadow_calls "
+          f"{hw['shadow_calls']}, dropped_passes {hw['dropped_passes']}, "
+          f"frames {hw['frames_per_step']:.1f} a step")
+    alarms = [ev for ev in rep["events"] if ev["event"] == "alarm"]
+    dones = [ev for ev in rep["events"] if ev["event"] == "recal_done"]
+    check(alarms, "hw_serve leg B: no alarm fired")
+    check(dones, "hw_serve leg B: no repair landed")
+    thr = cfg_rt.monitor.alarm_threshold
+    check(all(ev["dist_after"] < thr for ev in dones),
+          f"hw_serve leg B: a repair did not clear below {thr}")
+    check(hw["hw_calls"] + hw["shadow_calls"] == n_ten * hw["steps"],
+          "hw_serve leg B: a pass went unaccounted")
+    check(hw["steps"] == HW_DRIFT_STEPS, f"hw_serve leg B: {hw['steps']}")
+
+
+def hw_leg_c(torch) -> None:
+    """The port's fleet_autopilot through its runner on the card (its
+    gateway leg: smoke:qwen3-4b, --hw-logits --autopilot); chunked prefill
+    through the hw gateway against the one-token path."""
+    import argparse
+    import numpy as np
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.models import layers, lm
+    from repro_torch.serving import Request
+    from repro_torch.serving.gateway import run as gw_run
+
+    recs = bench_run.run("quick", only="fleet_autopilot", device="cuda",
+                         benches=bench_run.RUNTIME)
+    s = recs[0]["tables"]["summary"]
+    ref = REFERENCE_AUTOPILOT
+    base, ap, gw = s["reactive"], s["autopilot"], s["gateway"]
+    print(f"[hw_serve] fleet_autopilot (quick) {recs[0]['seconds']:.1f} s: "
+          f"alarms {base['alarms']} / {ap['alarms']} (reference CPU "
+          f"{ref['alarms'][0]} / {ref['alarms'][1]}), recals {base['recals']}"
+          f" / {ap['recals']} ({ref['recals'][0]} / {ref['recals'][1]}), "
+          f"mean err {base['mean_err']:.5f} / {ap['mean_err']:.5f} "
+          f"({ref['mean_err'][0]} / {ref['mean_err'][1]}), SLO "
+          f"{base['slo_attainment']:.4f} / {ap['slo_attainment']:.4f} "
+          f"({ref['slo'][0]} / {ref['slo'][1]}), sensitivity rank "
+          f"{s['sensitivity']['rank_ok']} ({ref['sensitivity_rank_ok']}); "
+          f"gates " + ", ".join(f"{k}={v}" for k, v in s["gates"].items()))
+    print(f"[hw_serve] fleet_autopilot gateway leg: {gw['tokens_out']}/"
+          f"{gw['expected_tokens']} tokens (reference {ref['gateway_tokens'][0]}"
+          f"/{ref['gateway_tokens'][1]}), load samples "
+          f"{gw['autopilot']['load_samples']} ({ref['load_samples']}), "
+          f"{gw['hw']['frames_per_step']:.1f} frames a step, hw_calls "
+          f"{gw['hw']['hw_calls']}, shadow_calls {gw['hw']['shadow_calls']}, "
+          f"{gw['wall_s']:.2f} s; launches over the benchmark "
+          + ", ".join(f"{k}={v}" for k, v in recs[0]["launches"].items()))
+    check(all(s["gates"].values()), "hw_serve: a fleet_autopilot gate failed")
+    check(gw["complete"] and gw["autopilot"]["load_samples"] > 0,
+          "hw_serve: the fleet_autopilot gateway leg did not complete")
+
+    # chunked prefill through the hw gateway (tests/test_chunked_prefill.py
+    # :240-277 on the card): chunk 4 emits the chunk-1 tokens in fewer frames
+    arch = lm.ArchConfig(name="hwtest", family="dense", n_layers=1,
+                         d_model=32, n_heads=2, n_kv_heads=1, d_ff=48,
+                         vocab=64, head_dim=16, remat=False,
+                         ptc=layers.PTCLinearCfg(k=8,
+                                                 base_dtype=torch.float32))
+    params = lm.init_model(torch.Generator("cuda").manual_seed(5), arch)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, arch.vocab, size=(int(rng.integers(6, 14)),)).astype(np.int32),
+        max_new=2, arrival=i) for i in range(3)]
+    reps = {}
+    for chunk in (1, 4):
+        reps[chunk] = gw_run(argparse.Namespace(
+            arch=arch, seed=5, slots=3, requests=3, rate=1.0, page_size=4,
+            pages=24, max_pages_per_slot=4, max_new=(2, 4), eos_id=None,
+            prefill_chunk=chunk, fleet=2, drift=False, drift_sigma=0.0,
+            probe_every=4, fleet_k=8, fleet_driver="twin", hw_logits=True,
+            hw_shadow=False, deploy_zo=False, no_recal=True,
+            params_override=params, device="cuda",
+            requests_override=[Request(rid=r.rid, prompt=r.prompt,
+                                       max_new=r.max_new, arrival=r.arrival)
+                               for r in reqs]))
+    toks = {c: [r["tokens"] for r in reps[c]["requests"]] for c in reps}
+    hw1, hw4 = reps[1]["fleet"]["hw"], reps[4]["fleet"]["hw"]
+    print(f"[hw_serve] chunked prefill, hw gateway on the card: chunk 1 "
+          f"{hw1['frames']} frames ({hw1['frames_per_step']:.1f} a step, "
+          f"{hw1['cols_per_frame']:.2f} columns a frame), chunk 4 "
+          f"{hw4['frames']} frames ({hw4['frames_per_step']:.1f} a step, "
+          f"{hw4['cols_per_frame']:.2f} columns a frame); tokens equal "
+          f"{toks[4] == toks[1]}")
+    check(toks[4] == toks[1], "hw_serve: chunk 4 emitted other tokens")
+    check(hw4["frames"] < hw1["frames"]
+          and hw4["frames_per_step"] == hw1["frames_per_step"] == 4.0,
+          "hw_serve: chunked prefill frames")
+    check(hw1["cols_per_frame"] <= 3.0 < hw4["cols_per_frame"] < 12.0,
+          "hw_serve: wide frames not compacted")
+
+
+def hw_serve_phase(torch) -> dict:
+    """Hardware-in-the-loop LM serving: legs A (whisper-base at full width
+    and depth, sigma 0), B (one layer under drift, the closed loop on) and
+    C (the fleet autopilot's gateway leg, chunked prefill).  Returns leg A's
+    launches (counts set to 0 just before it)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    info = build.build(sorted({build.KERNELS[k] for k in HW_KERNELS}))
+    if info["built"]:
+        print(f"[hw_serve] built {info['built']} in {info['seconds']:.1f} s")
+    # fp32 bases, as the reference's hw-logits configs (its hwtest arch, the
+    # smoke LM of benchmarks/e2e_accuracy.py) are: the chips compute every
+    # product in fp32 whatever the bases, and bf16 activations would round
+    # the routed and the shadow outputs apart by up to 2^-8 at a tie (4.4e-3
+    # of the largest logit in a CPU run at a reduced width), above HW_TOL
+    cfg = get_config("whisper-base")
+    full = dataclasses.replace(cfg, ptc=dataclasses.replace(
+        cfg.ptc, base_dtype=torch.float32))
+    check((full.n_layers, full.d_model, full.d_ff, full.ptc.k)
+          == (6, 512, 2048, 64), f"hw_serve: whisper-base is {full}")
+    params = card_params(torch, full, (
+        f"{full.n_layers} decoder layers (the encoder's output is the serve "
+        f"driver's stub), d_model {full.d_model}, d_ff {full.d_ff}"))
+    t0 = time.perf_counter()
+    a = hw_leg_a(torch, full, params)
+    print(f"[hw_serve] leg A {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hw_leg_b(torch, full)
+    print(f"[hw_serve] leg B {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hw_leg_c(torch)
+    print(f"[hw_serve] leg C {time.perf_counter() - t0:.1f} s")
+    print(f"[hw_serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return a["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4208,6 +4762,15 @@ def main(argv=None) -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    t_lap = [t_start]
+
+    def lap(names: str) -> None:
+        """Print the wall of the phase(s) ``names`` just ended, if run."""
+        now = time.perf_counter()
+        if any(n in phases for n in names.split(",")):
+            print(f"[wall] {names}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
     summary = kernel_phase(torch, args.parent) if "kernels" in phases \
         else {}
     # launches of each kernel on its main path in this run: the last
@@ -4218,6 +4781,7 @@ def main(argv=None) -> int:
     # the serving kernels; null where none was driven
     launches = dict.fromkeys(build.KERNELS)
 
+    lap("kernels")
     if "parity" in phases:
         res, counts = main_path(torch, "parity", (18, 18, 9, 9))
         launches.update(counts)
@@ -4241,6 +4805,7 @@ def main(argv=None) -> int:
               f"osp {REFERENCE['err_osp']}, mapped {REFERENCE['mapped_acc']}, "
               f"SL {REFERENCE['sl_acc']}")
 
+    lap("parity")
     if "full" in phases:
         # input noise 6 (not the parity run's 0.8) keeps the 4096-wide
         # task from being trivially separable: dense held-out accuracy
@@ -4262,6 +4827,7 @@ def main(argv=None) -> int:
               "full: served accuracy after SL more than 0.05 below dense")
         zo_busy_share(torch, res)
 
+    lap("full")
     if "closed_loop" in phases:
         counts = closed_loop_phase(
             torch, res["weights"] if "full" in phases else None)
@@ -4269,15 +4835,26 @@ def main(argv=None) -> int:
         launches.update({k: v for k, v in counts.items()
                          if launches[k] is None})
 
+    lap("closed_loop")
+    if "hw_serve" in phases:
+        counts = hw_serve_phase(torch)
+        # a quickstart path driven in this run keeps its counts
+        launches.update({k: v for k, v in counts.items()
+                         if launches[k] is None})
+
+    lap("hw_serve")
     if "vgg8" in phases:
         vgg8_phase(torch)
 
+    lap("vgg8")
     if "blocked_lm" in phases:
         launches.update(blocked_lm_phase(torch))
 
+    lap("blocked_lm")
     if "train" in phases:
         launches.update(train_phase(torch))
 
+    lap("train")
     if "gateway" in phases or "serve" in phases:
         params = qwen3_4b_params(torch)
         if "gateway" in phases:
@@ -4287,15 +4864,18 @@ def main(argv=None) -> int:
         del params
         torch.cuda.empty_cache()
 
+    lap("gateway,serve")
     if "families" in phases:
         families_phase(torch)
 
+    lap("families")
     if "tables" in phases:
         counts = tables_phase(torch, args.budget)
         # a quickstart path driven in this run keeps its counts
         launches.update({k: v for k, v in counts.items()
                          if launches[k] is None})
 
+    lap("tables")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)                     # name, power limit: as nvidia-smi has it
     print(json.dumps({"kernels": [

@@ -4,9 +4,11 @@ The reference's objects arrive as anything ``numpy.asarray`` reads (JAX
 arrays included) inside NamedTuples or dataclasses; this module maps them
 field by field onto the port's types without importing either JAX or the
 reference.  The parity tests use it to give both packages one device
-realization, one set of weights and one commanded state, and one fleet
+realization, one set of weights and one commanded state, one fleet
 (:func:`fleet`: each chip's drift state, commanded state, meter, tenants
-and counters).
+and counters), and one hardware-in-the-loop deployment (:func:`hw_plane`:
+a reference ``HwServePlane``'s layers and deployed fleet behind a port
+plane).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ __all__ = ["tensor", "named_tuple", "phase_noise", "device_realization",
            "ptc_params", "weights", "commanded_state", "noise_model",
            "zo_config", "param_tree", "subspace_masks", "lm_params",
            "drift_config", "drift_state", "monitor_config", "recal_config",
-           "runtime_config", "fleet"]
+           "runtime_config", "fleet", "ptc_layers", "hw_plane"]
 
 
 def tensor(a, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -205,3 +207,26 @@ def fleet(chips, cfg: RuntimeConfig, *, drift: DriftConfig | None = None,
             offline_ticks_left=c.offline_ticks_left, served=c.served,
             alarms=c.alarms, recals=c.recals, recal_calls=c.recal_calls))
     return out
+
+
+def ptc_layers(specs, device="cpu") -> list:
+    """A reference plane's ``PTCLayerSpec`` list (name, geometry, group and
+    the effective weight, fp32) as the port's."""
+    from .runtime.hw_serve import PTCLayerSpec
+    return [PTCLayerSpec(index=s.index, name=s.name, m=s.m, n=s.n,
+                         w=tensor(s.w, device), group=s.group)
+            for s in specs]
+
+
+def hw_plane(plane, cfg: RuntimeConfig, *, mode: str | None = None,
+             seed: int = 0, recal_enabled: bool = True,
+             drift: DriftConfig | None = None, device="cpu"):
+    """A port ``HwServePlane`` serving a reference plane's deployment: its
+    layers and its router's chips as they stand (:func:`fleet`; carry them
+    before the reference serves, which moves them).  ``mode`` defaults to
+    the reference plane's; ``drift`` is the twins' own OU walk."""
+    from .runtime.hw_serve import HwServePlane
+    chips = fleet(plane.router.chips, cfg, drift=drift, device=device)
+    return HwServePlane(None, ptc_layers(plane.layers, device), cfg,
+                        len(chips), mode=mode or plane.mode, seed=seed,
+                        recal_enabled=recal_enabled, chips=chips)

@@ -3,8 +3,8 @@
 Counterpart of ``repro/core/mapping.py``.  Maps a pre-trained weight onto
 the noisy MZI meshes as a batched blockwise regression:
 
-1. SVD + exact mesh parametrization (numpy, fp64, one block at a time) —
-   the *commanded* phases;
+1. SVD + exact mesh parametrization (fp64, all blocks in one batched pass,
+   ``unitary.decompose_batched``) — the *commanded* phases;
 2. alternate ZCD on Φ^U / Φ^V against ``‖W̃_pq(Φ) − W_pq‖²``, requested as
    an in-situ ``driver.zo_refine`` job;
 3. Optimal Singular-value Projection (OSP), Claim 1:
@@ -40,7 +40,7 @@ class PMResult(NamedTuple):
     err_osp: torch.Tensor      # ... after OSP (the Fig. 5 "error drop")
     history: torch.Tensor
     driver: object             # the PhotonicDriver the weight was deployed on
-    decompose_s: float         # host wall seconds of the decomposition loop
+    decompose_s: float         # wall seconds of the batched decomposition
 
 
 def matrix_distance(w_hat: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -88,17 +88,15 @@ def parallel_map(gen: torch.Generator | None, w: torch.Tensor, k: int,
     b = p * q
     w_blocks = blockize(w, k).reshape(b, k, k)
 
-    # Step 1 — exact parametrization of the ideal factors (numpy, fp64).
+    # Step 1 — exact parametrization of the ideal factors (fp64, every
+    # block in one batched pass on the weight's device).
     t0 = time.perf_counter()
-    phi_u0 = np.zeros((b, t))
-    phi_v0 = np.zeros((b, t))
-    d_u0 = np.zeros((b, k))
-    d_v0 = np.zeros((b, k))
-    u_np = ideal.u.detach().cpu().double().numpy().reshape(b, k, k)
-    v_np = ideal.v.detach().cpu().double().numpy().reshape(b, k, k)
-    for i in range(b):
-        phi_u0[i], d_u0[i] = un.decompose(u_np[i], kind)
-        phi_v0[i], d_v0[i] = un.decompose(v_np[i], kind)
+    phi_u0, d_u0 = un.decompose_batched(
+        ideal.u.detach().double().reshape(b, k, k), kind)
+    phi_v0, d_v0 = un.decompose_batched(
+        ideal.v.detach().double().reshape(b, k, k), kind)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     decompose_s = time.perf_counter() - t0
 
     if driver is None:

@@ -42,6 +42,9 @@ __all__ = [
     "build_unitary",
     "decompose_reck",
     "decompose_clements",
+    "decompose_batched",
+    "decompose_reck_batched",
+    "decompose_clements_batched",
     "decompose",
     "random_orthogonal",
     "np_build_unitary",
@@ -359,6 +362,132 @@ def decompose(Q: np.ndarray, kind: str = "reck"):
         return decompose_reck(Q)
     if kind == "clements":
         return decompose_clements(Q)
+    raise ValueError(f"unknown mesh kind: {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Batched exact decomposition (float64): the same rotation sequence as the
+# per-matrix functions above, walked once over all matrices at a time
+# ---------------------------------------------------------------------------
+
+
+def _as_batch(Q) -> torch.Tensor:
+    """(b, k, k) matrices (numpy or a tensor) as a (k, k, b) float64 copy on
+    their device: batch last, so each row and column a rotation touches is
+    one contiguous (k, b) slab."""
+    A = torch.as_tensor(Q)
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"(b, k, k) matrices required, got {tuple(A.shape)}")
+    return A.to(torch.float64).permute(1, 2, 0).contiguous()
+
+
+def _signs(A: torch.Tensor) -> torch.Tensor:
+    d = torch.sign(torch.diagonal(A, dim1=0, dim2=1))         # (b, k)
+    return torch.where(d == 0, torch.ones_like(d), d)
+
+
+def _like(Q, *outs):
+    """``outs`` as numpy when ``Q`` was numpy, else as tensors."""
+    if isinstance(Q, torch.Tensor):
+        return outs
+    return tuple(o.cpu().numpy() for o in outs)
+
+
+def _rotate_rows(A: torch.Tensor, r0: int, r1: int, c, s) -> None:
+    ra = c * A[r0] + s * A[r1]
+    rb = -s * A[r0] + c * A[r1]
+    A[r0], A[r1] = ra, rb
+
+
+def decompose_reck_batched(Q):
+    """:func:`decompose_reck` of each of ``Q``'s (b, k, k) matrices: phases
+    (b, T) and signs (b, k), computed in float64 on ``Q``'s device (numpy
+    in, numpy out).  Each Givens step is the scalar path's arithmetic on b
+    values at a time."""
+    A = _as_batch(Q)
+    k, _, b = A.shape
+    thetas = []
+    for c in range(k - 1):
+        for r in range(k - 1, c, -1):
+            th = torch.atan2(A[r, c], A[r - 1, c])
+            _rotate_rows(A, r - 1, r, torch.cos(th), torch.sin(th))
+            thetas.append(th)
+    # application order = reversed nulling order
+    phases = (torch.stack(thetas[::-1], dim=1) if thetas
+              else A.new_zeros((b, 0)))
+    return _like(Q, phases, _signs(A))
+
+
+@functools.lru_cache(maxsize=None)
+def _clements_slots(k: int) -> tuple[int, ...]:
+    """The canonical slot of each rotation of :func:`decompose_clements`'s
+    application order (right rotations in order, then the left ones
+    reversed): the assignment depends on their wires alone."""
+    rights = [i - 1 - j for i in range(1, k, 2) for j in range(i)]
+    lefts = [k - i + j - 2 for i in range(2, k, 2) for j in range(1, i + 1)]
+    slot_of: dict[tuple[int, int], int] = {}
+    pairs, layer_of = _clements_apply_order(k)
+    for t, ((a, _b), l) in enumerate(zip(pairs, layer_of)):
+        slot_of[(l, a)] = t
+    filled: set[int] = set()
+    wire_free = [0] * k
+    slots = []
+    for a in rights + lefts[::-1]:
+        l = max(wire_free[a], wire_free[a + 1])
+        while (l % 2) != (a % 2) or (l, a) not in slot_of \
+                or slot_of[(l, a)] in filled:
+            l += 1
+            if l > 2 * k:
+                raise AssertionError("clements layer assignment failed")
+        filled.add(slot_of[(l, a)])
+        slots.append(slot_of[(l, a)])
+        wire_free[a] = wire_free[a + 1] = l + 1
+    if len(filled) != mesh_spec(k, "clements").n_rot:
+        raise AssertionError("clements decomposition did not fill every slot")
+    return tuple(slots)
+
+
+def decompose_clements_batched(Q):
+    """:func:`decompose_clements` of each of ``Q``'s (b, k, k) matrices:
+    phases (b, T) in the canonical slot order and signs (b, k), in float64
+    on ``Q``'s device (numpy in, numpy out)."""
+    A = _as_batch(Q)
+    k, _, b = A.shape
+    rights, lefts = [], []
+    for i in range(1, k):
+        if i % 2 == 1:
+            # null A[k-1-j, i-1-j] from the RIGHT via columns (c, c+1)
+            for j in range(i):
+                r, c = k - 1 - j, i - 1 - j
+                th = torch.atan2(-A[r, c], A[r, c + 1])
+                cth, sth = torch.cos(th), torch.sin(th)
+                ca = cth * A[:, c] + sth * A[:, c + 1]
+                cb = -sth * A[:, c] + cth * A[:, c + 1]
+                A[:, c], A[:, c + 1] = ca, cb
+                rights.append((c, th))
+        else:
+            # null A[k-i+j-1, j-1] from the LEFT via rows (r-1, r)
+            for j in range(1, i + 1):
+                r, c = k - i + j - 1, j - 1
+                th = torch.atan2(A[r, c], A[r - 1, c])
+                _rotate_rows(A, r - 1, r, torch.cos(th), torch.sin(th))
+                lefts.append(th)
+    d = _signs(A)
+    # R_m^T' = R(-θ_m · d_a · d_{a+1}) commuted right of D0; L_m^T = R(θ_m)
+    app = [-th * d[:, a] * d[:, a + 1] for a, th in rights] + lefts[::-1]
+    phases = A.new_zeros((b, len(app)))
+    if app:
+        phases[:, list(_clements_slots(k))] = torch.stack(app, dim=1)
+    return _like(Q, phases, d)
+
+
+def decompose_batched(Q, kind: str = "reck"):
+    """:func:`decompose` of each of ``Q``'s (b, k, k) matrices in one pass:
+    ``(phases (b, T), d (b, k))`` in float64, on ``Q``'s device."""
+    if kind == "reck":
+        return decompose_reck_batched(Q)
+    if kind == "clements":
+        return decompose_clements_batched(Q)
     raise ValueError(f"unknown mesh kind: {kind!r}")
 
 

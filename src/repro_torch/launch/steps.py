@@ -13,6 +13,7 @@ waits for the closed-loop slice; passing one is an error.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -116,6 +117,14 @@ def greedy_decode(serve_step, params, cache, prompt, gen: int,
     step's batch: vlm's ``img``, encdec's ``enc_out`` (tensors on the
     cache's device).
 
+    ``layer_exec`` plugs a layer-execution plane into the loop
+    (:class:`repro_torch.runtime.hw_serve.HwServePlane`): its ``hook`` is
+    installed as the PTC executor for the whole decode and every step runs
+    inside ``layer_exec.step(i)``, so the decode path's PTC products run on
+    routed photonic chips, with drift and repairs between steps.  The
+    port's steps walk their periods in a Python loop, so the hook sees
+    every call.
+
     ``preds_out`` / ``logits_out`` collect each step's argmax (B,) and
     logits (B, V) as numpy, prefill included.  ``eos_id`` ends a row once
     it emits the stop token (generation region only): its later columns
@@ -124,11 +133,8 @@ def greedy_decode(serve_step, params, cache, prompt, gen: int,
 
     Returns ``(generated, cache)`` with ``generated`` (B, gen) int32 numpy.
     """
-    if layer_exec is not None:
-        raise ValueError(
-            "greedy_decode: a layer-execution plane (hardware-in-the-loop "
-            "serving) is not ported yet (ROADMAP.md, queue 1, 'HW-logits "
-            "gateway serving')")
+    from ..models.layers import ptc_execution
+
     extras = extras or {}
     dev = _first_tensor(cache).device
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64)
@@ -137,28 +143,34 @@ def greedy_decode(serve_step, params, cache, prompt, gen: int,
     tok = prompt[:, :1].to(dev)
     out_tokens = []
     finished = np.zeros((b,), bool)
-    for i in range(max_len - 1):
-        logits, cache = serve_step(params, cache,
-                                   {"token": tok, "cache_len": i, **extras})
-        nxt = torch.argmax(logits, dim=-1)
-        emitted = nxt.cpu().numpy().astype(np.int32)
-        if preds_out is not None:
-            preds_out.append(emitted)
-        if logits_out is not None:
-            logits_out.append(logits.float().cpu().numpy())
-        if i + 1 < prompt_len:
-            tok = prompt[:, i + 1: i + 2].to(dev)       # teacher-forced
-        else:
-            if eos_id is not None:
-                emitted = np.where(finished, np.int32(eos_id), emitted)
-                finished |= emitted == eos_id
-            tok = torch.as_tensor(emitted, dtype=torch.int64,
-                                  device=dev)[:, None]
-            out_tokens.append(emitted)
-        if on_step is not None:
-            on_step(i)
-        if eos_id is not None and finished.all():
-            break
+    hook_ctx = (ptc_execution(layer_exec.hook) if layer_exec is not None
+                else contextlib.nullcontext())
+    with hook_ctx:
+        for i in range(max_len - 1):
+            batch = {"token": tok, "cache_len": i, **extras}
+            step_ctx = (layer_exec.step(i) if layer_exec is not None
+                        else contextlib.nullcontext())
+            with step_ctx:
+                logits, cache = serve_step(params, cache, batch)
+            nxt = torch.argmax(logits, dim=-1)
+            emitted = nxt.cpu().numpy().astype(np.int32)
+            if preds_out is not None:
+                preds_out.append(emitted)
+            if logits_out is not None:
+                logits_out.append(logits.float().cpu().numpy())
+            if i + 1 < prompt_len:
+                tok = prompt[:, i + 1: i + 2].to(dev)   # teacher-forced
+            else:
+                if eos_id is not None:
+                    emitted = np.where(finished, np.int32(eos_id), emitted)
+                    finished |= emitted == eos_id
+                tok = torch.as_tensor(emitted, dtype=torch.int64,
+                                      device=dev)[:, None]
+                out_tokens.append(emitted)
+            if on_step is not None:
+                on_step(i)
+            if eos_id is not None and finished.all():
+                break
     if not out_tokens:        # gen=0: prefill-only run
         return np.zeros((b, 0), np.int32), cache
     gen_out = np.stack(out_tokens, axis=1)

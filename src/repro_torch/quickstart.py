@@ -188,7 +188,7 @@ def run(d_in: int = 18, d_h: int = 18, d_out: int = 9, k: int = 9, *,
     log(f"[PM] mapping error (layer 1): init={errs['err_init'][0]:.4f} "
         f"→ zo={errs['err_zo'][0]:.4f} → osp={errs['err_osp'][0]:.4f}  "
         f"[{stages['pm']['seconds']:.1f}s, of which decomposition "
-        f"{stages['pm']['decompose_s']:.1f}s on the host]")
+        f"{stages['pm']['decompose_s']:.2f}s batched]")
 
     # ---- serving through the chip's serve forward ------------------------
     def serve(xb):

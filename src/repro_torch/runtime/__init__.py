@@ -13,6 +13,7 @@ closes the loop, talking to devices only through the
     fleet.py        the plane:    N-chip registry + tenant slots + the
                                   drift-aware (chip, tenant) router
     autopilot.py    forecast-driven maintenance scheduling
+    hw_serve.py     the served LM's PTC layers as tenants on the fleet
     demo.py         the driver:   ``python -m repro_torch.runtime.demo``
 
 (the plant, OU phase drift on the device realization, lives device-side
@@ -33,6 +34,7 @@ from .recalibrate import (RecalConfig, RecalResult, recalibrate,
 from .fleet import (HEALTHY, DEGRADED, RECALIBRATING, RuntimeConfig, Tenant,
                     Chip, FleetRouter, make_chip, make_fleet, make_router,
                     predicted_distance)
+from .hw_serve import PTCLayerSpec, record_ptc_layers, HwServePlane
 
 __all__ = ["MonitorConfig", "HealthState", "aggregate_distance",
            "probe_mapping_distance", "probe_tenant_distances",
@@ -41,4 +43,5 @@ __all__ = ["MonitorConfig", "HealthState", "aggregate_distance",
            "RecalConfig", "RecalResult", "recalibrate", "autotune_zo_steps",
            "HEALTHY", "DEGRADED", "RECALIBRATING", "RuntimeConfig", "Tenant",
            "Chip", "FleetRouter", "make_chip", "make_fleet", "make_router",
-           "predicted_distance"]
+           "predicted_distance", "PTCLayerSpec", "record_ptc_layers",
+           "HwServePlane"]

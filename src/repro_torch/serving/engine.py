@@ -13,13 +13,17 @@ padding tokens until then, as the reference's do.  Admission, eviction
 and paging policy live in ``scheduler`` / ``kv_pages``.
 
 The step runs eagerly (the reference jits it).  The pools are updated in
-place (the reference's scatter aliases them into its output).  The
-hardware-in-the-loop plane (``hw_plane``, ``build_gateway_hw_plane``)
-belongs to the closed-loop slice of the port.
+place (the reference's scatter aliases them into its output).
+Hardware-in-the-loop execution rides the
+:class:`~repro_torch.runtime.hw_serve.HwServePlane` (``hw_plane``,
+``build_gateway_hw_plane``): the gateway installs the plane's PTC hook
+around its loop, so each layer's product for ALL in-flight requests ships
+as one coalesced driver frame to the routed chip.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Sequence
@@ -29,13 +33,15 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.paged_kv import paged_gather, paged_scatter, paged_scatter_rows
+from ..models.layers import ptc_execution
 from ..models.lm import (ArchConfig, build_gateway_prefill_step,
-                         build_gateway_step, period_plan)
+                         build_gateway_step, build_serve_step,
+                         init_decode_cache, period_plan)
 from ..models.ssm import init_ssm_state
 from .kv_pages import PageConfig, PagedKVPool
 from .scheduler import FINISH_EOS, FINISH_MAX_NEW, Request, Scheduler
 
-__all__ = ["GatewayConfig", "ServingGateway"]
+__all__ = ["GatewayConfig", "ServingGateway", "build_gateway_hw_plane"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,22 +62,43 @@ class GatewayConfig:
     kv_block: int | None = None  # prefill kernel KV block (None = whole view)
 
 
+def build_gateway_hw_plane(gen: torch.Generator | None, cfg: ArchConfig,
+                           params, runtime_cfg, n_chips: int, *, slots: int,
+                           mode: str = "route", seed: int = 0,
+                           recal_enabled: bool = True, device=None):
+    """Deploy the model's decode-path PTC layers onto a fresh fleet drawn
+    from ``gen`` for gateway serving: one tenant per layer, the ``serve
+    --hw-logits`` deployment.  The layers are
+    listed by the *solo* serve step, whose scope names the gateway steps
+    reproduce."""
+    from ..runtime.hw_serve import HwServePlane, record_ptc_layers
+
+    dev = resolve_device(device)
+    cache0 = init_decode_cache(cfg, slots, 2, device=dev)
+    batch0 = {"token": torch.zeros((slots, 1), dtype=torch.int64,
+                                   device=dev), "cache_len": 0}
+    layers = record_ptc_layers(build_serve_step(cfg), params, cache0, batch0)
+    return HwServePlane(gen, layers, runtime_cfg, n_chips, mode=mode,
+                        seed=seed, recal_enabled=recal_enabled, device=dev)
+
+
 class ServingGateway:
-    """The request-level serving loop over one model on one device.
+    """The request-level serving loop over one model on one device, with
+    an optional hardware-in-the-loop plane (``hw_plane``).
 
     ``params`` must already lie on ``device`` (``None``: ``cuda``, which
-    raises on a host without CUDA)."""
+    raises on a host without CUDA).  The reference refuses a plane over a
+    jitted or scanned config (its hook is inert under a trace); the port's
+    steps run eagerly and walk the periods in a Python loop, so the hook
+    sees every call."""
 
     def __init__(self, cfg: ArchConfig, params, gcfg: GatewayConfig,
                  hw_plane=None, device=None):
-        if hw_plane is not None:
-            raise ValueError("the hardware-in-the-loop gateway is not ported "
-                             "yet (ROADMAP.md, queue 1, 'HW-logits gateway "
-                             "serving')")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.gcfg = gcfg
         self.params = params
+        self.hw = hw_plane
         self.plan, self.n_periods = period_plan(cfg)
         self.pool = PagedKVPool(gcfg.pages, gcfg.slots)
         self.chunk = max(1, int(gcfg.prefill_chunk))
@@ -220,68 +247,89 @@ class ServingGateway:
         arange_b = np.arange(b)
         arange_c = np.arange(chunk)
         t0 = time.time()
-        while self.step_count < self.gcfg.max_steps:
-            step = self.step_count
-            while (next_arrival < len(todo)
-                   and todo[next_arrival].arrival <= step):
-                sched.submit(todo[next_arrival], step)
-                next_arrival += 1
-            for slot, req in sched.admit(step):
-                slot_pos[slot] = 0
-                plen[slot] = req.prompt_len
-                prompt_buf[slot, :req.prompt_len] = req.prompt
-                self._reset_slot(slot)
-            if sched.idle:
-                if next_arrival >= len(todo):
-                    break                          # drained
-                self.step_count += 1               # open-loop gap
-                continue
+        hook_ctx = (ptc_execution(self.hw.hook) if self.hw is not None
+                    else contextlib.nullcontext())
+        with hook_ctx:
+            while self.step_count < self.gcfg.max_steps:
+                step = self.step_count
+                while (next_arrival < len(todo)
+                       and todo[next_arrival].arrival <= step):
+                    sched.submit(todo[next_arrival], step)
+                    next_arrival += 1
+                for slot, req in sched.admit(step):
+                    slot_pos[slot] = 0
+                    plen[slot] = req.prompt_len
+                    prompt_buf[slot, :req.prompt_len] = req.prompt
+                    self._reset_slot(slot)
+                if sched.idle:
+                    if next_arrival >= len(todo):
+                        break                      # drained
+                    # open-loop gap: virtual time still passes (drift
+                    # walks, probes and repairs run) and the autopilot
+                    # sees the trough (zero occupancy)
+                    if self.hw is not None:
+                        self.hw.observe_load(0.0)
+                        self.hw.router.tick()
+                    self.step_count += 1
+                    continue
 
-            act = np.asarray([r is not None for r in sched.running])
-            pre = act & (slot_pos < plen)
-            dec = act & ~pre
-            # tokens each slot ingests this step (idle slots: none)
-            take = np.where(pre, np.minimum(stride, plen - slot_pos),
-                            act.astype(np.int32))
-            cols = slot_pos[:, None] + arange_c[None, :]         # (B, C)
-            valid = arange_c[None, :] < take[:, None]
-            tok = np.where(
-                pre[:, None] & valid,
-                prompt_buf[arange_b[:, None], np.minimum(cols, buf_len - 1)],
-                0).astype(np.int32)
-            tok[dec, 0] = last_tok[dec]
-            batch = {"token": self._to_device(tok),
-                     "lens": self._to_device(self.pool.lens)}
-            if chunk > 1:
-                batch["n_valid"] = self._to_device(
-                    np.maximum(take, 1).astype(np.int32))
-            views = self._gather_views()
-            logits, new_kv = self._step_fn(self.params, views, batch)
-            if chunk > 1:
-                self._scatter_chunk(new_kv, act, take)
-            else:
-                self._scatter_new(new_kv, list(np.flatnonzero(act)))
-            preds = torch.argmax(logits, dim=-1).cpu().numpy()
-            for slot in np.flatnonzero(act):
-                req = sched.running[slot]
-                n = int(take[slot])
-                self.pool.advance(slot, n)
-                pos = slot_pos[slot] = slot_pos[slot] + n
-                if pos < plen[slot]:
-                    continue                             # still prefilling
-                nxt = int(preds[slot])
-                req.out_tokens.append(nxt)
-                last_tok[slot] = nxt
-                self.tokens_out += 1
-                if req.first_token_step < 0:
-                    req.first_token_step = step
-                if req.eos_id is not None and nxt == req.eos_id:
-                    sched.finish(slot, step, FINISH_EOS)
-                elif len(req.out_tokens) >= req.max_new:
-                    sched.finish(slot, step, FINISH_MAX_NEW)
-            self.busy_steps += 1
-            self.slot_steps += int(act.sum())
-            self.step_count += 1
+                act = np.asarray([r is not None for r in sched.running])
+                if self.hw is not None:
+                    # occupancy for the autopilot's load forecast: active
+                    # slots plus queued requests, over capacity
+                    self.hw.observe_load(
+                        (int(act.sum()) + len(sched.pending)) / b)
+                pre = act & (slot_pos < plen)
+                dec = act & ~pre
+                # tokens each slot ingests this step (idle slots: none)
+                take = np.where(pre, np.minimum(stride, plen - slot_pos),
+                                act.astype(np.int32))
+                cols = slot_pos[:, None] + arange_c[None, :]     # (B, C)
+                valid = arange_c[None, :] < take[:, None]
+                tok = np.where(
+                    pre[:, None] & valid,
+                    prompt_buf[arange_b[:, None],
+                               np.minimum(cols, buf_len - 1)],
+                    0).astype(np.int32)
+                tok[dec, 0] = last_tok[dec]
+                batch = {"token": self._to_device(tok),
+                         "lens": self._to_device(self.pool.lens)}
+                if chunk > 1:
+                    batch["n_valid"] = self._to_device(
+                        np.maximum(take, 1).astype(np.int32))
+                views = self._gather_views()
+                step_ctx = (self.hw.step(step,
+                                         valid=valid if chunk > 1 else None)
+                            if self.hw is not None
+                            else contextlib.nullcontext())
+                with step_ctx:
+                    logits, new_kv = self._step_fn(self.params, views,
+                                                   batch)
+                if chunk > 1:
+                    self._scatter_chunk(new_kv, act, take)
+                else:
+                    self._scatter_new(new_kv, list(np.flatnonzero(act)))
+                preds = torch.argmax(logits, dim=-1).cpu().numpy()
+                for slot in np.flatnonzero(act):
+                    req = sched.running[slot]
+                    n = int(take[slot])
+                    self.pool.advance(slot, n)
+                    pos = slot_pos[slot] = slot_pos[slot] + n
+                    if pos < plen[slot]:
+                        continue                             # still prefilling
+                    nxt = int(preds[slot])
+                    req.out_tokens.append(nxt)
+                    last_tok[slot] = nxt
+                    self.tokens_out += 1
+                    if req.first_token_step < 0:
+                        req.first_token_step = step
+                    if req.eos_id is not None and nxt == req.eos_id:
+                        sched.finish(slot, step, FINISH_EOS)
+                    elif len(req.out_tokens) >= req.max_new:
+                        sched.finish(slot, step, FINISH_MAX_NEW)
+                self.busy_steps += 1
+                self.slot_steps += int(act.sum())
+                self.step_count += 1
         wall = time.time() - t0
         if not sched.idle:
             raise RuntimeError(
@@ -302,7 +350,7 @@ class ServingGateway:
         def pct(a, q):
             return float(np.percentile(a, q)) if len(a) else 0.0
 
-        return dict(
+        rep = dict(
             requests=[dict(rid=r.rid, prompt_len=r.prompt_len,
                            max_new=r.max_new, arrival=r.arrival,
                            admitted=r.admitted_step,
@@ -325,3 +373,10 @@ class ServingGateway:
                                       p99=pct(waits, 99)),
             schedule_trace=list(sched.trace),
         )
+        if self.hw is not None:
+            rep["fleet"] = self.hw.report()
+        return rep
+
+    def close(self) -> None:
+        if self.hw is not None:
+            self.hw.close()

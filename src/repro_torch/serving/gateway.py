@@ -6,9 +6,11 @@ Counterpart of ``repro/serving/gateway.py`` (digital serving)::
         --arch smoke:qwen3-4b --device cpu --prefill-chunk 4
 
 Without ``--device`` it runs on ``cuda`` (and refuses a host without
-CUDA).  The reference's hardware-in-the-loop and fleet flags
-(``--fleet``, ``--hw-logits``, ``--hw-shadow``, ...) belong to the
-closed-loop slice of the port: passing one is an error.
+CUDA).  Add ``--fleet N --hw-logits`` to serve every request's PTC
+products through routed photonic chips: one coalesced driver frame per
+layer group per step carries ALL in-flight requests' activations.
+``launch.serve --gateway`` forwards here, so both entry points share this
+driver.
 """
 
 from __future__ import annotations
@@ -20,17 +22,11 @@ import torch
 from ..configs import parse_arch
 from ..device import resolve_device
 from ..models.lm import ArchConfig, init_model
-from .engine import GatewayConfig, ServingGateway
+from .engine import GatewayConfig, ServingGateway, build_gateway_hw_plane
 from .kv_pages import PageConfig
 from .scheduler import poisson_workload
 
 __all__ = ["run", "main", "add_gateway_args"]
-
-# the reference CLI's hardware-in-the-loop / fleet flags, not ported
-HW_FLAGS = ("--fleet", "--drift", "--drift-sigma", "--probe-every",
-            "--fleet-k", "--fleet-driver", "--hw-logits", "--hw-shadow",
-            "--deploy-zo", "--no-recal")
-
 
 def add_gateway_args(ap: argparse.ArgumentParser) -> None:
     """Gateway knobs (the reference's, with their ``--gw-`` aliases)."""
@@ -63,24 +59,30 @@ def add_gateway_args(ap: argparse.ArgumentParser) -> None:
 
 def run(args) -> dict:
     """Build the gateway for ``args`` and drive the workload to
-    completion; returns the engine report plus the resolved config.
+    completion; returns the engine report plus the resolved config (and,
+    with ``--hw-logits`` / ``--hw-shadow``, the fleet report under
+    ``"fleet"``).
 
-    ``args.device`` (None: ``cuda``) places the model and the pools.
-    Test hooks as the reference's: ``args.params_override`` serves given
-    params (already on the device) instead of a seeded random init;
-    ``args.requests_override`` replaces the Poisson workload."""
+    ``args.device`` (None: ``cuda``) places the model, the pools and the
+    fleet.  Test hooks as the reference's: ``args.params_override`` serves
+    given params (already on the device) instead of a seeded random init;
+    ``args.requests_override`` replaces the Poisson workload;
+    ``args.runtime_cfg`` the fleet policy."""
+    from ..launch.serve import _hw_mode, _hw_runtime_config
+
     dev = resolve_device(getattr(args, "device", None))
     cfg = (args.arch if isinstance(args.arch, ArchConfig)
            else parse_arch(args.arch))
+    hw_mode = _hw_mode(args)
     params = getattr(args, "params_override", None)
     if params is None:
         params = init_model(torch.Generator(dev).manual_seed(args.seed), cfg)
 
     reqs = getattr(args, "requests_override", None)
     if reqs is None:
+        pl = getattr(args, "prompt_len_range", (4, 12))
         reqs = poisson_workload(args.seed, args.requests, args.rate,
-                                cfg.vocab,
-                                prompt_len=tuple(args.prompt_len_range),
+                                cfg.vocab, prompt_len=tuple(pl),
                                 max_new=tuple(args.max_new),
                                 eos_id=args.eos_id)
 
@@ -91,11 +93,22 @@ def run(args) -> dict:
         prefill_chunk=getattr(args, "prefill_chunk", 1) or 1,
         prefill_stride=getattr(args, "prefill_stride", None),
         kv_block=getattr(args, "kv_block", None))
-    rep = ServingGateway(cfg, params, gcfg, device=dev).run(reqs)
+    plane = None
+    if hw_mode is not None:
+        plane = build_gateway_hw_plane(
+            torch.Generator("cpu").manual_seed(args.seed + 17), cfg, params,
+            _hw_runtime_config(args), args.fleet, slots=args.slots,
+            mode=hw_mode, seed=args.seed,
+            recal_enabled=not getattr(args, "no_recal", False), device=dev)
+    gw = ServingGateway(cfg, params, gcfg, hw_plane=plane, device=dev)
+    try:
+        rep = gw.run(reqs)
+    finally:
+        gw.close()
     rep["config"] = dict(arch=cfg.name, slots=args.slots,
                          page_size=args.page_size, pages=args.pages,
                          prefill_chunk=gcfg.prefill_chunk,
-                         hw_mode="digital", n_requests=len(reqs),
+                         hw_mode=hw_mode or "digital", n_requests=len(reqs),
                          device=str(dev))
     return rep
 
@@ -110,16 +123,25 @@ def main(argv=None):
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     add_gateway_args(ap)
-    for flag in HW_FLAGS:                 # accepted only to be refused
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="photonic chips backing --hw-logits/--hw-shadow")
+    ap.add_argument("--drift", action="store_true")
+    ap.add_argument("--drift-sigma", type=float, default=0.015)
+    ap.add_argument("--probe-every", type=int, default=10)
+    ap.add_argument("--fleet-k", type=int, default=6)
+    ap.add_argument("--fleet-driver", default="twin",
+                    choices=["twin", "subprocess", "socket"],
+                    help="photonic device transport (the stream transports "
+                         "are not ported)")
+    ap.add_argument("--hw-logits", action="store_true",
+                    help="serve every request's PTC products through the "
+                         "routed chips (coalesced frames)")
+    ap.add_argument("--hw-shadow", action="store_true")
+    ap.add_argument("--deploy-zo", action="store_true")
+    ap.add_argument("--no-recal", action="store_true")
+    from ..launch.serve import add_autopilot_args
+    add_autopilot_args(ap)
     args = ap.parse_args(argv)
-    given = [f for f in HW_FLAGS
-             if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given:
-        ap.error(f"{', '.join(given)}: hardware-in-the-loop and fleet "
-                 f"serving are not ported yet (ROADMAP.md, queue 1, "
-                 f"'HW-logits gateway serving')")
 
     rep = run(args)
     c = rep["config"]
@@ -135,6 +157,22 @@ def main(argv=None):
           f"p50={lat['p50']:.0f} p99={lat['p99']:.0f} | ttft steps "
           f"p50={ttft['p50']:.0f} p99={ttft['p99']:.0f} | admission wait "
           f"p50={wait['p50']:.0f} p99={wait['p99']:.0f}")
+    fleet = rep.get("fleet")
+    if fleet is not None:
+        hw = fleet["hw"]
+        alarms = sum(ch["alarms"] for ch in fleet["chips"])
+        recals = sum(ch["recals"] for ch in fleet["chips"])
+        print(f"  fleet: {len(fleet['chips'])} chips, {hw['frames']} "
+              f"coalesced frames ({hw['frames_per_step']:.1f}/step), "
+              f"{hw['hw_calls']} hw matmuls, {alarms} alarms, "
+              f"{recals} recals")
+        ap_rep = fleet.get("autopilot")
+        if ap_rep is not None:
+            forecast = ap_rep["load_forecast"]
+            print(f"  autopilot: {ap_rep['proactive_recals']} proactive "
+                  f"recals, deferred {ap_rep['deferred_trough']} (load) + "
+                  f"{ap_rep['deferred_budget']} (budget), load forecast "
+                  + ("none" if forecast is None else f"{forecast:.2f}"))
     return 0
 
 

@@ -7,8 +7,9 @@ gateways emit the same tokens for every request and report the same
 steps, busy steps, TTFT and latency in steps, and the same
 admission/finish trace; so do they for ``smoke:falcon-mamba-7b`` at chunk
 1 (per-slot SSM states, zeroed on admission).  Both refuse MoE archs,
-and chunked prefill of ssm archs.  The CLI refuses the reference's
-hardware-in-the-loop flags instead of ignoring them.
+and chunked prefill of ssm archs.  The CLI serves through a fleet with
+``--hw-logits`` and refuses the hw flags without one, as the reference's
+does.
 """
 
 import argparse
@@ -18,6 +19,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import smoke_config as jsmoke_config
 from repro.models.lm import init_model
@@ -132,15 +134,30 @@ def test_gateway_refuses_what_the_reference_refuses():
 
 
 def test_cli_runs_on_the_cpu_and_refuses_hardware_flags(capsys):
+    """The CLI serves on the CPU digitally and through a one-chip fleet
+    with ``--hw-logits`` (the report's fleet lines), and refuses the hw
+    flags without a fleet, as the reference does."""
     assert tgateway.main(["--arch", "smoke:qwen3-4b", "--device", "cpu",
                           "--requests", "3", "--prefill-chunk", "4"]) == 0
     assert "3 requests" in capsys.readouterr().out
-    for flags in (["--fleet", "2"], ["--hw-logits"], ["--hw-shadow"]):
-        with pytest.raises(SystemExit) as exc:
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # as tests/test_torch_hw_gateway.py does
+    try:
+        assert tgateway.main(["--arch", "smoke:qwen3-4b", "--device", "cpu",
+                              "--requests", "1", "--max-new", "2", "2",
+                              "--fleet", "1", "--hw-logits", "--fleet-k",
+                              "8"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "gateway [route, cpu]" in out and "1 requests" in out
+    per_step = 4 * smoke_config("qwen3-4b").n_layers   # qkv, wo, gateup, down
+    assert "fleet: 1 chips" in out \
+        and f"coalesced frames ({per_step:.1f}/step)" in out
+    for flags in (["--hw-logits"], ["--hw-shadow"]):
+        with pytest.raises(ValueError, match="need --fleet"):
             tgateway.main(["--arch", "smoke:qwen3-4b", "--device", "cpu",
                            *flags])
-        assert exc.value.code == 2
-        assert "not ported yet" in capsys.readouterr().err
 
 
 def test_run_serves_given_params_and_requests():

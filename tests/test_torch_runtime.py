@@ -485,6 +485,7 @@ def test_frozen_partial_recal_and_runner_registration():
     assert got["recovered"] and got["cotenants_bit_identical"]
     assert got["ptc_calls"] > 0
     names = [name for name, _ in bench_run.BENCHES]
-    assert names[-2:] == ["runtime_drift_recovery", "runtime_multi_tenant"]
+    assert names[-3:] == ["runtime_drift_recovery", "runtime_multi_tenant",
+                          "fleet_autopilot"]
     assert [name for name, _ in bench_run.TABLES] == names[:6]
     assert "item 7" in drift_recovery.NOT_PORTED

@@ -30,10 +30,14 @@ CPU, with the reference's parameters carried over (``convert.lm_params``).
 * The port's solo tokens equal the port's gateway tokens for the same
   requests (the check of ``tests/test_serving_gateway.py``), for
   ``smoke:qwen3-4b`` and, at chunk 1, ``smoke:falcon-mamba-7b``.
-* ``serve.main`` refuses the fleet and hardware-in-the-loop flags.
+* ``greedy_decode`` runs a layer-execution plane's protocol; ``serve.main``
+  serves through the fleet (``--fleet``, ``--hw-logits``) and refuses what
+  the reference refuses (the hw flags without a fleet or together, MoE
+  archs) and the stream transports.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 
@@ -259,11 +263,41 @@ def test_greedy_decode_eos_early_termination():
 
 
 def test_refuses_a_layer_execution_plane():
+    """``greedy_decode(layer_exec=)`` runs the plane's protocol: its hook
+    installed for the whole decode, every step inside ``step(i)``.  A
+    hook that keeps every layer digital leaves the tokens as they were."""
     tcfg = smoke_config("qwen3-4b")
-    with pytest.raises(ValueError, match="not ported yet"):
-        greedy_decode(tlm.build_serve_step(tcfg), {},
-                      tlm.init_decode_cache(tcfg, 1, 4, device="cpu"),
-                      np.zeros((1, 2), np.int32), 2, layer_exec=object())
+    params = tlm.init_model(torch.Generator().manual_seed(0), tcfg)
+    prompt = lm_batch(0, 0, 2, 4, 256)["tokens"]
+
+    class Plane:
+        def __init__(self):
+            self.steps, self.names = [], []
+            self.open = False
+
+        def hook(self, name, p, x, cfg, d_out):
+            assert self.open
+            self.names.append(name)
+            return None
+
+        @contextlib.contextmanager
+        def step(self, i):
+            self.open = True
+            yield
+            self.open = False
+            self.steps.append(i)
+
+    plane = Plane()
+    got, _ = greedy_decode(tlm.build_serve_step(tcfg), params,
+                           tlm.init_decode_cache(tcfg, 2, 9, device="cpu"),
+                           prompt, 5, layer_exec=plane)
+    want, _ = greedy_decode(tlm.build_serve_step(tcfg), params,
+                            tlm.init_decode_cache(tcfg, 2, 9, device="cpu"),
+                            prompt, 5)
+    assert np.array_equal(got, want)
+    assert plane.steps == list(range(8))
+    per_step = len(plane.names) // 8
+    assert per_step == 7 * tcfg.n_layers and len(set(plane.names)) == per_step
 
 
 def _solo_equals_gateway(name, chunk):
@@ -320,11 +354,38 @@ def test_serve_run_and_cli_on_the_cpu(capsys):
     assert "generated (1, 2) tokens" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--fleet", "2"], ["--hw-logits"],
-                                   ["--hw-shadow"], ["--drift"],
-                                   ["--autopilot"]])
-def test_cli_refuses_fleet_and_hardware_flags(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "smoke:qwen3-4b", "--device", "cpu", *flags])
-    assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+@pytest.mark.parametrize("flags,match", [
+    (["--hw-logits"], "need --fleet"),
+    (["--fleet", "1", "--hw-logits", "--hw-shadow"], "exclusive"),
+    (["--arch", "smoke:qwen3-moe-30b-a3b", "--fleet", "1", "--hw-logits"],
+     "MoE"),
+    (["--fleet", "1", "--fleet-driver", "subprocess"], "item 7"),
+    (["--fleet", "1", "--hw-logits", "--fleet-driver", "socket"], "item 7"),
+])
+def test_cli_refuses_fleet_and_hardware_flags(flags, match):
+    """The reference's refusals (the hw flags need a fleet and exclude
+    each other; MoE experts cannot reach the hook), and the stream
+    transports, which name the driver plane's queue item."""
+    with pytest.raises(ValueError, match=match):
+        serve.main(["--arch", "smoke:qwen3-4b", "--device", "cpu",
+                    "--batch", "1", "--prompt-len", "2", "--gen", "1",
+                    *flags])
+
+
+def test_cli_serves_through_the_fleet(capsys):
+    """``--fleet`` (synthetic traffic) and ``--hw-logits`` print the fleet
+    report; every decode step is a tick."""
+    base = ["--arch", "smoke:qwen3-4b", "--device", "cpu", "--batch", "1",
+            "--prompt-len", "3", "--gen", "2", "--fleet", "2"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # as tests/test_torch_hw_serve.py does
+    try:
+        assert serve.main(base + ["--fleet-tenants", "2", "--drift"]) == 0
+        out = capsys.readouterr().out
+        assert "fleet: 2 chips x 2 tenant(s), 4 ticks" in out
+        assert serve.main(base + ["--hw-logits", "--fleet-k", "8"]) == 0
+        out = capsys.readouterr().out
+    finally:
+        torch.set_num_threads(threads)
+    assert "hw-logits [route]: 14 PTC layers as tenants" in out
+    assert "0 shadow matmuls, 0 dropped passes" in out
