@@ -22,6 +22,9 @@
                                                # on a two-chip fleet
     python3 chip_smoke.py --phases hw_serve    # whisper-base's PTC layers
                                                # served through two chips
+    python3 chip_smoke.py --phases driver      # the same over the socket
+                                               # transport, the driver
+                                               # overhead benchmark
 
 Phases:
 
@@ -107,13 +110,13 @@ Phases:
 9. ``families`` — the ssm, hybrid and MoE families on the serving
    paths, none of which launches a kernel of the seven (the reference
    computes the scan, the recurrence and the MoE dispatch in plain jnp):
-   falcon-mamba-7b at full width, depth cut to 8 of 64 layers (bf16
+   falcon-mamba-7b at full width, depth cut to 2 of 64 layers (bf16
    bases, k = 128, seeded on the card) through ``launch.serve.run`` (batch 4,
    prompt 32, 32 new tokens) and the gateway (8 slots, prefill chunk 1,
    8 Poisson requests), timed; the gateway's last-prompt logits against
    the solo path's (``SERVE_TOL``); one layer's chunked scan against 64
    steps of its recurrence (``SCAN_TOL``); qwen3-moe-30b-a3b at full
-   width, depth cut to 2 of 48 layers, solo serve timed and one layer's
+   width, depth cut to 1 of 48 layers, solo serve timed and one layer's
    dispatch against the dense combine of each token's top-8 experts
    (``MOE_TOL``); at smoke width in fp32, falcon-mamba's requests served
    alone against its gateway, and jamba, qwen3-moe and moonshot stepped
@@ -160,6 +163,17 @@ Phases:
    beside the reference's CPU values; its gateway leg must complete with
    load samples) and chunked prefill through the hw gateway (chunk 4
    emits the chunk-1 tokens in fewer frames).
+13. ``driver`` — the driver plane (run after ``hw_serve``): leg A again,
+   every chip a ``repro_torch.hw.server`` child on the same card over the
+   socket transport, bit for bit against the twin transport's run (the
+   hw_serve phase's, else run here): logits, tokens and every chip's PTC
+   calls equal (else the first step that parts, and by how much), the
+   children's kernel launches counted from their stderr, frames and wire
+   bytes a step; ``driver_overhead`` at ``quick`` through the port's
+   runner (per-op times on the three transports, the batch, async and
+   concurrent sweeps, every bit-identity check); one seeded session of
+   IC, PM, 30 drifting ticks and a recalibration on the twin, subprocess
+   and socket transports, equal on the card.
 
 Every stage of a main path prints its wall time and its launches of each
 kernel, and must have launched each kernel it uses (``STAGE_KERNELS``),
@@ -177,7 +191,9 @@ the gateway's
 qwen3-4b run, the CUDA-core prefill route (which that bf16 run never
 takes) over the smoke-width fp32 gateways, and the k <= 32 PTC kernels
 over the closed loop's kernel run, else the tables phase, where no
-quickstart path ran; they are null when that path did not run.  Any failed check raises (exit code not
+quickstart path ran (else the driver phase's server children over its
+leg A, counted from their stderr); they are null when that path did not
+run.  Any failed check raises (exit code not
 0).  Without a CUDA device, or without the repository beside this script,
 it exits with code 2 and prints no result.
 """
@@ -185,6 +201,7 @@ it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import re
@@ -193,8 +210,9 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("kernels", "parity", "full", "closed_loop", "hw_serve", "vgg8",
-          "blocked_lm", "train", "gateway", "serve", "families", "tables")
+PHASES = ("kernels", "parity", "full", "closed_loop", "hw_serve", "driver",
+          "vgg8", "blocked_lm", "train", "gateway", "serve", "families",
+          "tables")
 # the kernels each stage of quickstart.run launches, and each busy step of
 # serving gateway.  ptc_block_matmul has two routes, each counted under its
 # own name: the IC/PM probes take the per-block route
@@ -3230,8 +3248,11 @@ def serve_phase(torch, params) -> None:
                               gen=gen, seed=0, device=dev,
                               params_override=params)
     t0 = time.perf_counter()
-    serve.run(argparse.Namespace(**{**vars(args), "gen": 2}))   # warm-up
-    print(f"[serve] warm-up (2 new tokens): "
+    # warm-up: a step has the same shapes at every position (one token
+    # against the dense cache), so a short prompt meets them all
+    serve.run(argparse.Namespace(**{**vars(args), "prompt_len": 8,
+                                    "gen": 2}))
+    print(f"[serve] warm-up (prompt 8, 2 new tokens): "
           f"{time.perf_counter() - t0:.1f} s")
     out = serve.run(args)
     steps = plen + gen - 1
@@ -3364,18 +3385,20 @@ def serve_step_profile(torch, cfg, params, batch: int) -> None:
 # with the train phase added, 32 of them kept the script at 586-600 s,
 # with the closed loop 16 did (568.7 s), and with the hw_serve phase (75.1
 # s) the script read 656.5 s on a host that ran the tables 41% slower than
-# the run before, so falcon-mamba-7b keeps 8 layers, qwen3-moe-30b-a3b 2 of
+# the run before, so falcon-mamba-7b kept 8 layers, qwen3-moe-30b-a3b 2 of
 # 48 (4 before) and llama-3.2-vision-11b one period of 5 layers, one with
-# cross-attention (2 periods before).  Every layer of a model has the same
-# width and block grids
-FALCON_LAYERS = 8
-MOE_LAYERS = 2
+# cross-attention (2 periods before).  With the driver phase (144.1 s) the
+# script read 658.6 s, then 622.8 s with falcon-mamba-7b at 4 layers and
+# qwen3-moe-30b-a3b at 1, so falcon-mamba-7b keeps 2.  Every layer of a
+# model has the same width and block grids
+FALCON_LAYERS = 2
+MOE_LAYERS = 1
 VLM_PERIODS = 1
 
 
 def falcon_mamba_phase(torch) -> None:
     """falcon-mamba-7b at full width (bf16 bases, k = 128) with its depth
-    cut to 8 of 64 layers (``FALCON_LAYERS``), seeded on the card: the
+    cut to 2 of 64 layers (``FALCON_LAYERS``), seeded on the card: the
     solo serve path (batch 4, prompt 32, 32 new tokens) and the gateway
     (8 slots, prefill chunk 1, 8 Poisson requests) timed; the gateway's
     last-prompt logits against the solo path's; one layer's chunked scan
@@ -3550,7 +3573,7 @@ def falcon_mamba_phase(torch) -> None:
 
 def qwen3_moe_phase(torch) -> None:
     """qwen3-moe-30b-a3b at full width (128 experts, top-8, bf16 bases,
-    k = 128) with its depth cut to 2 of 48 layers (``MOE_LAYERS``; 48 do
+    k = 128) with its depth cut to 1 of 48 layers (``MOE_LAYERS``; 48 do
     not fit one card): the solo serve path timed, and one layer's dispatch at decode
     against the dense combine of each token's top-k experts."""
     import argparse
@@ -3740,10 +3763,14 @@ def families_phase(torch) -> None:
 # (``tests/test_torch_train_step.py::tc_rounding_deviation``, alpha_w =
 # alpha_c = 0.6) read, over the leaf's and over the layer's largest entry,
 # and in the loss: olmo-1b's structure at k 128 through 16 layers 2.8e-2,
-# 4.8e-2, 3.9e-6 (d_model 512, T 512) and 2.9e-2, 4.0e-2, 1.5e-4
-# (d_model 1024, T 1024); whisper-base's at k 64 through 6 + 6 layers
-# (d_model 256, 2 x 128 tokens) 3.5e-2, 5.5e-2, 3.3e-5.  The limits are
-# about twice the largest.  Three planted faults there (``planted_faults``)
+# 4.8e-2, 3.9e-6 (d_model 512, T 512, 8 CPU threads) and 2.9e-2, 4.0e-2,
+# 1.5e-4 (d_model 1024, T 1024); whisper-base's at k 64 through 6 + 6
+# layers (d_model 256, 2 x 128 tokens) 3.5e-2, 5.5e-2, 3.3e-5.  At d_model
+# 512 the reading follows the CPU's thread count (the seeded bases' QR and
+# oneDNN's bf16 sums change with it): 2.8e-2 to 4.1e-2 over the leaf's
+# entry, 4.2e-2 to 4.8e-2 over the layer's, 4.1e-2 and 4.35e-2 on one
+# thread, where the test pins it.  TRAIN_SIGMA_TOL is 1.46 times the
+# largest, TRAIN_SIGMA_LAYER_TOL 2.5 times.  Three planted faults there (``planted_faults``)
 # read, over the layer's largest entry, 2.75 (the Σ-gradient without its
 # column mask), 1.16 (the feedback with its block mask ignored) and 1.08
 # (the column mask dropped at the last layer only, which reads 2.8e-2 over
@@ -4300,6 +4327,14 @@ def _instrument_plane(torch, plane) -> dict:
     return st
 
 
+def _wire(chips) -> tuple[int, int]:
+    """(frames, bytes both ways) the chips' stream drivers have sent and
+    received so far; (0, 0) on the twin transport."""
+    frames = sum(getattr(c.driver, "rpc_count", 0) for c in chips)
+    nbytes = sum(sum(getattr(c.driver, "wire_bytes", (0, 0))) for c in chips)
+    return frames, nbytes
+
+
 @contextlib.contextmanager
 def hw_instrument(torch, snapshot: bool = False):
     """Every ``HwServePlane`` built in the block (by ``launch.serve``, the
@@ -4310,7 +4345,7 @@ def hw_instrument(torch, snapshot: bool = False):
     from repro_torch.runtime import hw_serve
 
     rec = dict(planes=[], deploy_s=[], decompose_s=[], deploy=[], stats=[],
-               snap=[])
+               snap=[], wire0=[])
     orig_init, orig_dec = hw_serve.HwServePlane.__init__, \
         unitary.decompose_batched
     dec = [0.0]
@@ -4335,6 +4370,7 @@ def hw_instrument(torch, snapshot: bool = False):
         _add_counts(rec["deploy"][-1], c0)
         rec["snap"].append(_fleet_snapshot(self.router.chips)
                            if snapshot else None)
+        rec["wire0"].append(_wire(self.router.chips))
         rec["stats"].append(_instrument_plane(torch, self))
         rec["planes"].append(self)
 
@@ -4546,7 +4582,7 @@ def hw_leg_a(torch, cfg, params) -> dict:
     for p in list(shadows.values()) + [plain_plane]:
         p.close()
     return dict(stage=stage, launches=counts, deploy_s=deploy_s,
-                decompose_s=dec_s, warm_ms=1e3 * warm)
+                decompose_s=dec_s, warm_ms=1e3 * warm, out=out)
 
 
 def hw_leg_b(torch, full) -> None:
@@ -4683,19 +4719,12 @@ def hw_leg_c(torch) -> None:
           "hw_serve: wide frames not compacted")
 
 
-def hw_serve_phase(torch) -> dict:
-    """Hardware-in-the-loop LM serving: legs A (whisper-base at full width
-    and depth, sigma 0), B (one layer under drift, the closed loop on) and
-    C (the fleet autopilot's gateway leg, chunked prefill).  Returns leg A's
-    launches (counts set to 0 just before it)."""
+def whisper_hw(torch):
+    """whisper-base at full width and depth with fp32 bases, and its seeded
+    parameters made on the card."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
 
-    t_phase = time.perf_counter()
-    info = build.build(sorted({build.KERNELS[k] for k in HW_KERNELS}))
-    if info["built"]:
-        print(f"[hw_serve] built {info['built']} in {info['seconds']:.1f} s")
     # fp32 bases, as the reference's hw-logits configs (its hwtest arch, the
     # smoke LM of benchmarks/e2e_accuracy.py) are: the chips compute every
     # product in fp32 whatever the bases, and bf16 activations would round
@@ -4709,11 +4738,27 @@ def hw_serve_phase(torch) -> dict:
     params = card_params(torch, full, (
         f"{full.n_layers} decoder layers (the encoder's output is the serve "
         f"driver's stub), d_model {full.d_model}, d_ff {full.d_ff}"))
+    return full, params
+
+
+def hw_serve_phase(torch) -> tuple[dict, dict]:
+    """Hardware-in-the-loop LM serving: legs A (whisper-base at full width
+    and depth, sigma 0), B (one layer under drift, the closed loop on) and
+    C (the fleet autopilot's gateway leg, chunked prefill).  Returns leg A's
+    launches (counts set to 0 just before it), and leg A's config,
+    parameters and run for the driver phase."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    info = build.build(sorted({build.KERNELS[k] for k in HW_KERNELS}))
+    if info["built"]:
+        print(f"[hw_serve] built {info['built']} in {info['seconds']:.1f} s")
+    full, params = whisper_hw(torch)
     t0 = time.perf_counter()
     a = hw_leg_a(torch, full, params)
     print(f"[hw_serve] leg A {time.perf_counter() - t0:.1f} s")
-    del params
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     hw_leg_b(torch, full)
     print(f"[hw_serve] leg B {time.perf_counter() - t0:.1f} s")
@@ -4721,7 +4766,221 @@ def hw_serve_phase(torch) -> dict:
     hw_leg_c(torch)
     print(f"[hw_serve] leg C {time.perf_counter() - t0:.1f} s")
     print(f"[hw_serve] phase {time.perf_counter() - t_phase:.1f} s")
-    return a["launches"]
+    return a["launches"], dict(cfg=full, params=params, leg_a=a)
+
+
+# the driver phase: the kernels the server children launch on leg A's path
+# (each child reports its own at exit), and the closed-loop session's chip
+DRIVER_TRANSPORTS = ("twin", "subprocess", "socket")
+DRIVER_FLOW_K, DRIVER_FLOW_DIM = 9, 72      # 64 blocks of k = 9
+
+
+def _first_parting(got, want) -> str:
+    """Where two logit traces part: the first step that differs and its
+    largest difference over its largest logit."""
+    import numpy as np
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+            return (f"step {i} first, by {np.abs(g - w).max():.3e} "
+                    f"({np.abs(g - w).max() / np.abs(w).max():.3e} of the "
+                    f"largest logit)")
+    return "no step"
+
+
+def driver_leg_a(torch, cfg, params, twin) -> dict:
+    """Leg A over the socket transport: every chip a server child on this
+    card; the logits, tokens and meters bit for bit against the twin
+    transport's run ``twin``."""
+    import numpy as np
+    from repro_torch.hw import subprocess_driver
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    build.reset_launch_counts()
+    subprocess_driver.server_launch_counts.clear()
+    with hw_instrument(torch) as rec:
+        t0 = time.perf_counter()
+        out = serve.run(_hw_args(cfg, params, fleet_driver="socket"))
+        run_s = time.perf_counter() - t0
+    parent = _hw_counts()
+    child = {k: subprocess_driver.server_launch_counts[k] for k in HW_KERNELS}
+    plane, st = rec["planes"][0], rec["stats"][0]
+    hw, chips = out["report"]["hw"], plane.router.chips
+    n_steps = hw["steps"]
+    frames0, bytes0 = rec["wire0"][0]
+    frames1, bytes1 = _wire(chips)
+    walls = st["step_walls"]
+    warm = sorted(walls[1:])[len(walls[1:]) // 2]
+    print(f"[driver] leg A over the socket transport: {len(chips)} server "
+          f"children on this card, {chips[0].driver.n_blocks} blocks each; "
+          f"serve.run {run_s:.2f} s, deploy {rec['deploy_s'][0]:.2f} s (twin "
+          f"transport {twin['deploy_s']:.2f} s), the batched decomposition "
+          f"{rec['decompose_s'][0]:.2f} s of it")
+    print(f"[driver] warm step median {1e3 * warm:.1f} ms (twin transport "
+          f"{twin['warm_ms']:.1f} ms), first {1e3 * walls[0]:.1f} ms, ticks "
+          f"median {1e3 * sorted(st['tick_walls'])[len(walls) // 2]:.1f} ms; "
+          f"{hw['frames_per_step']:.1f} layer frames a step (twin "
+          f"{twin['out']['report']['hw']['frames_per_step']:.1f}), "
+          f"{(frames1 - frames0) / n_steps:.1f} wire frames and "
+          f"{(bytes1 - bytes0) / n_steps / 1e6:.3f} MB a step both ways; "
+          f"the deploy {frames0} frames, {bytes0 / 1e6:.1f} MB")
+    print(f"[driver] kernel launches in the server children: "
+          + ", ".join(f"{k}={child[k]}" for k in HW_KERNELS)
+          + "; in this process: "
+          + ", ".join(f"{k}={parent[k]}" for k in HW_KERNELS))
+    for k in HW_KERNELS:
+        check(child[k] > 0, f"driver: the server children launched no {k}")
+    check(sum(parent.values()) == 0,
+          "driver: a kernel of the served path ran in the client")
+    want = twin["out"]
+    same = (np.array_equal(out["logits"], want["logits"])
+            and np.array_equal(out["gen"], want["gen"]))
+    calls = [c["ptc_calls"] for c in out["report"]["chips"]]
+    want_calls = [c["ptc_calls"] for c in want["report"]["chips"]]
+    print(f"[driver] against the twin transport: logits and tokens "
+          f"{'bit-identical' if same else 'differ: ' + _first_parting(out['logits'], want['logits'])}"
+          f"; PTC calls per chip {calls} (twin {want_calls})")
+    check(same, "driver: the socket transport's logits part from the twin's "
+                f"at {_first_parting(out['logits'], want['logits'])}")
+    check(calls == want_calls, "driver: the meters differ across transports")
+    check(hw["frames_per_step"] == want["report"]["hw"]["frames_per_step"],
+          "driver: layer frames a step differ across transports")
+    return child
+
+
+def driver_flows(torch) -> None:
+    """One seeded session on each transport, the chip on this card: IC,
+    PM of a seeded weight, 30 drifting ticks and a recalibration against
+    the weight's blocks; every result equal across the three."""
+    from repro_torch.core.calibration import calibrate_identity
+    from repro_torch.core.mapping import parallel_map
+    from repro_torch.core.noise import DEFAULT_NOISE
+    from repro_torch.core.ptc import blockize
+    from repro_torch.hw import DriftConfig, make_driver
+    from repro_torch.optim.zo import ZOConfig
+    from repro_torch.runtime.recalibrate import RecalConfig, recalibrate
+
+    k, dim = DRIVER_FLOW_K, DRIVER_FLOW_DIM
+    b = (dim // k) ** 2
+    model = DEFAULT_NOISE.post_ic()   # as tests/test_driver.py's flows
+    drift = DriftConfig(sigma_phase=0.03, theta=0.01)
+    g = lambda seed: torch.Generator("cpu").manual_seed(seed)  # noqa: E731
+    w = (torch.randn((dim, dim), generator=g(5)) / dim ** 0.5).cuda()
+    blocks = blockize(w, k).reshape(b, k, k)
+    # the three drivers built at once: the server children start together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(DRIVER_TRANSPORTS)) as ex:
+        drivers = dict(zip(DRIVER_TRANSPORTS, ex.map(
+            lambda t: make_driver(t, g(42), b, k, model, m=dim, n=dim,
+                                  drift=drift, device="cuda"),
+            DRIVER_TRANSPORTS)))
+    print(f"[driver] the three drivers built in {time.perf_counter() - t0:.2f}"
+          f" s (two server children started together)")
+    outs = {}
+    for transport, d in drivers.items():
+        t0 = time.perf_counter()
+        try:
+            ic = calibrate_identity(g(1), b, k, model, restarts=2, driver=d,
+                                    cfg=ZOConfig(steps=20, inner=10,
+                                                 delta0=0.5))
+            pm = parallel_map(g(2), w, k, model, driver=d,
+                              cfg=ZOConfig(steps=20, inner=10, delta0=0.2))
+            for _ in range(30):
+                d.advance(1.0)
+            rc = recalibrate(g(9), d, blocks,
+                             RecalConfig(zo_steps=20, delta0=0.05))
+            stats = d.stats.as_dict()
+        finally:
+            d.close()
+        outs[transport] = [ic.phi_u, ic.mse_u, ic.history, pm.err_osp,
+                           pm.phi_u, rc.phi, rc.sigma, rc.dist_after,
+                           rc.ptc_calls, stats]
+        print(f"[driver] IC, PM, drift and recal over {transport}: "
+              f"{time.perf_counter() - t0:.2f} s; IC MSE "
+              f"{float(ic.mse_u.mean()):.2e}, PM error after OSP "
+              f"{float(pm.err_osp.mean()):.4f}, recal {float(rc.dist_before):.4f}"
+              f" → {float(rc.dist_after):.4f}, {stats['total']:.0f} PTC calls")
+    for transport in DRIVER_TRANSPORTS[1:]:
+        for i, (a, b_) in enumerate(zip(outs["twin"], outs[transport])):
+            same = (torch.equal(a.cpu(), b_.cpu())
+                    if isinstance(a, torch.Tensor) else a == b_)
+            check(same, f"driver: the {transport} session's result {i} "
+                        f"differs from the twin's")
+    print(f"[driver] the session is equal on the three transports")
+
+
+def driver_phase(torch, hw: dict | None) -> dict:
+    """The driver plane on the card: leg A over the socket transport
+    against the twin transport's (``hw``, from the hw_serve phase, else run
+    here), ``driver_overhead`` at quick, and the IC/PM/recal session on
+    the three transports.  Returns the server children's launches over leg
+    A."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.common import ART
+    from repro_torch.hw import subprocess_driver
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    info = build.build(sorted({build.KERNELS[k] for k in HW_KERNELS}))
+    if info["built"]:
+        print(f"[driver] built {info['built']} in {info['seconds']:.1f} s")
+    if hw is None:
+        full, params = whisper_hw(torch)
+        build.reset_launch_counts()
+        with hw_instrument(torch) as rec:
+            out = serve.run(_hw_args(full, params))
+        walls = rec["stats"][0]["step_walls"]
+        hw = dict(cfg=full, params=params, leg_a=dict(
+            out=out, deploy_s=rec["deploy_s"][0],
+            warm_ms=1e3 * sorted(walls[1:])[len(walls[1:]) // 2]))
+        print(f"[driver] leg A on the twin transport {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    child = driver_leg_a(torch, hw["cfg"], hw["params"], hw["leg_a"])
+    print(f"[driver] leg A over the socket transport "
+          f"{time.perf_counter() - t0:.1f} s")
+    hw.clear()
+    torch.cuda.empty_cache()
+
+    subprocess_driver.server_launch_counts.clear()
+    recs = bench_run.run("quick", only="hw_driver_overhead", device="cuda",
+                         benches=bench_run.RUNTIME)
+    s = json.loads((ART / "BENCH_driver_overhead.json").read_text())
+    print(f"[driver] driver_overhead (quick) {recs[0]['seconds']:.1f} s; "
+          f"bit identity: batched = sequential = twin {s['bit_identity_ok']}, "
+          f"v4 = v3 {s['v4_v3_bit_identical']}, async = sync "
+          f"{all(a['async_bit_identical'] for a in s['async_sweep'].values())}"
+          f", concurrent sessions = twin {s['concurrent_bit_identical']}")
+    for t in ("twin", "subprocess", "socket"):
+        r = s[t]
+        print(f"[driver] {t}: probe {1e3 * r['probe_s']:.3f} ms, serve "
+              f"{1e3 * r['serve_s']:.3f} ms, readback "
+              f"{1e3 * r['readback_s']:.3f} ms, advance "
+              f"{1e3 * r['advance_s']:.3f} ms, zo_refine "
+              f"{1e3 * r['zo_refine_s']:.2f} ms; batch 1/8/64 a probe "
+              + " / ".join(f"{r['batch_sweep'][n]['per_op_ms']:.3f}"
+                           for n in ("1", "8", "64")) + " ms")
+    for t, a in s["async_sweep"].items():
+        print(f"[driver] {t} async depth {a['depth']}: {1e3 * a['sync_s']:.2f}"
+              f" ms sync, {1e3 * a['async_s']:.2f} ms async "
+              f"({a['overlap_speedup']:.2f}x)")
+    c = s["concurrent"]
+    print(f"[driver] {c['n_clients']} concurrent socket sessions: "
+          f"{c['aggregate_cols_per_s']:.0f} probe columns/s in all; socket "
+          f"batch 64 against the twin's {s['socket_batch64_vs_twin_batch64']:.2f}"
+          f"x (reference gate {s['v4_socket_batch64_threshold']}); children's "
+          f"launches " + ", ".join(
+              f"{k}={v}" for k, v in
+              sorted(subprocess_driver.server_launch_counts.items())))
+    check(s["bit_identity_ok"] and s["v4_v3_bit_identical"]
+          and s["concurrent_bit_identical"],
+          "driver: a driver_overhead bit-identity check failed")
+    t0 = time.perf_counter()
+    driver_flows(torch)
+    print(f"[driver] the three sessions {time.perf_counter() - t0:.1f} s")
+    print(f"[driver] phase {time.perf_counter() - t_phase:.1f} s")
+    return child
 
 
 def main(argv=None) -> int:
@@ -4836,13 +5095,25 @@ def main(argv=None) -> int:
                          if launches[k] is None})
 
     lap("closed_loop")
+    hw = None
     if "hw_serve" in phases:
-        counts = hw_serve_phase(torch)
+        counts, hw = hw_serve_phase(torch)
         # a quickstart path driven in this run keeps its counts
         launches.update({k: v for k, v in counts.items()
                          if launches[k] is None})
+        if "driver" not in phases:
+            hw = None
 
     lap("hw_serve")
+    if "driver" in phases:
+        counts = driver_phase(torch, hw)
+        # the server children's launches over leg A, where no earlier
+        # path of this run counted the kernel
+        launches.update({k: v for k, v in counts.items()
+                         if launches[k] is None})
+        hw = None
+
+    lap("driver")
     if "vgg8" in phases:
         vgg8_phase(torch)
 

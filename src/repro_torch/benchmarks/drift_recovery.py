@@ -14,9 +14,9 @@ writes under ``bench_artifacts/torch/``:
 across three mapped layers, partial recalibration): every alarmed tenant
 recovers below the alarm threshold while co-tenants' true distances move
 no more than their natural drift, and a partial recal on a frozen device
-leaves co-tenants exactly unchanged (``BENCH_multi_tenant.json``).  The
-reference also runs it over its subprocess transport, which is not
-ported; the JSON says so under ``transports["subprocess"]``.
+leaves co-tenants exactly unchanged (``BENCH_multi_tenant.json``), on the
+in-process twin and over the subprocess transport (a device server child
+per chip), each under ``transports[...]``.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.drift_recovery \\
         [--budget quick|normal] [--scenario single|multi_tenant] [--device cpu]
@@ -37,10 +37,6 @@ from ..runtime.recalibrate import recalibrate
 from .common import ART, emit, Timer
 
 __all__ = ["main", "multi_tenant"]
-
-NOT_PORTED = ("not ported: the subprocess transport is the driver plane "
-              "(ROADMAP queue 1, item 7)")
-
 
 def _time_to_recovery(events: list[dict], clear_threshold: float) -> list[dict]:
     """Pair each alarm with the first later recal_done on the same (chip,
@@ -171,54 +167,62 @@ def _frozen_partial_recal(driver_kind: str = "twin", seed: int = 0,
 
 
 def multi_tenant(budget: str = "quick", device=None) -> dict:
-    """Multi-tenant drift recovery on the in-process twin; returns
-    {table: rows} (one row per (chip, tenant))."""
+    """Multi-tenant drift recovery on both driver transports (the
+    in-process twin, then a server child per chip over pipes); returns
+    {table: rows} (one row per (transport, chip, tenant))."""
     chips, steps, tenants = (2, 80, 3) if budget == "quick" else (3, 200, 3)
     summary = dict(budget=budget, chips=chips, steps=steps, tenants=tenants,
-                   transports={"subprocess": dict(status=NOT_PORTED)})
-    cfg = default_runtime_config(k=4, sigma_drift=0.04, probe_every=5)
-    with Timer(device) as t:
-        out = simulate(chips, steps, dim=12, seed=0, cfg=cfg,
-                       tenants=tenants, device=device)
-    rep = out["report"]
-    recoveries = _time_to_recovery(rep["events"],
-                                   cfg.monitor.alarm_threshold)
-    shifts = cotenant_shifts(out["trace"], rep["events"], cfg.recal_latency)
-    noise = drift_noise_band(out["trace"], rep["events"], cfg.recal_latency)
-    worst_shift = max((abs(s["shift"]) for s in shifts), default=0.0)
-    frozen = _frozen_partial_recal("twin", device=device)
-    s = dict(
-        wall_s=t.dt, device=out["config"]["device"],
-        alarms=sum(c["alarms"] for c in rep["chips"]),
-        recals=sum(c["recals"] for c in rep["chips"]),
-        dropped=rep["dropped"],
-        recoveries=len(recoveries),
-        mean_time_to_recovery=(sum(r["ticks"] for r in recoveries)
-                               / len(recoveries)) if recoveries else None,
-        recal_done_below_alarm=all(
-            ev["dist_after"] < cfg.monitor.alarm_threshold
-            for ev in rep["events"] if ev["event"] == "recal_done"),
-        cotenant_windows=len(shifts),
-        worst_cotenant_shift=worst_shift,
-        drift_noise_band=noise,
-        cotenants_within_noise=bool(worst_shift <= isolation_band(
-            noise, cfg.monitor.clear_threshold)),
-        frozen_device_check=frozen,
-        per_tenant=[[dict(tenant=t_["tenant"], served=t_["served"],
-                          alarms=t_["alarms"], recals=t_["recals"],
-                          distance=t_["distance"])
-                     for t_ in c["tenants"]] for c in rep["chips"]])
-    summary["transports"]["twin"] = s
+                   transports={})
+    rows = []
+    for driver_kind in ("twin", "subprocess"):
+        cfg = default_runtime_config(k=4, sigma_drift=0.04, probe_every=5,
+                                     driver_kind=driver_kind)
+        with Timer(device) as t:
+            out = simulate(chips, steps, dim=12, seed=0, cfg=cfg,
+                           tenants=tenants, device=device)
+        rep = out["report"]
+        recoveries = _time_to_recovery(rep["events"],
+                                       cfg.monitor.alarm_threshold)
+        shifts = cotenant_shifts(out["trace"], rep["events"],
+                                 cfg.recal_latency)
+        noise = drift_noise_band(out["trace"], rep["events"],
+                                 cfg.recal_latency)
+        worst_shift = max((abs(s["shift"]) for s in shifts), default=0.0)
+        frozen = _frozen_partial_recal(driver_kind, device=device)
+        s = dict(
+            wall_s=t.dt, device=out["config"]["device"],
+            alarms=sum(c["alarms"] for c in rep["chips"]),
+            recals=sum(c["recals"] for c in rep["chips"]),
+            dropped=rep["dropped"],
+            recoveries=len(recoveries),
+            mean_time_to_recovery=(sum(r["ticks"] for r in recoveries)
+                                   / len(recoveries)) if recoveries else None,
+            recal_done_below_alarm=all(
+                ev["dist_after"] < cfg.monitor.alarm_threshold
+                for ev in rep["events"] if ev["event"] == "recal_done"),
+            cotenant_windows=len(shifts),
+            worst_cotenant_shift=worst_shift,
+            drift_noise_band=noise,
+            cotenants_within_noise=bool(worst_shift <= isolation_band(
+                noise, cfg.monitor.clear_threshold)),
+            frozen_device_check=frozen,
+            per_tenant=[[dict(tenant=t_["tenant"], served=t_["served"],
+                              alarms=t_["alarms"], recals=t_["recals"],
+                              distance=t_["distance"])
+                         for t_ in c["tenants"]] for c in rep["chips"]])
+        summary["transports"][driver_kind] = s
+        rows += [[driver_kind, c["chip"], t_["tenant"], t_["served"],
+                  t_["alarms"], t_["recals"], f"{t_['distance']:.5f}"]
+                 for c in rep["chips"] for t_ in c["tenants"]]
     _write_json("BENCH_multi_tenant.json", summary)
-    assert s["recals"] > 0 and s["recal_done_below_alarm"], "twin"
-    assert s["cotenants_within_noise"], "twin"
-    assert frozen["recovered"], "twin"
-    assert frozen["cotenants_bit_identical"], "twin"
-    rows = [[c["chip"], t_["tenant"], t_["served"], t_["alarms"],
-             t_["recals"], f"{t_['distance']:.5f}"]
-            for c in rep["chips"] for t_ in c["tenants"]]
-    emit("multi_tenant", ["chip", "tenant", "served", "alarms", "recals",
-                          "distance"], rows)
+    for driver_kind, s in summary["transports"].items():
+        assert s["recals"] > 0 and s["recal_done_below_alarm"], driver_kind
+        assert s["cotenants_within_noise"], driver_kind
+        assert s["frozen_device_check"]["recovered"], driver_kind
+        assert s["frozen_device_check"]["cotenants_bit_identical"], \
+            driver_kind
+    emit("multi_tenant", ["transport", "chip", "tenant", "served", "alarms",
+                          "recals", "distance"], rows)
     return {"multi_tenant": rows}
 
 

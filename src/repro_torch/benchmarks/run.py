@@ -4,10 +4,10 @@
         [--budget quick|normal] [--only SUBSTR] [--device cpu|cuda]
 
 Counterpart of ``benchmarks/run.py`` for its six paper benchmarks
-(:data:`TABLES`) and the closed loop's runtime benchmarks (:data:`RUNTIME`:
-drift recovery, multi-tenant, the fleet autopilot; the driver-plane
-benchmark and the LM benchmarks ``e2e_accuracy`` and ``serving_gateway``
-wait for their slices of the port).  Each table is written under
+(:data:`TABLES`) and the runtime benchmarks (:data:`RUNTIME`: drift
+recovery, multi-tenant, the fleet autopilot, the driver transports'
+overhead; the LM benchmarks ``e2e_accuracy`` and ``serving_gateway`` wait
+for their slice of the port).  Each table is written under
 ``bench_artifacts/torch/`` and printed.  Without ``--device`` the tables run on ``cuda`` (and a host
 without CUDA refuses); ``--device cpu`` runs the kernels' plain versions.
 """
@@ -18,8 +18,8 @@ import argparse
 
 from ..device import resolve_device
 from ..kernels import build
-from . import (blocksize_tables, drift_recovery, fleet_autopilot,
-               grad_fidelity, ic_convergence, mapping_osp, sampling_table2,
+from . import (blocksize_tables, drift_recovery, driver_overhead,
+               fleet_autopilot, grad_fidelity, ic_convergence, mapping_osp, sampling_table2,
                scalability)
 from .common import Timer
 
@@ -34,11 +34,12 @@ TABLES = (
     ("table2_sampling", sampling_table2.main),
     ("fig10_scalability", scalability.main),
 )
-# the reference runner's closed-loop benchmarks (benchmarks/run.py:71-72,
-# :76)
+# the reference runner's runtime benchmarks, in its order
+# (benchmarks/run.py:71-77; e2e_accuracy and serving_gateway not yet)
 RUNTIME = (
     ("runtime_drift_recovery", drift_recovery.main),
     ("runtime_multi_tenant", drift_recovery.multi_tenant),
+    ("hw_driver_overhead", driver_overhead.main),
     ("fleet_autopilot", fleet_autopilot.main),
 )
 BENCHES = TABLES + RUNTIME

@@ -71,26 +71,39 @@ def advance(state: DriftState, dt: float,  # repro: noqa[RPL103]
     """One drift step of size ``dt``.
 
     The four normal draws, in the reference's split order (bias_u, bias_v,
-    gamma_u, gamma_v), come from ``gen`` or are given as ``eps``.  With
-    ``cfg.sigma_gamma == 0`` the Γ draws are not made (their term is
-    exactly zero) and ``eps`` may carry two tensors.
+    gamma_u, gamma_v), come from ``gen`` or are given as ``eps``.  A term
+    whose diffusion is zero is not drawn: with ``cfg.sigma_gamma == 0`` the
+    two Γ draws are skipped (``eps`` may carry two tensors), and with both
+    σ zero no draw is made at all (``eps`` is not read).  The skipped terms
+    are exactly zero, so the bits are those of the draws made; with
+    ``sigma_gamma != 0`` all four are drawn, in that order, whatever
+    ``sigma_phase`` is.
     """
     anchor, dev = state.anchor, state.dev
     shape = dev.noise_u.bias.shape
-    n_draws = 4 if cfg.sigma_gamma != 0.0 else 2
-    if eps is None:
+    if cfg.sigma_gamma != 0.0:
+        n_draws = 4
+    else:
+        n_draws = 2 if cfg.sigma_phase != 0.0 else 0
+    if eps is None and n_draws:
         if gen is None:
             raise ValueError("advance: pass gen= or eps=")
         eps = [torch.randn(shape, generator=gen, device=gen.device)
                for _ in range(n_draws)]
     eps = [torch.as_tensor(e, dtype=torch.float32).to(dev.noise_u.bias.device)
-           for e in eps[:n_draws]]
+           for e in (eps or [])[:n_draws]]
     dt = float(dt)
     ramp = cfg.aging * state.t
-    bias_u = _ou_step(dev.noise_u.bias, anchor.noise_u.bias + ramp,
-                      cfg.theta, cfg.sigma_phase, dt, eps[0])
-    bias_v = _ou_step(dev.noise_v.bias, anchor.noise_v.bias + ramp,
-                      cfg.theta, cfg.sigma_phase, dt, eps[1])
+    if n_draws:
+        bias_u = _ou_step(dev.noise_u.bias, anchor.noise_u.bias + ramp,
+                          cfg.theta, cfg.sigma_phase, dt, eps[0])
+        bias_v = _ou_step(dev.noise_v.bias, anchor.noise_v.bias + ramp,
+                          cfg.theta, cfg.sigma_phase, dt, eps[1])
+    else:
+        bias_u = dev.noise_u.bias + cfg.theta * (
+            anchor.noise_u.bias + ramp - dev.noise_u.bias) * dt
+        bias_v = dev.noise_v.bias + cfg.theta * (
+            anchor.noise_v.bias + ramp - dev.noise_v.bias) * dt
     if n_draws == 4:
         gamma_u = _ou_step(dev.noise_u.gamma, anchor.noise_u.gamma,
                            cfg.theta, cfg.sigma_gamma, dt, eps[2])

@@ -45,7 +45,8 @@ __all__ = ["DriverStats", "PhotonicDriver", "ZORefineResult", "ICJobResult",
            "TwinUnavailable", "CompletedBatch", "probe_cost",
            "readback_cost", "readout_blocks", "resolve_block_range",
            "BATCHABLE_OPS", "WIRE_INTERNAL_OPS", "STAT_CATEGORIES",
-           "forward_coalesce_key", "coalesce_spans", "validate_batch_ops"]
+           "forward_coalesce_key", "coalesce_spans", "validate_batch_ops",
+           "wire_key", "key_generator"]
 
 # the PTC meter's categories (DriverStats fields a charge may land in)
 STAT_CATEGORIES = frozenset(["serve", "probe", "readback", "search"])
@@ -100,6 +101,24 @@ def validate_batch_ops(ops) -> None:
             raise ValueError(
                 f"{name}: unknown PTC-meter category "
                 f"{kw['category']!r} (one of {sorted(STAT_CATEGORIES)})")
+
+
+def wire_key(gen: torch.Generator) -> np.ndarray:
+    """One construction key drawn from ``gen``: two uint32 words, shaped
+    like a raw ``jax.random`` key, so it rides the wire's ``init`` frame
+    to either package's server.  Every transport of :func:`make_driver`
+    draws it, so they consume ``gen`` alike."""
+    words = torch.randint(0, 2 ** 32, (2,), generator=gen, device=gen.device,
+                          dtype=torch.int64)
+    return words.cpu().numpy().astype(np.uint32)
+
+
+def key_generator(key) -> torch.Generator:
+    """The CPU generator a twin samples from for a wire key: seeded by the
+    key's two uint32 words as one 64-bit integer, so one key gives one
+    realization on every device and in every process."""
+    hi, lo = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(2))
+    return torch.Generator("cpu").manual_seed((hi << 32) | lo)
 
 
 class TwinUnavailable(RuntimeError):

@@ -21,10 +21,24 @@ import torch
 from ..core import unitary as un
 from ..core.noise import NoiseModel
 from ..kernels.ptc_block_matmul import ptc_block_matmul
-from ..optim.zo import ZOConfig, ZOResult, zo_minimize
+from ..optim.zo import ZOConfig, ZOResult, step_draws, zo_minimize
 from .device import DeviceRealization, realized_unitaries
 
-__all__ = ["phase_refine", "ic_search", "probe_transfer"]
+__all__ = ["phase_refine", "ic_search", "probe_transfer", "job_draws"]
+
+
+def job_draws(gen: torch.Generator, method: str, b: int, steps: int,
+              n_rot: int, restarts: int | None = None) -> torch.Tensor:
+    """The per-step draws a job makes from ``gen``, made now: those of
+    :func:`phase_refine` (alternating halves of the 2T phases), or with
+    ``restarts`` those of :func:`ic_search` (one stack a restart).  A job
+    given them as ``draws`` gives the bits ``gen`` gives; a transport that
+    ships a job to another process or device sends these in its place."""
+    n = 2 * n_rot
+    if restarts is None:
+        return step_draws(gen, method, b, steps, n, n_rot)
+    return torch.stack([step_draws(gen, method, b, steps, n)
+                        for _ in range(restarts)])
 
 
 def probe_transfer(u: torch.Tensor, s: torch.Tensor,

@@ -308,9 +308,20 @@ class TwinDriver(PhotonicDriver):
 
     # -- in-situ jobs --------------------------------------------------------
 
+    def _foreign(self, gen, draws) -> bool:
+        """A generator on another device than the twin's: the job then runs
+        on the draws it would make (:func:`jobs.job_draws`), so a CPU
+        generator drives a twin on the card with the bits it gives on the
+        CPU."""
+        return draws is None and gen is not None and \
+            gen.device.type != self._device.type
+
     def zo_refine(self, w_blocks, gen, cfg: ZOConfig, method: str = "zcd", *,
                   block_range=None, draws=None) -> ZORefineResult:
         start, stop, phi, sigma, dev = self._slice(block_range)
+        if self._foreign(gen, draws):
+            draws, gen = jobs.job_draws(gen, method, stop - start, cfg.steps,
+                                        self._spec.n_rot), None
         res = jobs.phase_refine(self._spec, self._model, dev, phi, sigma,
                                 _f32(w_blocks, self._device), gen, cfg,
                                 method, draws)
@@ -328,6 +339,9 @@ class TwinDriver(PhotonicDriver):
     def run_ic(self, gen, sigs, cfg: ZOConfig, *, restarts: int = 4,
                method: str = "zcd", draws=None) -> ICJobResult:
         sigs = _f32(sigs, self._device)
+        if self._foreign(gen, draws):
+            draws, gen = jobs.job_draws(gen, method, self._b, cfg.steps,
+                                        self._spec.n_rot, restarts), None
         phi, loss, history = jobs.ic_search(
             self._spec, self._model, self._dev, gen, cfg, sigs, method,
             restarts, draws)

@@ -24,9 +24,10 @@ routes the whole forward pass to one chip and every PTC product runs
 through that chip's realized (drifted) transfer, so the logits are what
 the photonic hardware computes.  ``--hw-shadow`` deploys the same way but
 serves the deployment-time readback transfer digitally: at σ_drift = 0 it
-is token-identical to ``--hw-logits``.  The reference's stream transports
-(``--fleet-driver subprocess|socket``) are not ported: ``make_driver``
-raises a ``ValueError`` naming the driver plane's queue item.
+is token-identical to ``--hw-logits``.  ``--fleet-driver subprocess|socket``
+puts every chip behind a device server child (``repro_torch.hw.server``
+on the same ``--device``) over pipes or TCP; the logits are bit-identical
+to the in-process twin's.
 """
 
 from __future__ import annotations
@@ -314,8 +315,9 @@ def main(argv=None):
                          "the model instead)")
     ap.add_argument("--fleet-driver", default="twin",
                     choices=["twin", "subprocess", "socket"],
-                    help="photonic device transport behind the fleet (the "
-                         "stream transports are not ported)")
+                    help="photonic device transport behind the fleet "
+                         "(subprocess / socket: a device server child per "
+                         "chip)")
     ap.add_argument("--hw-logits", action="store_true",
                     help="deploy the model's PTC layers onto the fleet "
                          "(one tenant per layer) and run every decode-path "

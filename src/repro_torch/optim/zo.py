@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["ZOConfig", "ZOResult", "zo_minimize", "zo_draws"]
+__all__ = ["ZOConfig", "ZOResult", "zo_minimize", "zo_draws", "step_draws"]
 
 
 class ZOConfig(NamedTuple):
@@ -62,6 +62,27 @@ def zo_draws(gen: torch.Generator, method: str, shape: tuple[int, ...],
         hi = n if alt_split is None else _ALT_RANGE
         return torch.randint(0, hi, shape, generator=gen, device=gen.device)
     return torch.randn(shape + (n,), generator=gen, device=gen.device)
+
+
+def step_draws(gen: torch.Generator, method: str, b: int, steps: int,
+               n: int, alt_split: int | None = None) -> torch.Tensor:
+    """The per-step draws :func:`zo_minimize` makes from ``gen`` for a
+    search of ``b`` rows, made now and stacked as its ``draws`` ((b,
+    steps) integers for ``zcd``, else (b, steps, n) normals): the same
+    calls in the same order, so ``draws=step_draws(gen, ...)`` gives the
+    bits ``gen=gen`` gives."""
+    rows = []
+    for _ in range(steps):
+        if method != "zcd":
+            rows.append(torch.randn((b, n), generator=gen, device=gen.device))
+        else:
+            hi = n if alt_split is None else _ALT_RANGE
+            rows.append(torch.randint(0, hi, (b,), generator=gen,
+                                      device=gen.device))
+    if not rows:
+        return (torch.zeros((b, 0), dtype=torch.int64) if method == "zcd"
+                else torch.zeros((b, 0, n)))
+    return torch.stack(rows, dim=1)
 
 
 def zo_minimize(loss_fn: Callable[[torch.Tensor], torch.Tensor],

@@ -15,8 +15,9 @@ Exits 0 when all of that held, 1 otherwise (``--no-recal``: degraded and
 every batch served; ``--autopilot``: jobs ran and recovered).
 
 ``--tenants T`` time-multiplexes every chip across T mapped layers with
-partial (per-tenant) repair jobs.  The reference's ``--driver
-subprocess|socket`` transports are not ported (exit 2).
+partial (per-tenant) repair jobs.  ``--driver subprocess|socket`` puts
+every chip behind a device server child (``repro_torch.hw.server``) over
+pipes or TCP, with the same trajectory as the in-process twin.
 
 ``simulate`` is the library entry point the drift-recovery benchmarks
 reuse.  Every random draw (weights, devices, drift, probes, recal jobs,
@@ -247,8 +248,9 @@ def main(argv=None) -> int:
                          "(per-layer Σ banks + partial recalibration)")
     ap.add_argument("--driver", default="twin",
                     choices=["twin", "subprocess", "socket"],
-                    help="device transport: the in-process twin (the "
-                         "stream transports are not ported)")
+                    help="device transport: the in-process twin, or a "
+                         "device server child per chip over pipes "
+                         "(subprocess) or TCP (socket)")
     ap.add_argument("--policy", default="drift_aware",
                     choices=["drift_aware", "accuracy_aware",
                              "least_served"],
@@ -275,11 +277,6 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.driver != "twin":
-        print(f"--driver {args.driver}: the stream transports are the "
-              f"driver plane, not ported yet (ROADMAP queue 1, item 7)")
-        return 2
-
     autopilot = None
     if args.autopilot:
         from .autopilot import AutopilotConfig

@@ -131,8 +131,8 @@ def main(argv=None):
     ap.add_argument("--fleet-k", type=int, default=6)
     ap.add_argument("--fleet-driver", default="twin",
                     choices=["twin", "subprocess", "socket"],
-                    help="photonic device transport (the stream transports "
-                         "are not ported)")
+                    help="photonic device transport (subprocess / "
+                         "socket: a device server child per chip)")
     ap.add_argument("--hw-logits", action="store_true",
                     help="serve every request's PTC products through the "
                          "routed chips (coalesced frames)")

@@ -75,6 +75,62 @@ def test_advance_matches_reference_under_its_draws(sigma_gamma):
         tdrift.advance(st_t, 1.0)
 
 
+@pytest.mark.parametrize("sigma_gamma", [0.0, 0.002])
+def test_advance_at_sigma_phase_zero_keeps_the_bits(sigma_gamma):
+    """At σ_phase = 0 the bias term is exactly zero, so ``advance`` skips
+    the bias draws (both σ zero: no draw at all): N ticks through a
+    generator and through ``eps`` give the realization of the walk that
+    draws them and scales them by zero; with σ_γ ≠ 0 all four draws are
+    still made, in their order."""
+    cfg = convert.drift_config(DRIFT._replace(sigma_phase=0.0,
+                                              sigma_gamma=sigma_gamma))
+    start = convert.drift_state(_ref_state())
+    shape = start.dev.noise_u.bias.shape
+    g_skip, g_draw = torch.Generator().manual_seed(4), \
+        torch.Generator().manual_seed(4)
+    st_gen = st_eps = st_draw = start
+    for _ in range(5):
+        st_gen = tdrift.advance(st_gen, 1.0, g_skip, cfg)
+        eps = [torch.randn(shape, generator=g_draw)
+               for _ in range(4 if sigma_gamma else 2)]
+        st_eps = tdrift.advance(st_eps, 1.0, cfg=cfg, eps=eps)
+        # the drawing walk: every term through _ou_step, the bias ones
+        # scaled by σ_phase = 0
+        a, d = st_draw.anchor, st_draw.dev
+        ramp = cfg.aging * st_draw.t
+        bias = [tdrift._ou_step(dn.bias, an.bias + ramp, cfg.theta, 0.0,
+                                1.0, e)
+                for dn, an, e in zip((d.noise_u, d.noise_v),
+                                     (a.noise_u, a.noise_v), eps)]
+        if sigma_gamma:
+            gamma = [tdrift._ou_step(dn.gamma, an.gamma, cfg.theta,
+                                     cfg.sigma_gamma, 1.0, e)
+                     for dn, an, e in zip((d.noise_u, d.noise_v),
+                                          (a.noise_u, a.noise_v), eps[2:])]
+        else:
+            gamma = [dn.gamma + cfg.theta * (an.gamma - dn.gamma) * 1.0
+                     for dn, an in zip((d.noise_u, d.noise_v),
+                                       (a.noise_u, a.noise_v))]
+        st_draw = tdrift.DriftState(
+            anchor=a, t=st_draw.t + 1.0,
+            dev=d._replace(noise_u=d.noise_u._replace(gamma=gamma[0],
+                                                      bias=bias[0]),
+                           noise_v=d.noise_v._replace(gamma=gamma[1],
+                                                      bias=bias[1])))
+        for st in (st_gen, st_eps):
+            for got, want in zip(
+                    (st.dev.noise_u.bias, st.dev.noise_v.bias,
+                     st.dev.noise_u.gamma, st.dev.noise_v.gamma),
+                    (bias[0], bias[1], gamma[0], gamma[1])):
+                assert torch.equal(got, want)
+    assert float(tdrift.bias_deviation(st_gen)) > 0.0       # aging moves it
+    # no bias draw was made from the generator without Γ diffusion
+    want_state = torch.Generator().manual_seed(4)
+    for _ in range(5 * (4 if sigma_gamma else 0)):
+        torch.randn(shape, generator=want_state)
+    assert torch.equal(g_skip.get_state(), want_state.get_state())
+
+
 def test_twin_drift_chain_is_seeded_and_device_owned():
     model = convert.noise_model(DEFAULT_NOISE.post_ic())
     cfg = convert.drift_config(DRIFT)
@@ -212,9 +268,21 @@ def test_make_driver_and_package_surface():
                          model, drift=hw.DEFAULT_DRIFT, device="cpu")
     assert isinstance(drv, hw.TwinDriver) and drv.n_blocks == B
     assert isinstance(drv.unsafe_twin(), hw.TwinHandle)
-    for transport in ("subprocess", "socket"):
-        with pytest.raises(ValueError, match="item 7"):
-            hw.make_driver(transport, None, B, K, model, device="cpu")
+    # the stream transports sample the twin the in-process one does, from
+    # one wire key drawn from the generator
+    twin = hw.make_driver("twin", torch.Generator().manual_seed(5), B, K,
+                          model, drift=hw.DEFAULT_DRIFT, device="cpu")
+    for transport, cls in (("subprocess", hw.SubprocessDriver),
+                           ("socket", hw.SocketDriver)):
+        with hw.make_driver(transport, torch.Generator().manual_seed(5), B,
+                            K, model, drift=hw.DEFAULT_DRIFT,
+                            device="cpu") as remote:
+            assert isinstance(remote, cls) and remote.n_blocks == B
+            dev = remote.unsafe_twin().dev
+            for a, b in zip(jax.tree_util.tree_leaves(tuple(dev)),
+                            jax.tree_util.tree_leaves(
+                                tuple(twin.unsafe_twin().dev))):
+                assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unknown"):
         hw.make_driver("carrier-pigeon", None, B, K, model, device="cpu")
     assert tuple(hw.DEFAULT_DRIFT) == tuple(jhw.DEFAULT_DRIFT)

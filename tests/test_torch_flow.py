@@ -55,6 +55,19 @@ from repro_torch.kernels import build
 from repro_torch.optim import optimizers as topt
 
 D_IN, D_H, D_OUT, K = 18, 18, 9, 9
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, as tests/test_torch_hw_serve.py: under the
+    suite's workers torch's parallel regions wait on threads other
+    workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 IC_CFG = ZOConfig(steps=100, inner=72, delta0=0.5, decay=1.05)
 IC_RESTARTS = 1
 PM_CFG = ZOConfig(steps=60, inner=72, delta0=2 * np.pi / 255.0 * 8,

@@ -52,6 +52,18 @@ from repro_torch.models import ffn as tffn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, as tests/test_torch_hw_serve.py: under the
+    suite's workers torch's parallel regions wait on threads other
+    workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["qwen3-4b", "gemma2-27b", "chatglm3-6b"]
 FAMILIES = ["falcon-mamba-7b", "jamba-1.5-large-398b", "qwen3-moe-30b-a3b",
             "moonshot-v1-16b-a3b"]

@@ -50,6 +50,19 @@ from repro_torch.runtime.recalibrate import (RecalConfig, autotune_zo_steps,
                                              recalibrate)
 
 K, DIM, TENANTS = 4, 12, 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, as tests/test_torch_hw_serve.py: under the
+    suite's workers torch's parallel regions wait on threads other
+    workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMOKE = ["--chips", "2", "--steps", "40", "--dim", "12", "--k", "4",
          "--probe-every", "5", "--sigma-drift", "0.04", "--device", "cpu"]
 
@@ -474,10 +487,17 @@ def test_main_fast_smoke_meets_the_reference_exit_criteria(tenants, capsys):
         assert "within drift band" in out
 
 
-def test_main_refuses_the_stream_transports(capsys):
-    for transport in ("subprocess", "socket"):
-        assert tdemo.main(SMOKE + ["--driver", transport]) == 2
-        assert "item 7" in capsys.readouterr().out
+def test_main_over_the_stream_transports(capsys):
+    """``--driver subprocess|socket`` puts every chip behind a server
+    child: the demo meets the exit criteria and prints the twin's
+    timeline and summary line for line (the driver's name aside)."""
+    outs = {}
+    for transport in ("twin", "subprocess", "socket"):
+        assert tdemo.main(SMOKE + ["--driver", transport]) == 0
+        outs[transport] = capsys.readouterr().out.replace(
+            f"({transport} driver", "(<driver>")
+    assert "40/40 batches served, 0 dropped" in outs["twin"]
+    assert outs["subprocess"] == outs["twin"] == outs["socket"]
 
 
 def test_frozen_partial_recal_and_runner_registration():
@@ -485,7 +505,12 @@ def test_frozen_partial_recal_and_runner_registration():
     assert got["recovered"] and got["cotenants_bit_identical"]
     assert got["ptc_calls"] > 0
     names = [name for name, _ in bench_run.BENCHES]
-    assert names[-3:] == ["runtime_drift_recovery", "runtime_multi_tenant",
-                          "fleet_autopilot"]
+    assert names[-4:] == ["runtime_drift_recovery", "runtime_multi_tenant",
+                          "hw_driver_overhead", "fleet_autopilot"]
     assert [name for name, _ in bench_run.TABLES] == names[:6]
-    assert "item 7" in drift_recovery.NOT_PORTED
+    # the multi-tenant benchmark's subprocess leg: the frozen-device check
+    # over a server child gives the twin's distances bit for bit
+    sub = drift_recovery._frozen_partial_recal("subprocess", device="cpu")
+    assert (sub["recal_tenant"], sub["dist_pre"], sub["dist_post"],
+            sub["ptc_calls"]) == (got["recal_tenant"], got["dist_pre"],
+                                  got["dist_post"], got["ptc_calls"])

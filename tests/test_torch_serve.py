@@ -359,17 +359,37 @@ def test_serve_run_and_cli_on_the_cpu(capsys):
     (["--fleet", "1", "--hw-logits", "--hw-shadow"], "exclusive"),
     (["--arch", "smoke:qwen3-moe-30b-a3b", "--fleet", "1", "--hw-logits"],
      "MoE"),
-    (["--fleet", "1", "--fleet-driver", "subprocess"], "item 7"),
-    (["--fleet", "1", "--hw-logits", "--fleet-driver", "socket"], "item 7"),
 ])
 def test_cli_refuses_fleet_and_hardware_flags(flags, match):
-    """The reference's refusals (the hw flags need a fleet and exclude
-    each other; MoE experts cannot reach the hook), and the stream
-    transports, which name the driver plane's queue item."""
+    """The reference's refusals: the hw flags need a fleet and exclude
+    each other; MoE experts cannot reach the hook."""
     with pytest.raises(ValueError, match=match):
         serve.main(["--arch", "smoke:qwen3-4b", "--device", "cpu",
                     "--batch", "1", "--prompt-len", "2", "--gen", "1",
                     *flags])
+
+
+@pytest.mark.parametrize("flags,transport", [
+    (["--fleet", "1"], "subprocess"),
+    (["--fleet", "1", "--hw-logits", "--fleet-k", "8"], "socket"),
+])
+def test_cli_fleet_driver_serves_as_the_twin(flags, transport, capsys):
+    """``--fleet-driver subprocess|socket`` serves through a server child
+    per chip and prints the twin transport's tokens and fleet report."""
+    base = ["--arch", "smoke:qwen3-4b", "--device", "cpu", "--batch", "1",
+            "--prompt-len", "3", "--gen", "2", *flags]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # as tests/test_torch_hw_serve.py does
+    try:
+        outs = []
+        for driver in ("twin", transport):
+            assert serve.main(base + ["--fleet-driver", driver]) == 0
+            outs.append([ln for ln in capsys.readouterr().out.splitlines()
+                         if "tok/s" not in ln and "tokens/s" not in ln
+                         and " ms" not in ln])
+    finally:
+        torch.set_num_threads(threads)
+    assert outs[0] == outs[1] and any("fleet:" in ln for ln in outs[0])
 
 
 def test_cli_serves_through_the_fleet(capsys):

@@ -64,6 +64,18 @@ from repro_torch.benchmarks import (blocksize_tables, common,     # noqa: E402
                                     scalability)
 from repro_torch.core.ptc import PTCParams                        # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, as tests/test_torch_hw_serve.py: under the
+    suite's workers torch's parallel regions wait on threads other
+    workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REL = 1e-3
 
 

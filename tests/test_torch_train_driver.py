@@ -31,6 +31,18 @@ from repro_torch.launch import train
 from repro_torch.optim import schedules as tsched
 from repro_torch.optim.optimizers import OptState
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, as tests/test_torch_hw_serve.py: under the
+    suite's workers torch's parallel regions wait on threads other
+    workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARGS = ["--arch", "smoke:olmo-1b", "--device", "cpu", "--batch", "8",
         "--seq", "32", "--lr", "5e-3", "--log-every", "5"]
 

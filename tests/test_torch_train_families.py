@@ -33,6 +33,18 @@ from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.models import lm as tlm
 from test_torch_train_step import TOL, _check_grads, _masks_only, _train_steps
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, as tests/test_torch_hw_serve.py: under the
+    suite's workers torch's parallel regions wait on threads other
+    workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = [
     ("whisper-base", "blocked", 0.6, 0.6),
     ("llama-3.2-vision-11b", "blocked", 0.6, 1.0),
