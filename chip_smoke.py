@@ -17,7 +17,11 @@
                                                # paths
     python3 chip_smoke.py --phases train       # LM training: olmo-1b's
                                                # blocked update step,
+                                               # the remat policies,
                                                # whisper-base, the vlm
+    python3 chip_smoke.py --phases train,examples
+                                               # + the train_lm and
+                                               # onchip_transfer examples
     python3 chip_smoke.py --phases closed_loop # drift, alarms and repairs
                                                # on a two-chip fleet
     python3 chip_smoke.py --phases hw_serve    # whisper-base's PTC layers
@@ -30,7 +34,9 @@ Phases:
 
 1. ``kernels`` — print the card's name and power limit, build the CUDA
    kernels of all seven TPU kernels from ``src/repro_torch/csrc`` (one
-   nvcc per source, all in parallel; prefill attention has two routes,
+   nvcc per source, all in parallel, while qwen3-4b's parameters for the
+   gateway and serve phases are seeded on the card and staged in host
+   memory; prefill attention has two routes,
    the tensor-core kernel for bf16 at head dims 64 and 128 and the
    CUDA-core kernel for the rest; ``ptc_block_matmul`` three, the product
    route, the per-block route for Q = 1 and few rows, and the wide route
@@ -145,13 +151,32 @@ Phases:
    llama-3.2-vision-11b at full width, 5 of 40 layers, served through
    ``launch.serve.run`` with 1,024 image tokens, its teacher-forced
    logits against ``forward``'s (``DECODE_TOL``); ``launch.train`` at
-   smoke:olmo-1b with a checkpoint resume.
+   smoke:olmo-1b with a checkpoint resume.  Then, on the seeded olmo-1b
+   parameters, one training step's gradients under each remat policy
+   ("full", "dots", "none"): in blocked mode the tensor-core routes
+   launched (2 n, n, n) times under "full" and "dots" and (n, n, n) under
+   "none" for its n PTC linears, in fused mode (olmo-1b's own config) no
+   PTC kernel; in both modes "dots" bit-equal to "full" (loss and every
+   Σ-gradient leaf), each policy's warm wall and peak memory, and in
+   fused mode the peak under "dots" strictly between "full"'s and
+   "none"'s.
+11b. ``examples`` — the two example entry points on the card:
+   ``repro_torch.onchip_transfer.run`` (paper Fig. 14 at its own sizes:
+   36 → 36 → 9, k = 9; PM must launch the mesh and each Σ-training run
+   the PTC forward, Σ-gradient and feedback kernels), again with the
+   kernels swapped for their plain versions on the same draws (Σ after
+   each run's first 10 steps within ``TRANSFER_SIGMA_TOL`` of its largest
+   entry, each final accuracy within ``TRANSFER_ACC_TOL``); then
+   ``repro_torch.train_lm.run`` at the ``100m`` preset, 300 steps if a
+   20-step probe says they fit in ``TRAIN_LM_BUDGET_S`` (else 100), whose
+   last-10 mean loss must fall below its first-10.
 12. ``hw_serve`` — hardware-in-the-loop LM serving (run after
-   ``closed_loop``): leg A serves whisper-base at full width and depth
-   (6 decoder layers, d_model 512, d_ff 2048, k = 64, fp32 bases) through
-   ``launch.serve.run --hw-logits`` on 2 chips of k = 8 (66 tenants,
-   491,520 blocks a chip), batch 4, prompt 16, 16 new tokens, σ_drift 0:
-   42 frames a step, no shadow call, the deploy, step and tick stages
+   ``closed_loop``): leg A serves whisper-base at full width, ``HW_LAYERS``
+   of its 6 decoder layers (d_model 512, d_ff 2048, k = 64, fp32 bases)
+   through ``launch.serve.run --hw-logits`` on 2 chips of k = 8 (11
+   tenants and 81,920 blocks a chip per layer), batch 4, prompt 16, 16 new
+   tokens, σ_drift 0: 7 frames a step per layer, no shadow call, the
+   deploy, step and tick stages
    launching the routes ``STAGE_KERNELS`` names; the routed tokens
    teacher-forced through the shadow transfer of each step's chip, and
    the first 4 steps recomputed from the deployed state with the plain
@@ -211,8 +236,8 @@ import time
 from pathlib import Path
 
 PHASES = ("kernels", "parity", "full", "closed_loop", "hw_serve", "driver",
-          "vgg8", "blocked_lm", "train", "gateway", "serve", "families",
-          "tables")
+          "vgg8", "blocked_lm", "train", "examples", "gateway", "serve",
+          "families", "tables")
 # the kernels each stage of quickstart.run launches, and each busy step of
 # serving gateway.  ptc_block_matmul has two routes, each counted under its
 # own name: the IC/PM probes take the per-block route
@@ -244,6 +269,12 @@ STAGE_KERNELS = {
     "hw_deploy": ("mesh_apply", "ptc_block_matmul_perblock"),
     "hw_step": ("mesh_apply", "ptc_block_matmul"),
     "hw_tick": ("mesh_apply", "ptc_block_matmul_perblock"),
+    # the onchip_transfer example: PM realizes both layers' meshes and
+    # reads them back (OSP) on the per-block route; each Σ-only training
+    # run takes the blocked linear's forward (the product route, held-out
+    # evaluations included) and its in-situ backward
+    "transfer_pm": ("mesh_apply", "ptc_block_matmul_perblock"),
+    "transfer_sigma": ("ptc_block_matmul", "sigma_grad", "feedback_matmul"),
 }
 PTC_ROUTES = ("ptc_block_matmul", "ptc_block_matmul_perblock")
 QUICKSTART_STAGES = ("ic", "pm", "serve", "sl", "serve_sl")
@@ -416,12 +447,15 @@ def ptxas_summary(log: str) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(torch, parent=None) -> dict:
+def kernel_phase(torch, parent=None, building=None) -> dict:
+    """Phase 1; ``building``: a future of ``build.build(force=True)``
+    already started, else the build runs here."""
     from repro_torch.core import unitary as un
     from repro_torch.kernels import build, mesh_apply, mesh_apply_plain
     from repro_torch.kernels.mesh_apply import mesh_apply_batched
 
-    info = build.build(force=True)
+    info = building.result() if building is not None \
+        else build.build(force=True)
     print(f"[build] nvcc sm_90a, {len(info['built'])} kernels in parallel: "
           f"{info['seconds']:.1f} s")
     for name in build.SOURCES:
@@ -2725,6 +2759,25 @@ def qwen3_4b_params(torch) -> dict:
         f"over {cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}"))
 
 
+def staged_qwen3_4b_params(torch) -> dict:
+    """``qwen3_4b_params`` made while the kernels build (its init runs
+    cuSOLVER's QRs on the card and no kernel of the port), then held in
+    pinned host memory until the gateway phase, so that the phases between
+    see the card's memory as they did."""
+    from repro_torch.models.layers import tree_map
+
+    params = qwen3_4b_params(torch)
+    t0 = time.perf_counter()
+    host = tree_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, pin_memory=True).copy_(t), params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[qwen3-4b] made while the kernels build; held in pinned host "
+          f"memory until the gateway phase ({time.perf_counter() - t0:.1f} "
+          f"s to copy)")
+    return host
+
+
 def gateway_phase(torch, params, check_step: int = 12) -> dict:
     """qwen3-4b at full width (k = 128 fused PTC, bf16 bases; ``params``
     from :func:`qwen3_4b_params`) served through the gateway with chunked
@@ -3074,12 +3127,23 @@ def tables_phase(torch, budget: str) -> dict:
     from repro_torch.core.noise import NoiseModel
     from repro_torch.kernels import build
 
+    import functools
+
     dev = torch.device("cuda")
     build.build([build.KERNELS[k] for k in TABLE_KERNELS])
     torch.cuda.synchronize()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    recs = run.run(budget, device=dev, benches=run.TABLES)
+    benches = run.TABLES
+    if budget == "quick":
+        benches = tuple(
+            (name, functools.partial(fn, t4_ks=TABLE4_KS)
+             if name == "tables345_blocksize" else fn)
+            for name, fn in benches)
+        print(f"[tables] Table 4 at k = {', '.join(map(str, TABLE4_KS))} of "
+              f"{', '.join(map(str, bt.block_sizes(budget)))} (cut to keep "
+              f"the script within half its time limit)")
+    recs = run.run(budget, device=dev, benches=benches)
     wall = time.perf_counter() - t0
     launches = {k: build.launch_counts[k] for k in TABLE_KERNELS}
     other = {k: v for k, v in build.launch_counts.items()
@@ -3390,10 +3454,20 @@ def serve_step_profile(torch, cfg, params, batch: int) -> None:
 # cross-attention (2 periods before).  With the driver phase (144.1 s) the
 # script read 658.6 s, then 622.8 s with falcon-mamba-7b at 4 layers and
 # qwen3-moe-30b-a3b at 1, so falcon-mamba-7b keeps 2.  Every layer of a
-# model has the same width and block grids
+# model has the same width and block grids.  With the remat policies and
+# the examples phase added, two sizes were cut: at --budget quick the
+# tables phase runs Table 4 (IC MSE by k) at k = 8 and 9 of its 8, 9, 12,
+# 16 (its rows there are the full table's, every draw made as for all four;
+# k = 12 and 16 are 18,600 of its 25,000 ZCD steps, about 65 s on the
+# H100), and the driver phase times each driver_overhead sweep as the
+# median of 2 repeats, not 5 (each repeat at least 0.25 s: about 25 s).
+# One restart of Table 4 instead of four would save as much but read IC
+# MSEs of 0.08-0.11 on a CPU run, against the limit 0.1
 FALCON_LAYERS = 2
 MOE_LAYERS = 1
 VLM_PERIODS = 1
+TABLE4_KS = (8, 9)
+DRIVER_OVERHEAD_REPEATS = 2
 
 
 def falcon_mamba_phase(torch) -> None:
@@ -4003,7 +4077,10 @@ def olmo_train(torch) -> dict:
     readings = check_against_plain(torch, "train olmo-1b", grads_of, 7)
     print(f"[train] olmo-1b training step, kernels vs plain versions "
           f"{readings}; {card_line()}")
-    del state, update, train
+    del update, train
+    torch.cuda.empty_cache()
+    olmo_remat(torch, cfg, state["params"], batch, scfg, n_lin)
+    del state
     torch.cuda.empty_cache()
 
     # 2 of 16 layers with fp32 bases: the 3xTF32 routes
@@ -4041,6 +4118,108 @@ def olmo_train(torch) -> dict:
     del p32, got, want_g
     torch.cuda.empty_cache()
     return launches
+
+
+def remat_steps(torch, what: str, cfg, params, batch, scfg,
+                want: dict) -> dict:
+    """One training step's gradients of ``cfg`` under each remat policy
+    (the same parameters, batch and masks; a warm-up call, then two timed
+    calls), each policy's PTC route launches held to ``want[policy]``,
+    and "dots" held bit for bit to "full".  Returns {policy: (loss,
+    ``sigma_grads``, the faster call's wall ms, peak GB above the memory
+    allocated before the step)}."""
+    import dataclasses
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+
+    def grads(policy):
+        train = lm.build_train_step(
+            dataclasses.replace(cfg, remat_policy=policy), scfg)
+        loss, g = train(params, batch, torch.Generator(dev).manual_seed(7))
+        return float(loss), sigma_grads(g)
+
+    def parted(a, b) -> list:
+        return ([] if a[0] == b[0] else ["loss"]) + [
+            n for n in b[1] if not torch.equal(a[1][n], b[1][n])]
+
+    out = {}
+    for policy in lm.REMAT_POLICIES:
+        # the warm-up leaves the step's blocks in the caching allocator
+        torch.cuda.empty_cache()
+        grads(policy)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(2):
+            build.reset_launch_counts()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, g = grads(policy)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        wall = min(walls)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        counts = ptc_routes(build)
+        check_routes(counts, want[policy], f"{what} remat {policy}")
+        check(loss == loss and all(bool(torch.isfinite(v).all())
+                                   for v in g.values()),
+              f"{what} remat {policy}: loss {loss} or a Σ-gradient not "
+              f"finite")
+        out[policy] = (loss, g, wall, peak)
+        print(f"[train] {what} remat {policy}: loss {loss:.6f}, warm step "
+              f"(gradients) {walls[0]:.1f}, {walls[1]:.1f} ms, peak "
+              f"{peak:.2f} GB above the "
+              f"step's start; launches "
+              + (", ".join(f"{k}={v}" for k, v in counts.items() if v)
+                 or "no PTC kernel"))
+    # "dots" keeps the products' outputs and recomputes the rest: the same
+    # bits as "full", which recomputes everything
+    for policy in ("dots", "none"):
+        off = parted(out[policy], out["full"])
+        print(f"[train] {what} remat {policy} against full: "
+              + (f"loss and all {len(out['full'][1])} Σ-gradient leaves "
+                 f"bit-identical" if not off else f"parts at {off}"))
+        if policy == "dots" and off:
+            # a route that is not deterministic parts "full" from itself
+            again = parted(grads("full"), out["full"])
+            fail(f"{what}: remat dots parts from full at {off}; full "
+                 f"against a second full run: "
+                 + (f"parts at {again}" if again else "bit-identical"))
+    return out
+
+
+def olmo_remat(torch, cfg, params, batch, scfg, n_lin: int) -> None:
+    """olmo-1b at full width and depth, the seeded and trained parameters
+    of the train phase: one training step's gradients under "full",
+    "dots" and "none" in blocked mode (the tensor-core routes) and in
+    olmo-1b's own fused mode (no PTC kernel), with the fused peaks
+    ordered full < dots < none."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    tc = dict(zip(STAGE_KERNELS["train"], (2 * n_lin, n_lin, n_lin)))
+    remat_steps(torch, "olmo-1b blocked", cfg, params, batch, scfg, {
+        "full": tc, "dots": tc,
+        "none": dict(zip(STAGE_KERNELS["train"], (n_lin, n_lin, n_lin)))})
+    fused = get_config("olmo-1b")
+    check(fused.ptc.mode == "fused" and fused.ptc.base_dtype
+          == cfg.ptc.base_dtype and fused.remat,
+          f"train: olmo-1b's own config is {fused.ptc}")
+    out = remat_steps(torch, "olmo-1b fused", fused, params, batch, scfg,
+                      dict.fromkeys(("full", "dots", "none"), {}))
+    peaks = {p: out[p][3] for p in out}
+    check(peaks["full"] < peaks["dots"] < peaks["none"],
+          f"train olmo-1b fused: peaks {peaks} GB not ordered full < dots "
+          f"< none")
+    print(f"[train] olmo-1b fused, warm step walls: "
+          + ", ".join(f"{p} {out[p][2]:.1f} ms" for p in out)
+          + "; peaks above the step's start: "
+          + ", ".join(f"{p} {peaks[p]:.2f} GB" for p in out)
+          + f" (full < dots < none); the remat policies "
+          f"{time.perf_counter() - t0:.1f} s; {card_line()}")
 
 
 def whisper_train(torch) -> None:
@@ -4230,6 +4409,121 @@ def train_phase(torch) -> dict:
     train_driver(torch)
     print(f"[train] phase {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: the examples
+# ---------------------------------------------------------------------------
+
+# the onchip_transfer example against its plain versions on the same
+# draws, fp32 at k = 9: Σ after each run's first 10 steps over its largest
+# entry (the kernels and the plain versions sum in other orders), and each
+# run's final held-out accuracy (768 rows)
+TRANSFER_SIGMA_TOL = 1e-5
+TRANSFER_ACC_TOL = 0.01
+# train_lm at the 100m preset: the reference's docstring runs 300 steps;
+# 100 when a 20-step probe's median step says 300 would take longer than
+# this
+TRAIN_LM_BUDGET_S = 20.0
+
+
+def _prefixed(tag: str):
+    def log(msg: str) -> None:
+        for line in msg.strip("\n").splitlines():
+            print(f"[{tag}] {line}")
+    return log
+
+
+def examples_phase(torch) -> None:
+    """``repro_torch.onchip_transfer.run`` on the card, each stage's
+    launches, and against the same run with the plain versions; then
+    ``repro_torch.train_lm.run`` at the 100m preset."""
+    import numpy as np
+    from repro_torch import onchip_transfer, train_lm
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    info = build.build(sorted({build.KERNELS[k] for k in QUICKSTART_KERNELS}))
+    if info["built"]:
+        print(f"[examples] built {info['built']} in {info['seconds']:.1f} s")
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = onchip_transfer.run("cuda", log=_prefixed("examples"))
+    wall = time.perf_counter() - t0
+    stages = res["stages"]
+    for name, st in stages.items():
+        print(f"[examples] onchip_transfer stage {name}: {st['seconds']:.2f} "
+              f"s, launches " + (", ".join(
+                  f"{k}={v}" for k, v in sorted(st["launches"].items()))
+                  or "none"))
+    named = {"pm": STAGE_KERNELS["transfer_pm"],
+             **dict.fromkeys(onchip_transfer.CURVES,
+                             STAGE_KERNELS["transfer_sigma"])}
+    for name, kernels in named.items():
+        got = stages[name]["launches"]
+        for kernel in kernels:
+            check(got.get(kernel, 0) > 0,
+                  f"examples: onchip_transfer {name} launched no {kernel}")
+        for kernel in PTC_ROUTES:
+            check(kernel in kernels or not got.get(kernel),
+                  f"examples: onchip_transfer {name} launched {kernel}, "
+                  f"not the route its entry names")
+    check(not stages["pretrain"]["launches"],
+          f"examples: the dense pre-training launched "
+          f"{stages['pretrain']['launches']}")
+
+    with plain_kernels(torch, "examples onchip_transfer"):
+        t0 = time.perf_counter()
+        plain = onchip_transfer.run("cuda", log=lambda m: None)
+        plain_s = time.perf_counter() - t0
+    curves = onchip_transfer.CURVES
+    sig = {c: max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(res["sigma10"][c], plain["sigma10"][c]))
+           for c in curves}
+    acc = {c: abs(res["curves"][c][-1][1] - plain["curves"][c][-1][1])
+           for c in curves}
+    check(all(e <= TRANSFER_SIGMA_TOL for e in sig.values()),
+          f"examples: onchip_transfer Σ after 10 steps against the plain "
+          f"versions {sig} (tol {TRANSFER_SIGMA_TOL})")
+    check(all(e <= TRANSFER_ACC_TOL for e in acc.values()),
+          f"examples: onchip_transfer final accuracies against the plain "
+          f"versions {acc} (tol {TRANSFER_ACC_TOL})")
+    print(f"[examples] onchip_transfer on the card: task A mapped accuracy "
+          f"{res['mapped_acc']:.4f}; final accuracies "
+          + ", ".join(f"{c} {res['curves'][c][-1][1]:.4f}" for c in curves)
+          + f"; wall {wall:.1f} s; against the plain versions on the same "
+          f"draws ({plain_s:.1f} s): Σ after 10 steps within "
+          + ", ".join(f"{c} {sig[c]:.1e}" for c in curves)
+          + f" of the largest entry (tol {TRANSFER_SIGMA_TOL:.0e}), final "
+          f"accuracies within "
+          + ", ".join(f"{c} {acc[c]:.4f}" for c in curves)
+          + f" (tol {TRANSFER_ACC_TOL}), mapped {plain['mapped_acc']:.4f}; "
+          f"{card_line()}")
+
+    quiet = dict(device="cuda", log_every=10 ** 9)
+    probe = train_lm.run("100m", steps=20, **quiet)
+    step_s = float(np.median(probe["step_s"]))
+    steps = 300 if 300 * step_s <= TRAIN_LM_BUDGET_S else 100
+    print(f"[examples] train_lm 100m probe: 20 steps in "
+          f"{probe['wall_s']:.2f} s, median step {1e3 * step_s:.1f} ms, so "
+          f"{steps} steps (300 if they fit in {TRAIN_LM_BUDGET_S:.0f} s, "
+          f"else 100)")
+    build.reset_launch_counts()
+    got = train_lm.run("100m", steps=steps, **quiet)
+    launched = {k: v for k, v in build.launch_counts.items() if v}
+    first, last = np.mean(got["losses"][:10]), np.mean(got["losses"][-10:])
+    vocab = train_lm.PRESETS["100m"]["vocab"]
+    check(last < first, f"examples: train_lm's last-10 mean loss {last} "
+                        f"not below its first-10 {first}")
+    check(not launched, f"examples: train_lm (fused, no remat) launched "
+                        f"{launched}")
+    print(f"[examples] train_lm 100m on the card: {got['n_params'] / 1e6:.1f}"
+          f"M stored parameters, {steps} steps in {got['wall_s']:.1f} s "
+          f"({1e3 * got['wall_s'] / steps:.1f} ms a step); first-10 mean "
+          f"loss {first:.4f}, last-10 {last:.4f} (ln vocab "
+          f"{np.log(vocab):.2f}, task floor ln 4 = {np.log(4):.2f}); no "
+          f"kernel launched; {card_line()}")
+    print(f"[examples] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4455,8 +4749,9 @@ def _enc_out(torch, cfg):
 
 
 def hw_leg_a(torch, cfg, params) -> dict:
-    """whisper-base at full width and depth through ``launch.serve.run``
-    with ``--hw-logits`` on 2 chips (σ = 0); routed against shadow from the
+    """whisper-base at full width (``HW_LAYERS`` of 6 decoder layers)
+    through ``launch.serve.run`` with ``--hw-logits`` on 2 chips (σ = 0);
+    routed against shadow from the
     same deployment; its first steps against the plain versions."""
     import numpy as np
     from repro_torch.data.synthetic import lm_batch
@@ -4479,8 +4774,8 @@ def hw_leg_a(torch, cfg, params) -> dict:
     hw = rep["hw"]
     n_steps = HW_PROMPT + HW_GEN - 1
     blocks = chips[0].driver.n_blocks
-    print(f"[hw_serve] leg A: {cfg.name} at full width and depth ({cfg.n_layers}"
-          f" decoder layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}), "
+    print(f"[hw_serve] leg A: {cfg.name} at full width ({cfg.n_layers} of "
+          f"6 decoder layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}), "
           f"--hw-logits on {HW_CHIPS} chips of k = {HW_FLEET_K}: "
           f"{len(hw['layers'])} PTC layers as tenants, {blocks} blocks a "
           f"chip; batch {HW_BATCH}, prompt {HW_PROMPT}, {HW_GEN} new "
@@ -4592,8 +4887,8 @@ def hw_leg_b(torch, full) -> None:
     from repro_torch.launch import serve
 
     cfg = dataclasses.replace(full, n_layers=HW_DRIFT_LAYERS)
-    params = card_params(torch, cfg, f"{HW_DRIFT_LAYERS} of {full.n_layers} "
-                                     f"decoder layers, d_model {cfg.d_model}")
+    params = card_params(torch, cfg, f"{HW_DRIFT_LAYERS} of 6 decoder "
+                                     f"layers, d_model {cfg.d_model}")
     gen = HW_DRIFT_STEPS - HW_PROMPT + 1
     with hw_instrument(torch) as rec:
         t0 = time.perf_counter()
@@ -4719,9 +5014,18 @@ def hw_leg_c(torch) -> None:
           "hw_serve: wide frames not compacted")
 
 
+# leg A's depth, and so the driver phase's (the same leg over the socket
+# transport): 3 of whisper-base's 6 decoder layers since PR 28, to keep the
+# whole script within half its time limit with the remat policies and the
+# examples phase added (at 6 layers the socket leg's deploy took 31.0 s of
+# the driver phase's 102.7 s on the H100, and leg A 9.4 s).  Every decoder
+# layer has the same width and block grids
+HW_LAYERS = 3
+
+
 def whisper_hw(torch):
-    """whisper-base at full width and depth with fp32 bases, and its seeded
-    parameters made on the card."""
+    """whisper-base at full width with fp32 bases, ``HW_LAYERS`` of its 6
+    decoder layers, and its seeded parameters made on the card."""
     import dataclasses
     from repro_torch.configs import get_config
 
@@ -4735,10 +5039,12 @@ def whisper_hw(torch):
         cfg.ptc, base_dtype=torch.float32))
     check((full.n_layers, full.d_model, full.d_ff, full.ptc.k)
           == (6, 512, 2048, 64), f"hw_serve: whisper-base is {full}")
-    params = card_params(torch, full, (
-        f"{full.n_layers} decoder layers (the encoder's output is the serve "
-        f"driver's stub), d_model {full.d_model}, d_ff {full.d_ff}"))
-    return full, params
+    cfg = dataclasses.replace(full, n_layers=HW_LAYERS)
+    params = card_params(torch, cfg, (
+        f"{cfg.n_layers} of {full.n_layers} decoder layers (the encoder's "
+        f"output is the serve driver's stub), d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}"))
+    return cfg, params
 
 
 def hw_serve_phase(torch) -> tuple[dict, dict]:
@@ -4916,7 +5222,8 @@ def driver_phase(torch, hw: dict | None) -> dict:
     here), ``driver_overhead`` at quick, and the IC/PM/recal session on
     the three transports.  Returns the server children's launches over leg
     A."""
-    from repro_torch.benchmarks import run as bench_run
+    import functools
+    from repro_torch.benchmarks import driver_overhead, run as bench_run
     from repro_torch.benchmarks.common import ART
     from repro_torch.hw import subprocess_driver
     from repro_torch.kernels import build
@@ -4944,10 +5251,12 @@ def driver_phase(torch, hw: dict | None) -> dict:
     torch.cuda.empty_cache()
 
     subprocess_driver.server_launch_counts.clear()
-    recs = bench_run.run("quick", only="hw_driver_overhead", device="cuda",
-                         benches=bench_run.RUNTIME)
+    recs = bench_run.run("quick", device="cuda", benches=(
+        ("hw_driver_overhead", functools.partial(
+            driver_overhead.main, repeats=DRIVER_OVERHEAD_REPEATS)),))
     s = json.loads((ART / "BENCH_driver_overhead.json").read_text())
-    print(f"[driver] driver_overhead (quick) {recs[0]['seconds']:.1f} s; "
+    print(f"[driver] driver_overhead (quick, each timing the median of "
+          f"{s['repeats']} repeats, not 5) {recs[0]['seconds']:.1f} s; "
           f"bit identity: batched = sequential = twin {s['bit_identity_ok']}, "
           f"v4 = v3 {s['v4_v3_bit_identical']}, async = sync "
           f"{all(a['async_bit_identical'] for a in s['async_sweep'].values())}"
@@ -5030,8 +5339,16 @@ def main(argv=None) -> int:
             print(f"[wall] {names}: {now - t_lap[0]:.1f} s")
         t_lap[0] = now
 
-    summary = kernel_phase(torch, args.parent) if "kernels" in phases \
-        else {}
+    # the kernels' build (nvcc on the host) overlaps qwen3-4b's seeded init
+    # (cuSOLVER on the card, no kernel of the port): about 40 s each
+    building = qwen = None
+    if "kernels" in phases:
+        building = concurrent.futures.ThreadPoolExecutor(1).submit(
+            build.build, None, True)
+        if "gateway" in phases or "serve" in phases:
+            qwen = staged_qwen3_4b_params(torch)
+    summary = kernel_phase(torch, args.parent, building) \
+        if "kernels" in phases else {}
     # launches of each kernel on its main path in this run: the last
     # quickstart path driven (full width, else parity, else the tables) for
     # the PTC kernels, one olmo-1b update step of the train phase for the
@@ -5126,8 +5443,17 @@ def main(argv=None) -> int:
         launches.update(train_phase(torch))
 
     lap("train")
+    if "examples" in phases:
+        examples_phase(torch)
+
+    lap("examples")
     if "gateway" in phases or "serve" in phases:
-        params = qwen3_4b_params(torch)
+        if qwen is None:
+            params = qwen3_4b_params(torch)
+        else:
+            from repro_torch.models.layers import tree_map
+            params = tree_map(lambda t: t.to("cuda"), qwen)
+            del qwen
         if "gateway" in phases:
             launches.update(gateway_phase(torch, params))
         if "serve" in phases:

@@ -192,15 +192,20 @@ def table5(draws: dict, data, steps: int, device) -> list[list]:
     return rows
 
 
-def main(budget: str = "normal", device=None) -> dict:
+def main(budget: str = "normal", device=None, t4_ks=None) -> dict:
     """Emit Tables 3, 4 and 5 on ``device`` (default ``cuda``); returns
-    {table: rows} as the reference rounds them."""
+    {table: rows} as the reference rounds them.  ``t4_ks`` runs Table 4 at
+    those of the budget's block sizes only (every draw is made as for all
+    of them, so each row it keeps is the full table's)."""
     dev = resolve_device(device)
     ks = block_sizes(budget)
     gen = cpu_generator(0)
     t3 = table3(t3_weight().to(dev), to_device(draw_t3(gen, ks), dev), dev)
     cfgs = {k: t4_config(k, budget) for k in ks}
-    t4 = table4(to_device(draw_t4(gen, cfgs), dev), cfgs, dev)
+    t4_draws = draw_t4(gen, cfgs)
+    if t4_ks is not None:
+        t4_draws = {k: t4_draws[k] for k in t4_ks}
+    t4 = table4(to_device(t4_draws, dev), cfgs, dev)
     steps = T5["quick_steps"] if budget == "quick" else T5["steps"]
     t5 = table5(to_device(draw_t5(gen, ks), dev), t5_data(), steps, dev)
     tables = {

@@ -191,7 +191,8 @@ def check_bits(driver, v3, ref) -> list:
     return got
 
 
-def _bench_transport(driver, iters: int, zo_steps: int, device) -> dict:
+def _bench_transport(driver, iters: int, zo_steps: int, device,
+                     repeats: int) -> dict:
     x_probe, x_serve, w_blocks = _inputs(0, device)
     zo_cfg = ZOConfig(steps=zo_steps, inner=12, delta0=0.05, decay=1.05)
     jobs = _gen(1)
@@ -202,21 +203,23 @@ def _bench_transport(driver, iters: int, zo_steps: int, device) -> dict:
         driver.advance(1.0)
         driver.flush()
 
+    def timed(fn, n):
+        return _time_op(fn, n, device, repeats)
+
     out = dict(
-        probe_s=_time_op(lambda: driver.forward(x_probe), iters, device),
-        serve_s=_time_op(lambda: driver.forward_layer(x_serve), iters,
-                         device),
-        readback_s=_time_op(lambda: driver.readback_bases(), iters, device),
-        advance_s=_time_op(advance_flushed, iters, device),
-        zo_refine_s=_time_op(lambda: driver.zo_refine(w_blocks, jobs, zo_cfg),
-                             max(2, iters // 10), device))
+        probe_s=timed(lambda: driver.forward(x_probe), iters),
+        serve_s=timed(lambda: driver.forward_layer(x_serve), iters),
+        readback_s=timed(lambda: driver.readback_bases(), iters),
+        advance_s=timed(advance_flushed, iters),
+        zo_refine_s=timed(lambda: driver.zo_refine(w_blocks, jobs, zo_cfg),
+                          max(2, iters // 10)))
     out["probe_cols_per_s"] = x_probe.shape[0] / out["probe_s"]
     out["serve_rows_per_s"] = x_serve.shape[0] / out["serve_s"]
     sweep = {}
     for n_ops in BATCH_SIZES:
         ops = [("forward", dict(x=x_probe))] * n_ops
-        batch_s = _time_op(lambda: driver.run_batch(ops),
-                           max(12, iters // n_ops), device)
+        batch_s = timed(lambda: driver.run_batch(ops),
+                        max(12, iters // n_ops))
         sweep[str(n_ops)] = dict(
             batch_s=batch_s,
             probe_cols_per_s=n_ops * x_probe.shape[0] / batch_s,
@@ -225,7 +228,8 @@ def _bench_transport(driver, iters: int, zo_steps: int, device) -> dict:
     return out
 
 
-def _bench_async(driver, iters: int, device, depth: int = 4) -> dict:
+def _bench_async(driver, iters: int, device, repeats: int,
+                 depth: int = 4) -> dict:
     """``depth`` batch frames in flight against the same work issued
     synchronously, after an async ≡ sync check."""
     x = _inputs(0, device)[0]
@@ -244,8 +248,8 @@ def _bench_async(driver, iters: int, device, depth: int = 4) -> dict:
             f.result()
 
     rounds = max(4, iters // (len(ops) * depth))
-    sync_s = _time_op(sync_round, rounds, device)
-    async_s = _time_op(async_round, rounds, device)
+    sync_s = _time_op(sync_round, rounds, device, repeats)
+    async_s = _time_op(async_round, rounds, device, repeats)
     cols = depth * len(ops) * x.shape[0]
     return dict(depth=depth, batch_ops=len(ops), sync_s=sync_s,
                 async_s=async_s, sync_cols_per_s=cols / sync_s,
@@ -305,9 +309,10 @@ def _bench_concurrent(n_clients: int, iters: int, device, daemon) -> dict:
                 bit_identical=all(oks))
 
 
-def main(budget: str = "quick", device=None) -> dict:
-    """Every sweep on ``device``; returns {table: rows} and writes the CSV
-    and the JSON.  Raises if any bit-identity check fails."""
+def main(budget: str = "quick", device=None, repeats: int = 5) -> dict:
+    """Every sweep on ``device``, each timing the median of ``repeats``
+    repeats; returns {table: rows} and writes the CSV and the JSON.
+    Raises if any bit-identity check fails."""
     dev = resolve_device(device)
     iters, zo_steps = (30, 60) if budget == "quick" else (150, 200)
     n_clients = 3
@@ -326,10 +331,11 @@ def main(budget: str = "quick", device=None) -> dict:
                 ref = ref or got
                 results[transport] = dict(
                     transport=transport,
-                    **_bench_transport(driver, iters, zo_steps, dev))
+                    **_bench_transport(driver, iters, zo_steps, dev,
+                                       repeats))
                 if transport != "twin":
                     async_results[transport] = _bench_async(driver, iters,
-                                                            dev)
+                                                            dev, repeats)
                     results[transport]["frames"] = driver.rpc_count
                     results[transport]["wire_bytes"] = list(
                         driver.wire_bytes)
@@ -359,7 +365,7 @@ def main(budget: str = "quick", device=None) -> dict:
          ["transport", "op", "twin_ms", "stream_ms", "overhead_x"], rows)
     summary = dict(
         budget=budget, device=str(dev), k=K, dim=DIM, iters=iters,
-        zo_steps=zo_steps,
+        zo_steps=zo_steps, repeats=repeats,
         protocol="v4 (binary frames, negotiated; batch + async + write "
                  "pipelining; v3 JSON-line fallback)",
         batch_sizes=list(BATCH_SIZES), bit_identity_ok=True,

@@ -76,17 +76,20 @@ class _PTCLinear(torch.autograd.Function):
         dy = dy.contiguous()
         dx = ds = None
         if ctx.mode == "fused":
-            # dW = δyᵀ·(col ⊙ x); ds_pq = diag(U_pqᵀ dW_pq V*_pqᵀ)
+            # dW = δyᵀ·(col ⊙ x); ds_pq = diag(U_pqᵀ dW_pq V*_pqᵀ).  The
+            # fp32 masks promote bf16 operands to fp32, as in the reference
             if need_ds:
                 xw = x if col is None else x * col[:, None]
-                dwb = blockize(dy.T @ xw, k)
-                udw = torch.einsum("pqji,pqjl->pqil", u, dwb)
-                ds = torch.einsum("pqil,pqil->pqi", udw, v).to(s.dtype)
+                dt = torch.promote_types(dy.dtype, xw.dtype)
+                dwb = blockize(dy.to(dt).T @ xw.to(dt), k)
+                udw = torch.einsum("pqji,pqjl->pqil", u.to(dt), dwb)
+                ds = torch.einsum("pqil,pqil->pqi", udw, v.to(dt)).to(s.dtype)
             if need_dx:
                 w = compose_weight(PTCParams(u, s, v))
                 if fb is not None:
                     w = w * fb.T[:, :, None, None]
-                dx = (dy @ unblockize(w)).to(x.dtype)
+                dt = torch.promote_types(dy.dtype, w.dtype)
+                dx = (dy.to(dt) @ unblockize(w).to(dt)).to(x.dtype)
         else:
             if need_ds:
                 ds = sigma_grad(dy, x, u, v, col).to(s.dtype)

@@ -1,17 +1,21 @@
 """Synthetic, deterministic, learnable datasets (numpy).
 
-Copied from ``repro/data/synthetic.py`` (``lm_batch`` and
-``synthetic_vision``): an order-1 Markov token stream with a fixed random
-transition table, and class-templated inputs plus Gaussian noise, each a
-pure function of (seed, step), so the port and the reference see the same
-data.
+Copied from ``repro/data/synthetic.py``: an order-1 Markov token stream
+with a fixed random transition table (``lm_batch``, ``lm_batch_stream``),
+class-templated inputs plus Gaussian noise (``synthetic_vision``,
+``vision_stream``), a related transfer task whose class templates are
+mixes of the first task's (``transfer_vision``, the paper's Fig. 14) and
+the Vowel MLP's 8-feature 4-class blobs (``vowel_stream``).  Every batch is
+a pure function of (seed, step), so the port and the reference see the
+same data.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["lm_batch", "synthetic_vision"]
+__all__ = ["lm_batch", "lm_batch_stream", "synthetic_vision",
+           "vision_stream", "vowel_stream", "transfer_vision"]
 
 
 def _markov_table(vocab: int, seed: int = 0, branch: int = 4) -> np.ndarray:
@@ -42,6 +46,11 @@ def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+def lm_batch_stream(seed: int, batch: int, seq: int, vocab: int, steps: int):
+    for step in range(steps):
+        yield lm_batch(seed, step, batch, seq, vocab)
+
+
 def _templates(n_classes: int, shape: tuple, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.standard_normal((n_classes,) + shape).astype(np.float32)
@@ -70,3 +79,21 @@ def synthetic_vision(seed: int, step: int, batch: int, shape: tuple,
     x = tpl[y] + noise * rng.standard_normal((batch,) + shape).astype(
         np.float32)
     return {"x": x, "y": y}
+
+
+def vision_stream(seed: int, batch: int, shape: tuple, n_classes: int,
+                  steps: int, **kw):
+    for step in range(steps):
+        yield synthetic_vision(seed, step, batch, shape, n_classes, **kw)
+
+
+def transfer_vision(seed: int, step: int, batch: int, shape: tuple,
+                    n_classes: int, noise: float = 1.0):
+    return synthetic_vision(seed, step, batch, shape, n_classes, noise,
+                            rot_classes=True)
+
+
+def vowel_stream(seed: int, batch: int, steps: int):
+    """8-feature 4-class Gaussian blobs (the paper's Vowel MLP task)."""
+    for step in range(steps):
+        yield synthetic_vision(seed, step, batch, (8,), 4, noise=0.6)

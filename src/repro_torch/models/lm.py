@@ -27,11 +27,13 @@ reference's run under ``vmap``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from ..core.sparsity import SparsityConfig, column_mask, feedback_mask
 from .attention import (AttnCfg, attention, decode_attention,
@@ -52,6 +54,7 @@ __all__ = ["ArchConfig", "SubLayerPlan", "period_plan", "init_model",
            "build_gateway_prefill_step"]
 
 Params = dict
+REMAT_POLICIES = ("full", "dots", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,15 +98,15 @@ class ArchConfig:
     # substrate policy
     ptc: PTCLinearCfg = dataclasses.field(default_factory=PTCLinearCfg)
     remat: bool = True              # recompute each period in the backward
-    remat_policy: str = "full"      # full | none
+    remat_policy: str = "full"      # full | dots (keep the 2-D products'
+    #                                 outputs) | none
     attn_chunk: int | None = None   # chunked-softmax threshold (keys)
 
     def __post_init__(self):
-        if self.remat_policy not in ("full", "none"):
+        if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(
-                f"{self.name}: remat_policy {self.remat_policy!r} is not "
-                f"ported (the port has 'full' and 'none'; the reference's "
-                f"'dots', which keeps the matmul outputs, is not)")
+                f"{self.name}: unknown remat_policy {self.remat_policy!r} "
+                f"(one of {REMAT_POLICIES})")
 
     @property
     def hd(self) -> int:
@@ -341,12 +344,36 @@ def _sublayer_fwd(cfg: ArchConfig, plan: SubLayerPlan, p: Params, x,
     return x, aux
 
 
+# the products the reference's "dots" policy keeps
+# (``dots_with_no_batch_dims_saveable``): a matmul with no batch dimension
+# reaches the dispatcher as one of these, a batched one (attention's
+# scores, the blocked PTC forward's plain einsums, the MoE experts) as
+# ``bmm``
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the outputs of the products with no batch dimension, recompute
+    everything else: never an allocation, which a CUDA kernel bound through
+    ctypes fills where the dispatcher cannot see it (a kept ``empty``
+    would hand the recompute a buffer its kernel never wrote)."""
+    if func in _NO_BATCH_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
 def _run_stack(cfg: ArchConfig, plan, stacks: list, n_periods: int, x,
                positions, cross_kv=None):
     """Walk the ``n_periods`` periods of the stack (``stacks[i]``: plan
     position i's tree with its leading period axis): (x, the summed aux
-    loss).  With ``remat`` and the policy "full" each period runs under
-    ``torch.utils.checkpoint``, so the backward recomputes it."""
+    loss).  With ``remat`` each period runs under ``torch.utils.
+    checkpoint``: the policy "full" recomputes all of it in the backward,
+    "dots" keeps the outputs of its 2-D products and recomputes the rest
+    (the products' outputs are the same bits, so the gradients are too)."""
     def body(x, aux, layer, cross_kv):
         for i, sub in enumerate(plan):
             x, a = _sublayer_fwd(cfg, sub, layer[i], x, positions, cross_kv)
@@ -354,12 +381,14 @@ def _run_stack(cfg: ArchConfig, plan, stacks: list, n_periods: int, x,
         return x, aux
 
     remat = cfg.remat and cfg.remat_policy != "none"
+    kw = {"context_fn": _DOTS_CONTEXT} if cfg.remat_policy == "dots" else {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pi in range(n_periods):
         layer = [tree_map(lambda a: a[pi], st) for st in stacks]
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(body, x, aux, layer, cross_kv,
-                                use_reentrant=False, preserve_rng_state=False)
+                                use_reentrant=False, preserve_rng_state=False,
+                                **kw)
         else:
             x, aux = body(x, aux, layer, cross_kv)
     return x, aux

@@ -9,7 +9,7 @@
   y, dx and ds under no masks, a feedback mask, a column mask, and both
   (the same masks handed to both packages), 1e-5 absolute (sums of 32
   rows of order-1 terms in fp32, taken in another order).
-* ``ptc_linear(mode="blocked")`` in bf16 (x, U, Σ, V* and δy) against
+* ``ptc_linear`` (blocked and fused) in bf16 (x, U, Σ, V* and δy) against
   the reference under the same four mask settings: y, dx and ds within
   6e-2 of the largest entry (the reference's bf16 limit; its einsums
   round to bf16 between passes), in the reference's dtypes.
@@ -163,14 +163,13 @@ def test_ptc_linear_matches_reference(layer, mode, which):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("which", ["none", "fb", "col", "fb+col"])
-def test_blocked_ptc_linear_bf16_matches_reference(layer, which):
+def _bf16_matches_reference(layer, which, mode):
     pj, x, dy = layer
     mj = _masks(which, pj, x.shape[0])
     bf = jnp.bfloat16
     uj, vj = pj.u.astype(bf), pj.v.astype(bf)
     yj, vjp = jax.vjp(lambda xx, ss: jsub.ptc_linear(
-        xx, jptc.PTCParams(uj, ss, vj), mj, mode="blocked"),
+        xx, jptc.PTCParams(uj, ss, vj), mj, mode=mode),
         jnp.asarray(x, bf), pj.s.astype(bf))
     dxj, dsj = vjp(jnp.asarray(dy, bf))
 
@@ -179,7 +178,7 @@ def test_blocked_ptc_linear_bf16_matches_reference(layer, which):
     xt = torch.from_numpy(x).to(b16).requires_grad_()
     st = pt.s.to(b16).requires_grad_()
     yt = tsub.ptc_linear(xt, tptc.PTCParams(pt.u.to(b16), st, pt.v.to(b16)),
-                         convert.subspace_masks(mj), mode="blocked")
+                         convert.subspace_masks(mj), mode=mode)
     dxt, dst = torch.autograd.grad(yt, (xt, st),
                                    torch.from_numpy(dy).to(b16))
     for got, want in ((yt, yj), (dxt, dxj), (dst, dsj)):
@@ -187,6 +186,19 @@ def test_blocked_ptc_linear_bf16_matches_reference(layer, which):
         want = np.asarray(want.astype(jnp.float32))
         err = np.abs(got.detach().float().numpy() - want).max()
         assert err / (np.abs(want).max() + 1e-6) < 6e-2
+
+
+@pytest.mark.parametrize("which", ["none", "fb", "col", "fb+col"])
+def test_blocked_ptc_linear_bf16_matches_reference(layer, which):
+    _bf16_matches_reference(layer, which, "blocked")
+
+
+@pytest.mark.parametrize("which", ["none", "fb", "col", "fb+col"])
+def test_fused_ptc_linear_bf16_matches_reference(layer, which):
+    """The fused backward with bf16 operands: the fp32 masks promote dW
+    and the masked W to fp32, as the reference's do (a bf16 product
+    against an fp32 operand raised before PR 28)."""
+    _bf16_matches_reference(layer, which, "fused")
 
 
 def test_backward_wrappers_take_bf16_operands_alike():

@@ -17,8 +17,9 @@ reference output.
 * ``forward`` with ``attn_chunk`` 4 against no chunking (1e-3) and
   against the reference's chunked forward (1e-5); a period recomputed
   under ``torch.utils.checkpoint`` (remat) changes no bit of the loss or
-  the gradients; the reference's "dots" remat policy, not ported,
-  raises.
+  the gradients; the three remat policies ("full", "dots", "none") are
+  accepted and an unknown one raises ("dots" itself is held in
+  ``tests/test_torch_remat.py``).
 * ``cross_entropy``'s value and its gradient against ``jax.vjp`` of the
   reference's ``_ce``: 1e-5 in fp32; in bf16 the value within 1e-5 and
   the gradient within one bf16 step (2^-8 of the largest entry: the two
@@ -183,12 +184,15 @@ def test_remat_changes_no_value():
 
 
 def test_unported_remat_policy_raises():
-    """The reference's "dots" policy (keep the matmul outputs) is not
-    ported: a config asking for it raises instead of recomputing all."""
+    """The reference's three policies are accepted ("dots" keeps the 2-D
+    products' outputs); a policy neither package has raises instead of
+    quietly recomputing all."""
     _, tc, _, _ = _params("olmo-1b")
-    assert dataclasses.replace(tc, remat_policy="none").remat_policy == "none"
-    with pytest.raises(ValueError, match="'dots'.* is not ported"):
-        dataclasses.replace(tc, remat_policy="dots")
+    for policy in ("full", "dots", "none"):
+        assert dataclasses.replace(tc, remat_policy=policy).remat_policy \
+            == policy
+    with pytest.raises(ValueError, match="unknown remat_policy 'attn'"):
+        dataclasses.replace(tc, remat_policy="attn")
 
 
 # -- cross-entropy -----------------------------------------------------------
