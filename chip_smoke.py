@@ -29,6 +29,11 @@
     python3 chip_smoke.py --phases driver      # the same over the socket
                                                # transport, the driver
                                                # overhead benchmark
+    python3 chip_smoke.py --phases hw_serve,driver,serving_gateway
+                                               # + the serving_gateway
+                                               # benchmark, then
+                                               # check_regression over
+                                               # the three JSONs
 
 Phases:
 
@@ -100,8 +105,8 @@ Phases:
    the same way; then the up projection's 1,024 blocks realized through
    ``realized_unitaries`` (2,048 reck meshes of k = 128 on the unrolled
    wide mesh route).
-7. ``gateway`` — qwen3-4b at full width (36 layers, d_model 2560, k = 128
-   fused PTC with bf16 bases) serving 16 seeded Poisson requests through
+7. ``gateway`` — qwen3-4b at full width (d_model 2560, k = 128 fused PTC
+   with bf16 bases), depth cut to ``QWEN_LAYERS`` (9 of 36), serving 16 seeded Poisson requests through
    the continuous-batching gateway with paged KV and chunked prefill
    (chunk 64); every busy step must launch the gather, the scatter and
    the prefill attention, one step is held against the plain versions,
@@ -109,7 +114,7 @@ Phases:
    path's tokens.
 8. ``serve`` — the solo serve path (``repro_torch.launch.serve.run``,
    greedy decode against the dense KV cache) at qwen3-4b full width in
-   bf16, batch 4, prompt 64, 32 new tokens: tokens/s and the step wall;
+   bf16 (``QWEN_LAYERS``), batch 4, prompt 64, 32 new tokens: tokens/s and the step wall;
    its last-prompt logits against the gateway's for the same prompts
    (``SERVE_TOL``), and at smoke width in fp32 every request served alone
    emits the gateway's tokens.
@@ -136,11 +141,12 @@ Phases:
    beside the reference's CPU rows, and the card's busy share from a
    profiled slice of each benchmark.
 11. ``train`` — LM training through ``launch/steps.py::
-   build_update_step``: olmo-1b at full width and depth in blocked mode
-   (16 layers, k = 128, bf16 bases, 1 x 4096 tokens, alpha_w = alpha_c =
-   0.6, each layer recomputed in the backward), four AdamW steps whose
-   loss must fall, each launching the three tensor-core routes (224
-   forwards, 112 Σ-gradients, 112 feedbacks) and no other PTC route, a
+   build_update_step``: olmo-1b at full width in blocked mode, depth cut
+   to ``OLMO_LAYERS`` (4 of 16 layers, k = 128, bf16 bases, 1 x 4096
+   tokens, alpha_w = alpha_c = 0.6, each layer recomputed in the
+   backward), four AdamW steps whose loss must fall, each launching the
+   three tensor-core routes (2 n forwards, n Σ-gradients, n feedbacks for
+   its n PTC linears: 56, 28, 28) and no other PTC route, a
    warm step profiled; one training step against its plain versions
    (``TRAIN_LOSS_TOL``; the Σ-gradients per leaf, ``TRAIN_SIGMA_TOL``,
    and per layer, ``TRAIN_SIGMA_LAYER_TOL``) and 2 of its 16 layers with
@@ -198,7 +204,18 @@ Phases:
    runner (per-op times on the three transports, the batch, async and
    concurrent sweeps, every bit-identity check); one seeded session of
    IC, PM, 30 drifting ticks and a recalibration on the twin, subprocess
-   and socket transports, equal on the card.
+   and socket transports, equal on the card; the driver_overhead gate
+   ``v4_socket_batch64_within_2x_twin`` must hold.
+14. ``serving_gateway`` — the port's ``serving_gateway`` benchmark at
+   ``quick`` through its runner, at the reference's sizes
+   (smoke:qwen3-4b, 2 chips of k = 8, 4 slots): tokens/s a chip
+   sequential against the gateway, TTFT, latency, the drift point, each
+   leg's wall, the socket server children's start and close walls, the
+   launches; its nine gates must hold and its virtual-step metrics equal
+   the committed reference JSON; then ``check_regression`` over the
+   JSONs of this invocation's serving_gateway, driver and hw_serve
+   phases, each ``--require``d: plain against an empty baseline (every
+   gate), and ``--self-test`` (the degraded copy must be rejected).
 
 Every stage of a main path prints its wall time and its launches of each
 kernel, and must have launched each kernel it uses (``STAGE_KERNELS``),
@@ -237,7 +254,7 @@ from pathlib import Path
 
 PHASES = ("kernels", "parity", "full", "closed_loop", "hw_serve", "driver",
           "vgg8", "blocked_lm", "train", "examples", "gateway", "serve",
-          "families", "tables")
+          "families", "tables", "serving_gateway")
 # the kernels each stage of quickstart.run launches, and each busy step of
 # serving gateway.  ptc_block_matmul has two routes, each counted under its
 # own name: the IC/PM probes take the per-block route
@@ -2748,15 +2765,33 @@ def card_params(torch, cfg, what: str) -> dict:
     return params
 
 
-def qwen3_4b_params(torch) -> dict:
-    """qwen3-4b's seeded parameters at full width, made on the card (for
-    the gateway and serve phases)."""
+# qwen3-4b's depth in the gateway and serve phases: 9 of its 36 layers, to
+# keep the whole script within half its time limit with the
+# serving_gateway phase (the two phases took 73.4-89.2 s at 36 layers,
+# 24.1-29.2 s at 9, on the H100).  Every layer has the same width, and the
+# serving kernels' shapes a period are the full model's
+QWEN_LAYERS = 9
+
+
+def qwen3_4b_config():
+    """qwen3-4b at full width, ``QWEN_LAYERS`` of its 36 layers."""
+    import dataclasses
     from repro_torch.configs import get_config
 
-    cfg = get_config("qwen3-4b")
+    full = get_config("qwen3-4b")
+    check((full.n_layers, full.d_model) == (36, 2560),
+          f"qwen3-4b is {full}")
+    return dataclasses.replace(full, n_layers=QWEN_LAYERS)
+
+
+def qwen3_4b_params(torch) -> dict:
+    """qwen3-4b's seeded parameters at full width, ``QWEN_LAYERS`` of its
+    36 layers, made on the card (for the gateway and serve phases)."""
+    cfg = qwen3_4b_config()
     return card_params(torch, cfg, (
-        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
-        f"over {cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}"))
+        f"{cfg.n_layers} of 36 layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}"))
 
 
 def staged_qwen3_4b_params(torch) -> dict:
@@ -2799,7 +2834,7 @@ def gateway_phase(torch, params, check_step: int = 12) -> dict:
                                      ServingGateway, poisson_workload)
 
     dev = torch.device("cuda")
-    cfg = get_config("qwen3-4b")
+    cfg = qwen3_4b_config()
 
     pages = PageConfig(page_size=16, n_pages=320, max_pages_per_slot=40)
     gcfg = GatewayConfig(slots=8, pages=pages, prefill_chunk=64, kv_block=64)
@@ -2957,7 +2992,7 @@ def gateway_phase(torch, params, check_step: int = 12) -> dict:
           f"the same views: gathered views and scattered pools bitwise equal;"
           f" logits rel err {rel_logits:.2e}, new KV rows rel err "
           f"{rel_kv:.2e} (tol {GATEWAY_TOL:.0e} of the largest entry: bf16 "
-          f"through 36 layers), layer 0's rows bitwise equal, argmax agrees "
+          f"through {cfg.n_layers} layers), layer 0's rows bitwise equal, argmax agrees "
           f"on {agree:.2f} of the slots; planted faults in the plain version "
           + ", ".join(f"{f}: logits {a:.2e}, new KV {b:.2e}"
                       for f, (a, b) in faults.items()))
@@ -3286,7 +3321,7 @@ def tables_phase(torch, budget: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # the solo path's last-prompt logits against the gateway's for the same
-# prompt: the gateway phase's limit (bf16 through 36 layers)
+# prompt: the gateway phase's limit (set for bf16 through all 36 layers)
 SERVE_TOL = 3e-2
 
 
@@ -3306,7 +3341,7 @@ def serve_phase(torch, params) -> None:
                                      ServingGateway, poisson_workload)
 
     dev = torch.device("cuda")
-    cfg = get_config("qwen3-4b")
+    cfg = qwen3_4b_config()
     batch, plen, gen = 4, 64, 32
     args = argparse.Namespace(arch=cfg, batch=batch, prompt_len=plen,
                               gen=gen, seed=0, device=dev,
@@ -3859,6 +3894,13 @@ TRAIN_FP32_TOL = 1e-4
 # reference's test_decode_matches_prefill_logits allows 2e-2)
 DECODE_TOL = 2e-2
 TRAIN_T = 4096          # train_4k's sequence (src/repro/configs/common.py:53)
+# olmo-1b's depth in the train phase (its update steps and the remat
+# policies): 4 of its 16 layers, to keep the whole script within half its
+# time limit with the serving_gateway phase (the train phase took
+# 80.7-93.3 s at 16 layers, 52.8 s at 8 and 37.5-40.3 s at 4, on the
+# H100).
+# Every layer has the same width, block grids and kernel shapes
+OLMO_LAYERS = 4
 
 
 def blocked(cfg, base_dtype=None):
@@ -3972,8 +4014,8 @@ def lm_train_batch(torch, cfg, batch: int, seq: int, dev, seed: int = 0):
 
 
 def olmo_train(torch) -> dict:
-    """olmo-1b at full width and depth in blocked mode (k = 128, bf16
-    bases): four AdamW update steps through ``launch/steps.py::
+    """olmo-1b at full width in blocked mode, ``OLMO_LAYERS`` of its 16
+    layers (k = 128, bf16 bases): four AdamW update steps through ``launch/steps.py::
     build_update_step`` on one train_4k sequence with alpha_w = alpha_c =
     0.6; each step's launches on the three tensor-core routes; a warm
     step profiled; one training step against its plain versions
@@ -3990,11 +4032,12 @@ def olmo_train(torch) -> dict:
     from repro_torch.optim.optimizers import AdamWConfig
 
     dev = torch.device("cuda")
-    cfg = blocked(get_config("olmo-1b"))
-    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab, cfg.ptc.k,
-           cfg.attn_chunk, cfg.remat) == (16, 2048, 8192, 50304, 128, 2048,
-                                          True),
-          f"train: olmo-1b is {cfg}")
+    full = blocked(get_config("olmo-1b"))
+    check((full.n_layers, full.d_model, full.d_ff, full.vocab, full.ptc.k,
+           full.attn_chunk, full.remat) == (16, 2048, 8192, 50304, 128, 2048,
+                                            True),
+          f"train: olmo-1b is {full}")
+    cfg = dataclasses.replace(full, n_layers=OLMO_LAYERS)
     scfg = SparsityConfig(alpha_w=0.6, alpha_c=0.6)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -4007,7 +4050,8 @@ def olmo_train(torch) -> dict:
                  for s in sigma_grads(params).values())
     n_lin = n_linears(cfg)
     batch = lm_train_batch(torch, cfg, 1, TRAIN_T, dev)
-    print(f"[train] olmo-1b, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"[train] olmo-1b, {cfg.n_layers} of {full.n_layers} layers, "
+          f"d_model {cfg.d_model}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, PTC k = {cfg.ptc.k} blocked, "
           f"bases {cfg.ptc.base_dtype}: {blocks} blocks, parameters and "
           f"AdamW state made on the card in {init_s:.1f} s, parameters "
@@ -4191,8 +4235,8 @@ def remat_steps(torch, what: str, cfg, params, batch, scfg,
 
 
 def olmo_remat(torch, cfg, params, batch, scfg, n_lin: int) -> None:
-    """olmo-1b at full width and depth, the seeded and trained parameters
-    of the train phase: one training step's gradients under "full",
+    """olmo-1b at full width, ``OLMO_LAYERS`` of its layers, the seeded and
+    trained parameters of the train phase: one training step's gradients under "full",
     "dots" and "none" in blocked mode (the tensor-core routes) and in
     olmo-1b's own fused mode (no PTC kernel), with the fused peaks
     ordered full < dots < none."""
@@ -4204,7 +4248,7 @@ def olmo_remat(torch, cfg, params, batch, scfg, n_lin: int) -> None:
     remat_steps(torch, "olmo-1b blocked", cfg, params, batch, scfg, {
         "full": tc, "dots": tc,
         "none": dict(zip(STAGE_KERNELS["train"], (n_lin, n_lin, n_lin)))})
-    fused = get_config("olmo-1b")
+    fused = dataclasses.replace(get_config("olmo-1b"), n_layers=cfg.n_layers)
     check(fused.ptc.mode == "fused" and fused.ptc.base_dtype
           == cfg.ptc.base_dtype and fused.remat,
           f"train: olmo-1b's own config is {fused.ptc}")
@@ -4398,7 +4442,7 @@ def train_driver(torch) -> None:
 
 def train_phase(torch) -> dict:
     """LM training on the card: olmo-1b's blocked update step at full
-    width and depth (k = 128), whisper-base's (k = 64) and its serve path,
+    width, ``OLMO_LAYERS`` of its 16 layers (k = 128), whisper-base's (k = 64) and its serve path,
     llama-3.2-vision-11b's serve path against its forward, and the
     training driver.  Returns the tensor-core routes' launches over one
     olmo-1b update step."""
@@ -5015,12 +5059,12 @@ def hw_leg_c(torch) -> None:
 
 
 # leg A's depth, and so the driver phase's (the same leg over the socket
-# transport): 3 of whisper-base's 6 decoder layers since PR 28, to keep the
-# whole script within half its time limit with the remat policies and the
-# examples phase added (at 6 layers the socket leg's deploy took 31.0 s of
-# the driver phase's 102.7 s on the H100, and leg A 9.4 s).  Every decoder
-# layer has the same width and block grids
-HW_LAYERS = 3
+# transport): 1 of whisper-base's 6 decoder layers, to keep the whole
+# script within half its time limit with the serving_gateway phase (on the
+# H100 the socket leg A took 21.4-26.7 s at 3 layers and 13.3 s at 1, leg
+# A 6.0-7.5 s and 2.1 s; at 6 layers the socket deploy alone took 31.0 s).
+# Every decoder layer has the same width and block grids
+HW_LAYERS = 1
 
 
 def whisper_hw(torch):
@@ -5285,11 +5329,215 @@ def driver_phase(torch, hw: dict | None) -> dict:
     check(s["bit_identity_ok"] and s["v4_v3_bit_identical"]
           and s["concurrent_bit_identical"],
           "driver: a driver_overhead bit-identity check failed")
+    check(s["v4_socket_batch64_within_2x_twin"],
+          f"driver: socket batch 64 at "
+          f"{s['socket_batch64_vs_twin_batch64']:.3f}x the twin's, under the "
+          f"reference gate's {s['v4_socket_batch64_threshold']}")
     t0 = time.perf_counter()
     driver_flows(torch)
     print(f"[driver] the three sessions {time.perf_counter() - t0:.1f} s")
     print(f"[driver] phase {time.perf_counter() - t_phase:.1f} s")
     return child
+
+
+# the serving_gateway phase: the port's benchmark at the reference's own
+# sizes (smoke:qwen3-4b, fp32 bases, head dim 16: the CUDA-core prefill
+# route), then check_regression over the JSONs this invocation wrote
+SG_KERNELS = HW_KERNELS + ("paged_gather", "paged_scatter",
+                           "prefill_attention", "prefill_attention_cudacore")
+SG_JSONS = (("serving_gateway", "BENCH_serving_gateway.json"),
+            ("driver", "BENCH_driver_overhead.json"),
+            ("hw_serve", "BENCH_fleet_autopilot.json"))
+
+
+@contextlib.contextmanager
+def socket_children():
+    """The seconds each ``SocketDriver`` built in the block took to
+    construct (its server child's start, the announce and the handshake,
+    under ``"start"``) and to close (the child's exit, ``"close"``)."""
+    from repro_torch.hw.socket_driver import SocketDriver
+
+    walls = dict(start=[], close=[])
+    orig = dict(start=SocketDriver.__init__, close=SocketDriver.close)
+
+    def timed(what):
+        def wrapper(self, *a, **kw):
+            # a close counts once, while the child is still there
+            child = what == "start" or getattr(self, "_proc", None)
+            t0 = time.perf_counter()
+            orig[what](self, *a, **kw)
+            if child is not None:
+                walls[what].append(time.perf_counter() - t0)
+        return wrapper
+
+    SocketDriver.__init__, SocketDriver.close = timed("start"), timed("close")
+    try:
+        yield walls
+    finally:
+        SocketDriver.__init__, SocketDriver.close = orig["start"], \
+            orig["close"]
+
+
+def _parting_margin(torch, request: int, step: int, driver: str) -> str:
+    """The sequential run of the throughput (twin) or socket workload's
+    ``request`` again with its logits traced: the top-2 margin of the
+    logits that chose its token ``step``, beside the largest logit."""
+    import numpy as np
+    from repro_torch.benchmarks import serving_gateway as sg
+    from repro_torch.configs import parse_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import init_model
+
+    cfg = parse_arch(sg.ARCH)
+    params = init_model(torch.Generator("cuda").manual_seed(0), cfg)
+    wl = sg.workloads("quick", cfg.vocab)
+    req = wl["throughput" if driver == "twin" else "socket"][request]
+    args = sg._seq_args(params, req, "cuda", driver=driver)
+    args.trace_logits = True
+    row = serve.run(args)["logits"][req.prompt_len - 1 + step, 0]
+    top2 = np.sort(row)[-2:]
+    return (f"top-2 margin {top2[1] - top2[0]:.3e} at the largest logit "
+            f"{np.abs(row).max():.3e}")
+
+
+def _sg_partings(torch, s: dict) -> None:
+    """Where each token-identity check's runs part, with the sequential
+    side's top-2 margin there (a near tie, or a fault)."""
+    for leg, p in s["partings"].items():
+        if p is None:
+            continue
+        where = f"request {p['request']}, decode step {p['step']}"
+        if leg in ("throughput", "socket"):
+            where += "; " + _parting_margin(
+                torch, p["request"], p["step"],
+                "twin" if leg == "throughput" else "socket")
+        print(f"[serving_gateway] {leg}: tokens part at {where}")
+
+
+def serving_gateway_phase(torch, phases: list) -> dict:
+    """The port's serving_gateway benchmark at quick on the card through
+    its runner (its nine gates, its virtual-step metrics equal to the
+    reference's JSON), then check_regression over the JSONs of this
+    invocation's phases, plain and ``--self-test``.  Returns the
+    benchmark's launches in this process (counts set to 0 just before
+    it)."""
+    import shutil
+    import tempfile
+    from repro_torch.benchmarks import check_regression as cr
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.common import ART
+    from repro_torch.hw import subprocess_driver
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    info = build.build(sorted({build.KERNELS[k] for k in SG_KERNELS}))
+    if info["built"]:
+        print(f"[serving_gateway] built {info['built']} in "
+              f"{info['seconds']:.1f} s")
+    path = ART / "BENCH_serving_gateway.json"
+    path.unlink(missing_ok=True)
+    build.reset_launch_counts()
+    subprocess_driver.server_launch_counts.clear()
+    try:
+        with socket_children() as kids:
+            recs = bench_run.run("quick", only="serving_gateway",
+                                 device="cuda", benches=bench_run.RUNTIME)
+    finally:
+        # a failed gate raises inside the benchmark, after its JSON
+        if path.exists():
+            _sg_partings(torch, json.loads(path.read_text()))
+    launches = {k: build.launch_counts[k] for k in SG_KERNELS}
+    s = recs[0]["tables"]["summary"]
+    ref = json.loads((Path(__file__).resolve().parent / "bench_artifacts"
+                      / "BENCH_serving_gateway.json").read_text())
+    seq, gw, pre = s["sequential"], s["gateway"], s["prefill"]
+    print(f"[serving_gateway] quick at {s['arch']}, {s['fleet']} chips of "
+          f"k = 8, {s['slots']} slots, {s['n_requests']} requests; the "
+          f"runner's wall {recs[0]['seconds']:.1f} s")
+    print(f"[serving_gateway] sequential {seq['tokens']} tokens in "
+          f"{seq['wall_s']:.3f} s: {seq['tokens_per_s_per_chip']:.2f} tokens/s"
+          f" a chip; gateway {gw['tokens']} in {gw['wall_s']:.3f} s: "
+          f"{gw['tokens_per_s_per_chip']:.2f}; speedup "
+          f"{s['tokens_per_chip_speedup']:.2f}x (reference, CPU: "
+          f"{ref['tokens_per_chip_speedup']:.2f}x)")
+    print(f"[serving_gateway] gateway {gw['steps']} steps, occupancy "
+          f"{gw['occupancy']:.3f} of {s['slots']}, "
+          f"{gw['frames_per_step']:.1f} frames a step")
+    print(f"[serving_gateway] TTFT p50 / p99 in steps: " + ", ".join(
+        f"C = {c} {pre['ttft'][c]['p50']} / {pre['ttft'][c]['p99']}"
+        for c in ("1", "8", "32"))
+        + f"; twin frames C = 1 {pre['twin']['frames_c1']}, C = 8 "
+          f"{pre['twin']['frames_c8']} ({pre['twin']['cols_per_frame_c1']:.2f}"
+          f" and {pre['twin']['cols_per_frame_c8']:.2f} columns a frame)")
+    rr, d = s["ref_rate"], s["drift"]
+    print(f"[serving_gateway] rate {rr['rate']}: latency p50 "
+          f"{rr['p50_latency_steps']} p99 {rr['p99_latency_steps']} steps; "
+          f"drift sigma {d['sigma']}: {d['tokens_out']} tokens, "
+          f"{d['alarms']} alarms, {d['recals']} recals")
+    print(f"[serving_gateway] leg walls, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in s["leg_walls_s"].items()))
+    for what, walls in kids.items():
+        w = sorted(walls)
+        print(f"[serving_gateway] socket server children, {what}: "
+              f"{len(w)}, {sum(w):.1f} s in all (each {w[0]:.2f}-{w[-1]:.2f}"
+              f" s, median {w[len(w) // 2]:.2f}; a fleet's two together)"
+              if w else f"[serving_gateway] no socket server child, {what}")
+    print(f"[serving_gateway] launches over the benchmark: in this process "
+          + ", ".join(f"{k}={v}" for k, v in launches.items())
+          + "; in the server children " + ", ".join(
+              f"{k}={v}" for k, v in
+              sorted(subprocess_driver.server_launch_counts.items())))
+    check(len(s["gates"]) == 9, f"serving_gateway: gates {s['gates']}")
+    for name, ok in s["gates"].items():
+        check(ok, f"serving_gateway: gate {name} is false")
+    for key in ("load_sweep", "ref_rate"):
+        check(s[key] == ref[key], f"serving_gateway: {key} {s[key]} is not "
+                                  f"the reference's {ref[key]}")
+    for key in ("ttft", "busy_steps"):
+        check(pre[key] == ref["prefill"][key],
+              f"serving_gateway: prefill {key} {pre[key]} is not the "
+              f"reference's {ref['prefill'][key]}")
+    print("[serving_gateway] virtual-step metrics (prefill TTFT and busy "
+          "steps, the load sweep, the rate-2.0 latencies) equal the "
+          "reference's JSON")
+    for k in ("paged_gather", "paged_scatter"):
+        check(launches[k] > 0, f"serving_gateway: no {k} launched")
+    check(launches["prefill_attention"] + launches[
+        "prefill_attention_cudacore"] > 0,
+          "serving_gateway: no prefill attention launched")
+    for k in HW_KERNELS:
+        check(launches[k] + subprocess_driver.server_launch_counts[k] > 0,
+              f"serving_gateway: no {k} launched")
+
+    # check_regression over this invocation's JSONs: the plain check
+    # against an empty baseline (gates checked, metrics skipped), then the
+    # self-test against a copy of them (the degraded copy must fail)
+    require = [f for phase, f in SG_JSONS if phase in phases]
+    with tempfile.TemporaryDirectory() as tmp:
+        cur, empty = Path(tmp) / "current", Path(tmp) / "empty"
+        cur.mkdir()
+        empty.mkdir()
+        for f in require:
+            shutil.copy(ART / f, cur / f)
+        shutil.copytree(cur, Path(tmp) / "baseline")
+        argv = ["--current", str(cur), "--require", *require]
+        rc = cr.main(["--baseline", str(empty), *argv])
+        check(rc == 0, f"serving_gateway: check_regression failed over "
+                       f"{require}")
+        rc = cr.main(["--baseline", str(Path(tmp) / "baseline"), *argv,
+                      "--self-test"])
+        check(rc == 0, "serving_gateway: check_regression's self-test "
+                       "passed the degraded copy")
+        for f in require:
+            got = json.loads((cur / f).read_text())
+            want = json.loads((Path(__file__).resolve().parent
+                               / "bench_artifacts" / f).read_text())
+            print(f"[serving_gateway] {f}: " + ", ".join(
+                f"{name} {float(fn(got)):.4f} ({float(fn(want)):.4f})"
+                for name, fn in cr.SPECS[f]["metrics"].items())
+                + " (reference, CPU, in brackets: a reading, not a gate)")
+    print(f"[serving_gateway] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -5473,6 +5721,14 @@ def main(argv=None) -> int:
                          if launches[k] is None})
 
     lap("tables")
+    if "serving_gateway" in phases:
+        counts = serving_gateway_phase(torch, phases)
+        # the benchmark's launches, where no earlier path of this run
+        # counted the kernel
+        launches.update({k: v for k, v in counts.items()
+                         if launches[k] is None})
+
+    lap("serving_gateway")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)                     # name, power limit: as nvidia-smi has it
     print(json.dumps({"kernels": [

@@ -131,7 +131,8 @@ def _dispatch(driver, op: str, kw: dict):
             try:
                 if j - i > 1:
                     kw_i = entries[i].get("kw") or {}
-                    xs = [(e.get("kw") or {})["x"] for e in entries[i:j]]
+                    xs = np.stack([(e.get("kw") or {})["x"]
+                                   for e in entries[i:j]])
                     y = driver.forward_many_stacked(
                         xs, category=kw_i.get("category", "probe"),
                         block_range=_rng(kw_i))

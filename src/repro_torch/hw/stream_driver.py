@@ -251,7 +251,10 @@ class StreamDriver(PhotonicDriver):
         return encode(obj, binary=getattr(self, "_binary", False))
 
     def _tensor(self, a) -> torch.Tensor:
-        """A decoded wire array as a tensor on the driver's device."""
+        """A decoded wire array as a tensor on the driver's device (a
+        tensor already there, as is)."""
+        if isinstance(a, torch.Tensor):
+            return a
         return torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
 
     def _ensure_reader(self) -> None:
@@ -474,14 +477,14 @@ class StreamDriver(PhotonicDriver):
                                     kw=self._wire_kw(name, dict(kw))))
         return entries
 
-    @staticmethod
-    def _split_coalesced(raw: list) -> list:
+    def _split_coalesced(self, raw: list) -> list:
         """A coalesced span comes back as one stacked array (op axis
-        leading): split it into per-op results."""
+        leading): moved to the device in one copy, then split into per-op
+        results (views of it)."""
         flat: list = []
         for r in raw:
             if isinstance(r, dict) and "coalesced" in r:
-                flat.extend(dict(y=y) for y in r["y"])
+                flat.extend(dict(y=y) for y in self._tensor(r["y"]))
             else:
                 flat.append(r)
         return flat

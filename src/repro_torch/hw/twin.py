@@ -239,7 +239,10 @@ class TwinDriver(PhotonicDriver):
                              block_range=None) -> torch.Tensor:
         """:meth:`forward_many` as one stacked ``(N, B, n, k)`` tensor;
         ``xs`` is a sequence of same-shape ``(n, k)`` inputs or the
-        stacked ``(N, n, k)`` tensor."""
+        stacked ``(N, n, k)`` tensor or host array (a server's decoded
+        span: moved to the device in one copy, not one a probe)."""
+        if isinstance(xs, np.ndarray):
+            xs = _f32(xs, self._device)
         xs = [_f32(x, self._device).contiguous() for x in xs]
         start, stop, phi, sigma, dev = self._slice(block_range)
         u, v = self._realized(phi, dev)

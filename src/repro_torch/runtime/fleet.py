@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import torch
@@ -43,7 +44,7 @@ from ..core.mapping import default_pm_config, parallel_map
 from ..core.noise import NoiseModel, DEFAULT_NOISE
 from ..core.ptc import blockize
 from ..core import unitary as un
-from ..hw import make_driver, DriftConfig, DEFAULT_DRIFT
+from ..hw import make_driver, wire_key, DriftConfig, DEFAULT_DRIFT
 from ..optim.zo import zo_draws
 from .monitor import (MonitorConfig, HealthState, probe_mapping_distance,
                       score_tenant_probes, update_health, clear_health)
@@ -221,8 +222,37 @@ def make_chip(gen: torch.Generator, chip_id: int, w, cfg: RuntimeConfig,
 def make_fleet(gen: torch.Generator, n_chips: int, w, cfg: RuntimeConfig,
                *, device=None) -> list[Chip]:
     """N chips serving the same logical weight(s), each with its own
-    realization and drift path, drawn from ``gen`` in chip order."""
-    return [make_chip(gen, i, w, cfg, device=device) for i in range(n_chips)]
+    realization and drift path, drawn from ``gen`` in chip order.
+
+    On a stream transport each chip's server child takes seconds to start
+    and to warm up, so without ``deploy_zo`` (no deploy draw between two
+    chips' keys) the chips deploy together: each from a generator at the
+    state ``gen`` had where one chip after another would have drawn that
+    chip's key, and ``gen`` left where one chip after another leaves it.
+    If one fails, the others' drivers are closed."""
+    if cfg.driver_kind == "twin" or cfg.deploy_zo or n_chips == 1:
+        return [make_chip(gen, i, w, cfg, device=device)
+                for i in range(n_chips)]
+    gens = []
+    for _ in range(n_chips):
+        g = torch.Generator(gen.device)
+        g.set_state(gen.get_state())
+        gens.append(g)
+        wire_key(gen)                  # the draw make_chip makes from g
+    with ThreadPoolExecutor(n_chips) as ex:
+        futs = [ex.submit(make_chip, g, i, w, cfg, device=device)
+                for i, g in enumerate(gens)]
+    chips, err = [], None
+    for f in futs:
+        try:
+            chips.append(f.result())
+        except Exception as e:       # close the others, then re-raise
+            err = err or e
+    if err is not None:
+        for c in chips:
+            c.driver.close()
+        raise err
+    return chips
 
 
 def make_router(chips: list[Chip], cfg: RuntimeConfig, seed: int = 0,
@@ -588,12 +618,16 @@ class FleetRouter:
 
     def close(self) -> None:
         """Release every chip's driver transport, all of them even if one
-        raises; failures are re-raised together."""
-        errors = []
-        for c in self.chips:
+        raises, together (a server child takes seconds to exit); failures
+        are re-raised together."""
+        def close_one(c: Chip) -> str | None:
             try:
                 c.driver.close()
             except Exception as e:  # noqa: BLE001 - collect, close the rest
-                errors.append(f"chip {c.chip_id}: {e!r}")
+                return f"chip {c.chip_id}: {e!r}"
+            return None
+
+        with ThreadPoolExecutor(max(1, len(self.chips))) as ex:
+            errors = [e for e in ex.map(close_one, self.chips) if e]
         if errors:
             raise RuntimeError("fleet close failed for " + "; ".join(errors))

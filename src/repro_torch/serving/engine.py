@@ -330,6 +330,9 @@ class ServingGateway:
                 self.busy_steps += 1
                 self.slot_steps += int(act.sum())
                 self.step_count += 1
+        if self.device.type == "cuda":
+            # the wall covers the card's work, as serve.run's does
+            torch.cuda.synchronize(self.device)
         wall = time.time() - t0
         if not sched.idle:
             raise RuntimeError(

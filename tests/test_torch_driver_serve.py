@@ -59,3 +59,54 @@ def test_hw_logits_bit_identical_across_transports(runs, transport):
     hw_r, hw_g = ref["report"]["hw"], got["report"]["hw"]
     assert hw_g["frames"] == hw_r["frames"] > 0
     assert hw_g["hw_calls"] == hw_r["hw_calls"] > 0
+
+
+def _fleet_cfg(kind: str):
+    from repro_torch.runtime.demo import default_runtime_config
+    return default_runtime_config(k=4, sigma_drift=0.0, probe_every=4,
+                                  driver_kind=kind)
+
+
+def test_stream_fleet_deploys_together_as_one_chip_after_another():
+    """A stream fleet's chips deploy together (their server children start
+    at once), from the draws one chip after another makes: the same
+    commanded phases as the twin transport's fleet, and the generator
+    left in the same state."""
+    from repro_torch.runtime.fleet import make_fleet
+
+    w = torch.randn((8, 8), generator=torch.Generator().manual_seed(3))
+    gens, phases = {}, {}
+    for kind in ("twin", "subprocess"):
+        gens[kind] = torch.Generator().manual_seed(0)
+        chips = make_fleet(gens[kind], 3, [w, 0.5 * w], _fleet_cfg(kind),
+                           device="cpu")
+        try:
+            phases[kind] = [torch.cat(c.driver.read_phases(), -1)
+                            for c in chips]
+        finally:
+            for c in chips:
+                c.driver.close()
+    assert torch.equal(gens["twin"].get_state(),
+                       gens["subprocess"].get_state())
+    for a, b in zip(phases["twin"], phases["subprocess"]):
+        assert torch.equal(a, b)
+
+
+def test_stream_fleet_closes_the_others_when_a_chip_fails(monkeypatch):
+    from repro_torch.runtime import fleet
+
+    made, make_chip = [], fleet.make_chip
+
+    def failing(gen, chip_id, *a, **kw):
+        if chip_id == 1:
+            raise RuntimeError("planted deploy failure")
+        chip = make_chip(gen, chip_id, *a, **kw)
+        made.append(chip)
+        return chip
+
+    monkeypatch.setattr(fleet, "make_chip", failing)
+    w = torch.randn((8, 8), generator=torch.Generator().manual_seed(3))
+    with pytest.raises(RuntimeError, match="planted deploy failure"):
+        fleet.make_fleet(torch.Generator().manual_seed(0), 2, w,
+                         _fleet_cfg("subprocess"), device="cpu")
+    assert len(made) == 1 and made[0].driver._proc is None
