@@ -5,8 +5,8 @@
 
 Counterpart of ``benchmarks/run.py`` for its six paper benchmarks
 (:data:`TABLES`) and the runtime benchmarks (:data:`RUNTIME`: drift
-recovery, multi-tenant, the driver transports' overhead, the serving
-gateway, the fleet autopilot; ``e2e_accuracy`` is not ported yet).  Each
+recovery, multi-tenant, the driver transports' overhead, the served LM's
+accuracy under drift, the serving gateway, the fleet autopilot).  Each
 table is written under ``bench_artifacts/torch/`` and printed.  Without
 ``--device`` the tables run on ``cuda`` (and a host without CUDA
 refuses); ``--device cpu`` runs the kernels' plain versions.
@@ -19,8 +19,8 @@ import argparse
 from ..device import resolve_device
 from ..kernels import build
 from . import (blocksize_tables, drift_recovery, driver_overhead,
-               fleet_autopilot, grad_fidelity, ic_convergence, mapping_osp,
-               sampling_table2, scalability, serving_gateway)
+               e2e_accuracy, fleet_autopilot, grad_fidelity, ic_convergence,
+               mapping_osp, sampling_table2, scalability, serving_gateway)
 from .common import Timer
 
 __all__ = ["TABLES", "RUNTIME", "BENCHES", "run", "main"]
@@ -35,11 +35,12 @@ TABLES = (
     ("fig10_scalability", scalability.main),
 )
 # the reference runner's runtime benchmarks, in its order
-# (benchmarks/run.py:71-77; runtime_e2e_accuracy not yet)
+# (benchmarks/run.py:71-77)
 RUNTIME = (
     ("runtime_drift_recovery", drift_recovery.main),
     ("runtime_multi_tenant", drift_recovery.multi_tenant),
     ("hw_driver_overhead", driver_overhead.main),
+    ("runtime_e2e_accuracy", e2e_accuracy.main),
     ("serving_gateway", serving_gateway.main),
     ("fleet_autopilot", fleet_autopilot.main),
 )

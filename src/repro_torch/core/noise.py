@@ -89,10 +89,14 @@ def quantize_phase(phases: torch.Tensor, bits: int | None) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _neighbors(k: int, kind: str, device: torch.device) -> torch.Tensor:
-    """The spec's crosstalk adjacency table, kept on ``device``."""
-    return torch.as_tensor(mesh_spec(k, kind).phase_neighbors.astype(np.int64),
-                           device=device)
+def _neighbors(k: int, kind: str, device: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The spec's crosstalk adjacency table, kept on ``device``: each
+    phase's (T, 2) neighbour indices (the −1 padding read as 0) and which
+    of them are real."""
+    neigh = torch.as_tensor(mesh_spec(k, kind).phase_neighbors.astype(np.int64),
+                            device=device)
+    return neigh.clamp(min=0), neigh >= 0
 
 
 def crosstalk_couple(spec: MeshSpec, phases: torch.Tensor,
@@ -100,9 +104,8 @@ def crosstalk_couple(spec: MeshSpec, phases: torch.Tensor,
     """φ_c = Ω φ — add ω · (sum of same-column neighbour phases)."""
     if omega == 0.0:
         return phases
-    neigh = _neighbors(spec.k, spec.kind, phases.device)      # (T, 2)
-    gathered = phases[..., neigh.clamp(min=0)]                 # (..., T, 2)
-    gathered = torch.where(neigh >= 0, gathered, 0.0)
+    idx, real = _neighbors(spec.k, spec.kind, phases.device)  # (T, 2)
+    gathered = torch.where(real, phases[..., idx], 0.0)       # (..., T, 2)
     return phases + omega * gathered.sum(-1)
 
 

@@ -208,6 +208,14 @@ def apply_mesh_transpose(spec: MeshSpec, phases: torch.Tensor,
     return x
 
 
+@functools.lru_cache(maxsize=64)
+def identity(k: int, dtype: torch.dtype, device: torch.device
+             ) -> torch.Tensor:
+    """The k × k identity on ``device``, made once and only read: every
+    mesh build and every block probe streams it through."""
+    return torch.eye(k, dtype=dtype, device=device)
+
+
 def build_unitary(spec: MeshSpec, phases: torch.Tensor,
                   d: torch.Tensor | None = None) -> torch.Tensor:
     """Materialize ``U`` (..., k, k) from phases (..., T) and signs (..., k).
@@ -225,7 +233,7 @@ def build_unitary(spec: MeshSpec, phases: torch.Tensor,
         d = d.expand(bshape + (k,)).reshape(-1, k).contiguous()
     ph = phases.expand(bshape + (phases.shape[-1],)).reshape(
         -1, phases.shape[-1]).contiguous()
-    eye = torch.eye(k, dtype=phases.dtype, device=phases.device)[None]
+    eye = identity(k, phases.dtype, phases.device)[None]
     u = mesh_apply_batched(spec, ph, eye, d, transpose_out=True)
     return u.reshape(bshape + (k, k))
 

@@ -23,22 +23,26 @@ uses the plain PyTorch versions.
 
 The launch counters live here too: each kernel wrapper adds one to its
 entry in :data:`launch_counts` where it launches its kernel, and nowhere
-else, so a run can show that its path went through the kernels.
+else (:func:`count_launch`), so a run can show that its path went through
+the kernels.  A thread that captures a CUDA graph counts into its own
+tally instead (:func:`tally_launches`), which each replay adds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build",
            "library", "check_status", "launch_counts", "reset_launch_counts",
-           "sm_count"]
+           "count_launch", "add_launches", "tally_launches", "sm_count"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -82,9 +86,45 @@ _libs: dict[str, ctypes.CDLL] = {}
 _sms: dict[int, int] = {}
 
 
+_count_lock = threading.Lock()
+_tally = threading.local()
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: into :data:`launch_counts`, or into
+    the tally of a capture this thread has open."""
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add a replayed graph's launches (a tally) to :data:`launch_counts`."""
+    with _count_lock:
+        for name, n in counts.items():
+            launch_counts[name] += n
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within the block this thread's launches go to the yielded dict, not
+    to :data:`launch_counts`: a CUDA graph's capture launches nothing, and
+    its replays add the tally.  Other threads count as before."""
+    counts: dict[str, int] = {}
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = None
 
 
 def _nvcc() -> str:

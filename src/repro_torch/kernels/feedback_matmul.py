@@ -164,7 +164,7 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
                 mask.data_ptr(), dys.data_ptr(), wt.data_ptr(), dx.data_ptr(),
                 t, p, q, k, torch.cuda.current_stream().cuda_stream)
         build.check_status(LIB_3X, status)
-        build.launch_counts[NAME_WIDE_3X] += 1
+        build.count_launch(NAME_WIDE_3X)
         return dx
     if which == "wide_tc":
         if wide_plan(t, q * k, k).row_tiles > _MAX_ROW_TILES:
@@ -177,7 +177,7 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
                 mask.data_ptr(), wt.data_ptr(), dx.data_ptr(), t, p, q, k,
                 torch.cuda.current_stream().cuda_stream)
         build.check_status(LIB_TC, status)
-        build.launch_counts[NAME_WIDE_TC] += 1
+        build.count_launch(NAME_WIDE_TC)
         return dx
     if which == "wide":
         if wide_plan(t, q * k, k).row_tiles > _MAX_ROW_TILES:
@@ -189,7 +189,7 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
                 mask.data_ptr(), w.data_ptr(), dx.data_ptr(), t, p, q, k,
                 _DTYPES[dy.dtype], torch.cuda.current_stream().cuda_stream)
         build.check_status(LIB_WIDE, status)
-        build.launch_counts[NAME_WIDE] += 1
+        build.count_launch(NAME_WIDE)
         return dx
     kt, kp, rt = plan(t, k)
     if -(-t // 32) > _MAX_ROW_TILES or q >= 2 ** 31:
@@ -205,5 +205,5 @@ def feedback_matmul(dy: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
                         dyt.data_ptr(), dx.data_ptr(), t, p, q, k, kt, rt,
                         _DTYPES[dy.dtype], stream)
     build.check_status(NAME, status)
-    build.launch_counts[NAME] += 1
+    build.count_launch(NAME)
     return dx

@@ -238,7 +238,7 @@ def mesh_apply_batched(spec, phases: torch.Tensor, x: torch.Tensor,
                 r * k, y_rstride, y_wstride, b, r, k, t, _KINDS[spec.kind],
                 narrow_plan(k, spec.kind).off, stream)
     build.check_status(NAME, status)
-    build.launch_counts[ROUTES[which]] += 1
+    build.count_launch(ROUTES[which])
     return out
 
 

@@ -85,7 +85,7 @@ def paged_gather(table: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
             table.data_ptr(), pages.data_ptr(), out.data_ptr(), b, j, n_pages,
             page_bytes, _vec_bytes(page_bytes, pages, out), stream)
     build.check_status(LIB, status)
-    build.launch_counts["paged_gather"] += 1
+    build.count_launch("paged_gather")
     return out
 
 
@@ -124,7 +124,7 @@ def paged_scatter(idx: torch.Tensor, rows: torch.Tensor,
             winner.data_ptr(), r, n_pages, ps, row_bytes,
             _vec_bytes(row_bytes, rows, pages), stream)
     build.check_status(LIB, status)
-    build.launch_counts["paged_scatter"] += 1
+    build.count_launch("paged_scatter")
     return pages
 
 

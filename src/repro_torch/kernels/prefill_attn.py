@@ -144,5 +144,5 @@ def prefill_attention(lens: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                            int(q.dtype == torch.bfloat16),
                            int(k.dtype == torch.bfloat16), stream)
     build.check_status(lib, status)
-    build.launch_counts[NAME if tc else NAME_CUDA_CORES] += 1
+    build.count_launch(NAME if tc else NAME_CUDA_CORES)
     return out

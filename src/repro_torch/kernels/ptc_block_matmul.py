@@ -362,5 +362,5 @@ def ptc_block_matmul(x: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
                 wt.data_ptr(), part.data_ptr(), y.data_ptr(), t, p, q, k,
                 _DTYPES[x.dtype], pl.wn, pl.kc, pl.splits, stream)
     build.check_status(lib, status)
-    build.launch_counts[ROUTES[which]] += 1
+    build.count_launch(ROUTES[which])
     return y

@@ -183,7 +183,7 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
                 b.data_ptr(), ds.data_ptr(), t, p, q, k,
                 torch.cuda.current_stream().cuda_stream)
         build.check_status(LIB_3X, status)
-        build.launch_counts[NAME_WIDE_3X] += 1
+        build.count_launch(NAME_WIDE_3X)
         return ds
     if which == "wide_tc":
         if wide_plan(p * k, q * k, k).row_tiles > _MAX_GRID:
@@ -201,7 +201,7 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
                 live.data_ptr(), ds.data_ptr(), t, p, q, k,
                 torch.cuda.current_stream().cuda_stream)
         build.check_status(LIB_TC, status)
-        build.launch_counts[NAME_WIDE_TC] += 1
+        build.count_launch(NAME_WIDE_TC)
         return ds
     if which == "wide":
         if wide_plan(p * k, q * k, k).row_tiles > _MAX_GRID:
@@ -214,7 +214,7 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
                 ds.data_ptr(), t, p, q, k, _DTYPES[dy.dtype],
                 torch.cuda.current_stream().cuda_stream)
         build.check_status(LIB_WIDE, status)
-        build.launch_counts[NAME_WIDE] += 1
+        build.count_launch(NAME_WIDE)
         return ds
     if col is not None:
         dy = dy.float() * col[:, None]
@@ -232,5 +232,5 @@ def sigma_grad(dy: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
                                    ds.data_ptr(), t, p, q, k, pl.chunk_rows,
                                    pl.splits, _DTYPES[dy.dtype], stream)
     build.check_status(NAME, status)
-    build.launch_counts[NAME] += 1
+    build.count_launch(NAME)
     return ds

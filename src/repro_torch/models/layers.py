@@ -292,4 +292,8 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["e"][tokens]
+    # F.embedding, not p["e"][tokens]: the same gather, but its backward
+    # sums each row's gradient in one order, where the index backward
+    # (index_put_ with accumulate) on several CPU threads sums repeated
+    # tokens in whatever order the threads reach them
+    return F.embedding(tokens, p["e"])

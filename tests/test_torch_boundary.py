@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.benchmarks import e2e_accuracy
 from repro_torch.core.calibration import calibrate_identity
 from repro_torch.core.mapping import parallel_map
 from repro_torch.core.noise import NoiseModel
@@ -96,7 +97,8 @@ def test_entry_points_refuse_the_host_without_cuda():
                  prompt_len_range=(2, 3), max_new=(1, 2), eos_id=None,
                  slots=1, page_size=4, pages=4, max_pages_per_slot=2)),
              lambda: ServingGateway(smoke_config("qwen3-4b"), {},
-                                    GatewayConfig())]
+                                    GatewayConfig()),
+             e2e_accuracy.main]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -505,9 +505,9 @@ def test_frozen_partial_recal_and_runner_registration():
     assert got["recovered"] and got["cotenants_bit_identical"]
     assert got["ptc_calls"] > 0
     names = [name for name, _ in bench_run.BENCHES]
-    assert names[-5:] == ["runtime_drift_recovery", "runtime_multi_tenant",
-                          "hw_driver_overhead", "serving_gateway",
-                          "fleet_autopilot"]
+    assert names[-6:] == ["runtime_drift_recovery", "runtime_multi_tenant",
+                          "hw_driver_overhead", "runtime_e2e_accuracy",
+                          "serving_gateway", "fleet_autopilot"]
     assert [name for name, _ in bench_run.TABLES] == names[:6]
     # the multi-tenant benchmark's subprocess leg: the frozen-device check
     # over a server child gives the twin's distances bit for bit

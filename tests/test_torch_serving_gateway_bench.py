@@ -215,5 +215,6 @@ def test_runner_registers_the_benchmark():
     names = [name for name, _ in bench_run.RUNTIME]
     assert ("serving_gateway", tsg.main) in bench_run.RUNTIME
     assert names.index("hw_driver_overhead") < names.index(
+        "runtime_e2e_accuracy") < names.index(
         "serving_gateway") < names.index("fleet_autopilot")
     assert ("serving_gateway", tsg.main) in bench_run.BENCHES

@@ -161,3 +161,43 @@ def test_zo_refine_under_injected_draws(twins):
     assert rt.steps == rj.steps == cfg.steps
     assert tt.stats.as_dict() == jt.stats.as_dict()
     assert torch.equal(torch.cat(tt.read_phases(), dim=-1), rt.phi)
+
+
+@pytest.mark.parametrize("by", ["gen", "draws"])
+@pytest.mark.parametrize("k, kind", [(4, "clements"), (8, "clements"),
+                                     (5, "reck")])
+def test_zcd_phase_refine_is_zo_minimize_bit_for_bit(k, kind, by):
+    """``phase_refine``'s ZCD realizes only the moved half's unitary at each
+    measurement; ``zo_minimize`` on the whole loss gives the same bits."""
+    from repro_torch.core.noise import DEFAULT_NOISE as T_NOISE
+    from repro_torch.hw import jobs
+    from repro_torch.hw.device import realized_unitaries, sample_device
+    from repro_torch.optim.zo import ZOConfig as TZOConfig, zo_minimize
+
+    gen = torch.Generator().manual_seed(k)
+    spec = tun.mesh_spec(k, kind)
+    t, b = spec.n_rot, 6
+    dev = sample_device(gen, (b,), k, T_NOISE, kind)
+    phi0 = torch.rand((b, 2 * t), generator=gen) * 6.28
+    sigma = torch.rand((b, k), generator=gen) + 0.5
+    w = torch.randn((b, k, k), generator=gen)
+    cfg = TZOConfig(steps=40, inner=6, delta0=0.05, decay=1.05,
+                    record_every=7)
+
+    def loss(ph):
+        u, v = realized_unitaries(spec, ph[:, :t], ph[:, t:], dev, T_NOISE)  # repro: noqa[RPL103]
+        return jobs._block_distance(jobs.probe_transfer(u, sigma, v), w)
+
+    def src():
+        if by == "gen":
+            return dict(gen=torch.Generator().manual_seed(7))
+        return dict(draws=jobs.job_draws(torch.Generator().manual_seed(7),
+                                         "zcd", b, cfg.steps, t))
+
+    s = src()
+    got = jobs.phase_refine(spec, T_NOISE, dev, phi0, sigma, w, s.get("gen"),
+                            cfg, "zcd", s.get("draws"))
+    want = zo_minimize(loss, phi0, cfg, "zcd", alt_split=t, **src())
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)
+    assert not torch.equal(got.x, phi0)
