@@ -1082,6 +1082,16 @@ def wide_kernels(torch, gen) -> dict:
           and tuple(out) == TF32X3_TILE,
           f"ptc_wide_3xtf32: the kernel's tile {tuple(out)} is not the "
           f"plan's {TF32X3_TILE}")
+    # the k <= 32 Σ-gradient's tile (p-blocks, q-blocks, rows a stage),
+    # through the wrapper's own binding of sigma_grad_tile
+    from repro_torch.kernels.sigma_grad import _BK, _TILE, _lib as sigma_lib
+    for k in (4, 8, 9, 16, 32):
+        check(sigma_lib().sigma_grad_tile(k, out) == 0
+              and tuple(out) == (*_TILE[k], _BK),
+              f"sigma_grad k={k}: the kernel's tile {tuple(out)} is not the "
+              f"plan's {(*_TILE[k], _BK)}")
+    print("[check] sigma_grad_tile (bound in the wrapper): the kernel's "
+          "tile is the plan's at k = 4, 8, 9, 16, 32")
 
     def mk(*shape, dtype=f32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1906,6 +1916,59 @@ def serving_kernels(torch, gen, parent=None) -> dict:
 # ---------------------------------------------------------------------------
 # phases 2 and 3: the main path
 # ---------------------------------------------------------------------------
+
+
+def ptc_bridge_check(torch) -> None:
+    """The PTC phase bridges on the card, at a (2, 2) grid of k = 9
+    Clements blocks: ``factors_to_phases`` then ``phases_to_factors`` with
+    no model recomposes a seeded weight's SVD factors to 1e-4 (the
+    reference's tolerance); ``phases_to_factors`` with the quickstart's
+    noise model on shared draws equals its plain version on the CPU to
+    1e-5; each ``phases_to_factors`` launches the mesh kernel twice (one
+    ``build_unitary`` a side) and no other kernel."""
+    from repro_torch.core.noise import NoiseModel, sample_phase_noise
+    from repro_torch.core.ptc import (PTCPhaseParams, compose_weight,
+                                      factors_to_phases, phases_to_factors,
+                                      svd_factorize, unblockize)
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(32)
+    w = 0.3 * torch.randn((18, 18), generator=gen)
+    ph = factors_to_phases(svd_factorize(w.to("cuda"), 9), kind="clements")
+    check(ph.phi_u.device.type == "cuda" and ph.phi_u.shape == (2, 2, 36),
+          f"bridges: phases {tuple(ph.phi_u.shape)} on {ph.phi_u.device}")
+
+    def launched(fn):
+        before = dict(build.launch_counts)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in build.launch_counts.items()
+                     if v != before[k]}
+
+    ideal, n_ideal = launched(lambda: phases_to_factors(ph, kind="clements"))
+    err_rt = (unblockize(compose_weight(ideal)).cpu() - w).abs().max().item()
+    model = NoiseModel()        # the quickstart's: 8-bit Q, Γ, Ω, Φ_b
+    nu, nv = (sample_phase_noise(gen, tuple(ph.phi_u.shape), model)
+              for _ in range(2))
+    noisy, n_noisy = launched(lambda: phases_to_factors(
+        ph, type(nu)(*(a.cuda() for a in nu)),
+        type(nv)(*(a.cuda() for a in nv)), kind="clements", model=model))
+    plain = phases_to_factors(PTCPhaseParams(*(a.cpu() for a in ph)), nu, nv,
+                              kind="clements", model=model)
+    err_noisy = max((noisy.u.cpu() - plain.u).abs().max().item(),
+                    (noisy.v.cpu() - plain.v).abs().max().item())
+    print(f"[parity] PTC phase bridges, (2, 2) grid of k = 9 clements: "
+          f"round trip max |W - W'| {err_rt:.3e} (limit 1e-4); noisy "
+          f"factors vs plain (CPU) {err_noisy:.3e} (limit 1e-5); launches "
+          f"{n_ideal} then {n_noisy} (2 mesh_apply each); "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(err_rt < 1e-4, f"bridges: round trip off by {err_rt:.3e}")
+    check(err_noisy < 1e-5, f"bridges: noisy factors off the plain version "
+                            f"by {err_noisy:.3e}")
+    check(n_ideal == n_noisy == {"mesh_apply": 2},
+          f"bridges: phases_to_factors launched {n_ideal}, {n_noisy}, not "
+          f"mesh_apply twice each")
 
 
 def main_path(torch, name: str, geometry: tuple, **kw) -> tuple[dict, dict]:
@@ -5848,6 +5911,7 @@ def main(argv=None) -> int:
               f"{REFERENCE['dense_acc']}, IC MSE {REFERENCE['ic_mse']}, PM "
               f"osp {REFERENCE['err_osp']}, mapped {REFERENCE['mapped_acc']}, "
               f"SL {REFERENCE['sl_acc']}")
+        ptc_bridge_check(torch)
 
     lap("parity")
     if "full" in phases:

@@ -1,8 +1,16 @@
 """Photonic tensor core (PTC) substrate: blockwise-SVD weight parametrization.
 
-Counterpart of ``repro/core/ptc.py`` (the parts the calibrate → map →
-serve and subspace-learning slices use).  Every ``M×N`` weight is stored as ``P×Q`` blocks of
-size ``k×k``, each factorized ``W_pq = U_pq Σ_pq V*_pq``.
+Counterpart of ``repro/core/ptc.py``.  Every ``M×N`` weight is stored as
+``P×Q`` blocks of size ``k×k``, each factorized ``W_pq = U_pq Σ_pq V*_pq``:
+
+* :class:`PTCParams`: factor-level parameters ``(u, s, v)``;
+* :class:`PTCPhaseParams`: phase-level parameters (MZI rotations + sign
+  diagonals), the physical control variables, bridged to and from the
+  factors by :func:`phases_to_factors` (through the mesh kernel on a CUDA
+  tensor) and :func:`factors_to_phases` (exact float64 decomposition);
+* :func:`ptc_forward_blocked` (through the PTC kernel on a CUDA tensor),
+  :func:`ptc_forward_fused` (one recomposed dense matmul), and the
+  :func:`ptc_forward` dispatcher.
 
 Conventions: ``W`` is ``(M, N) = (out, in)``; a linear layer computes
 ``y = x @ W.T``; ``w_blocks[p, q] = W[p·k:(p+1)·k, q·k:(q+1)·k]``; ``v``
@@ -15,15 +23,19 @@ from typing import NamedTuple
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels.ptc_block_matmul import ptc_block_matmul
+from . import unitary as un
+from .noise import NoiseModel, PhaseNoise, apply_phase_noise
 
-__all__ = ["PTCParams", "pad_to_blocks", "blockize", "unblockize",
-           "svd_factorize", "random_factorize", "identity_factorize",
-           "compose_weight", "block_energy", "ptc_forward_blocked",
-           "ptc_forward_fused"]
+__all__ = ["PTCParams", "PTCPhaseParams", "pad_to_blocks", "blockize",
+           "unblockize", "svd_factorize", "random_factorize",
+           "identity_factorize", "compose_weight", "block_energy",
+           "ptc_forward_blocked", "ptc_forward_fused", "ptc_forward",
+           "phases_to_factors", "factors_to_phases"]
 
 
 class PTCParams(NamedTuple):
@@ -45,6 +57,21 @@ class PTCParams(NamedTuple):
     @property
     def grid(self) -> tuple[int, int]:
         return self.u.shape[0], self.u.shape[1]
+
+
+class PTCPhaseParams(NamedTuple):
+    """Phase-level PTC parameters (the physical control variables).
+
+    phi_u / phi_v: (P, Q, T) MZI rotation phases, T = k(k-1)/2
+    d_u / d_v:     (P, Q, k) ±1 sign diagonals
+    s:             (P, Q, k) singular values (attenuator settings)
+    """
+
+    phi_u: torch.Tensor
+    d_u: torch.Tensor
+    phi_v: torch.Tensor
+    d_v: torch.Tensor
+    s: torch.Tensor
 
 
 def pad_to_blocks(m: int, k: int) -> int:
@@ -159,3 +186,69 @@ def ptc_forward_fused(params: PTCParams, x: torch.Tensor,
     if out_dim is not None and out_dim != p * k:
         y = y[..., :out_dim]
     return y
+
+
+def ptc_forward(params: PTCParams, x: torch.Tensor, *, mode: str = "fused",
+                out_dim: int | None = None) -> torch.Tensor:
+    """The forward by ``mode``: ``"fused"`` or ``"blocked"``."""
+    if mode == "fused":
+        return ptc_forward_fused(params, x, out_dim)
+    if mode == "blocked":
+        return ptc_forward_blocked(params, x, out_dim)
+    raise ValueError(f"unknown ptc forward mode: {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# Phase-level <-> factor-level bridges (used by IC / PM / noise experiments)
+# ---------------------------------------------------------------------------
+
+
+def phases_to_factors(phase_params: PTCPhaseParams,
+                      noise_u: PhaseNoise | None = None,
+                      noise_v: PhaseNoise | None = None,
+                      *, kind: str = "clements",
+                      model: NoiseModel | None = None) -> PTCParams:
+    """Materialize the (optionally noisy) realized factors from phases:
+    the unitaries the mesh implements once ``Ω Γ Q(Φ) + Φ_b`` is applied.
+
+    Each side is one :func:`~repro_torch.core.unitary.build_unitary` call
+    over all P·Q blocks (one mesh-kernel launch on a CUDA tensor, so two
+    per call); the factors lie on the phases' device."""
+    k = phase_params.d_u.shape[-1]
+    spec = un.mesh_spec(k, kind)
+    phi_u, phi_v = phase_params.phi_u, phase_params.phi_v
+    if model is not None and model.enabled:
+        if noise_u is None or noise_v is None:
+            raise ValueError("phases_to_factors: a noise model needs "
+                             "noise_u and noise_v")
+        phi_u = apply_phase_noise(spec, phi_u, noise_u, model)
+        phi_v = apply_phase_noise(spec, phi_v, noise_v, model)
+    u = un.build_unitary(spec, phi_u, phase_params.d_u)
+    v = un.build_unitary(spec, phi_v, phase_params.d_v)
+    return PTCParams(u=u, s=phase_params.s, v=v)
+
+
+def factors_to_phases(params: PTCParams, kind: str = "clements",
+                      ) -> PTCPhaseParams:
+    """Exact per-block mesh decomposition (numpy, float64) of ideal
+    factors, as the reference does it; fp32 phases and signs on the
+    factors' device."""
+    p, q = params.grid
+    k = params.k
+    u_np = params.u.detach().cpu().double().numpy()
+    v_np = params.v.detach().cpu().double().numpy()
+    t = un.num_phases(k)
+    phi_u = np.zeros((p, q, t))
+    phi_v = np.zeros((p, q, t))
+    d_u = np.zeros((p, q, k))
+    d_v = np.zeros((p, q, k))
+    for i in range(p):
+        for j in range(q):
+            phi_u[i, j], d_u[i, j] = un.decompose(u_np[i, j], kind)
+            phi_v[i, j], d_v[i, j] = un.decompose(v_np[i, j], kind)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=params.u.device)
+
+    return PTCPhaseParams(phi_u=f32(phi_u), d_u=f32(d_u), phi_v=f32(phi_v),
+                          d_v=f32(d_v), s=params.s)

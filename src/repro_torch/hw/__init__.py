@@ -21,6 +21,12 @@ Three transports: :class:`TwinDriver` in process, and
 :class:`SubprocessDriver` / :class:`SocketDriver` over the wire of
 ``docs/wire-protocol.md``, which the reference's clients and servers speak
 too.  For one generator the three give the same bits and the same meter.
+
+The ``# repro: noqa[RPL1xx]`` tags on this package's lines (and on
+``convert.py``, ``runtime/fleet.py`` and ``chip_smoke.py``) are for the
+reference's checker, which scans all of ``src`` and reads the port with
+its own module map; the port's checker (``repro_torch.analysis``, rules
+RPT1xx) reads them clean without a tag and ignores that one.
 """
 
 from .driver import (PhotonicDriver, DriverStats, ZORefineResult,

@@ -254,6 +254,8 @@ def plan(t: int, p: int, q: int, k: int, sms: int = 132) -> Plan:
 
 
 def _fns():
+    """The loaded ``ptc_block_matmul`` library (the product and per-block
+    routes, and ``ptc_block_matmul_tile``, the product's tile by k)."""
     lib = build.library(LIB)
     if lib.ptc_block_matmul_product.argtypes is None:
         lib.ptc_block_matmul_product.argtypes = \
@@ -262,6 +264,9 @@ def _fns():
         lib.ptc_block_matmul_perblock.argtypes = \
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ptc_block_matmul_perblock.restype = ctypes.c_int
+        lib.ptc_block_matmul_tile.argtypes = \
+            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+        lib.ptc_block_matmul_tile.restype = ctypes.c_int
     return lib
 
 

@@ -105,11 +105,16 @@ def route(k: int, dtype: torch.dtype | None = None) -> str:
 
 
 def _lib():
+    """The loaded ``sigma_grad`` library (the k <= 32 kernel, and
+    ``sigma_grad_tile``, its tile by k: p-blocks, q-blocks, rows a stage)."""
     lib = build.library(NAME)
     if lib.sigma_grad.argtypes is None:
         lib.sigma_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         lib.sigma_grad.restype = ctypes.c_int
+        lib.sigma_grad_tile.argtypes = [ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)]
+        lib.sigma_grad_tile.restype = ctypes.c_int
     return lib
 
 
